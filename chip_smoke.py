@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card (Hopper).
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+
+  1. device  — a CUDA card is present; print its name and power limit.
+  2. build   — compile the port's kernel from ``csrc/`` (nvcc, sm_90a).
+  3. kernel  — each kernel against its plain PyTorch version at the
+               shapes the serving path gives it, on the card: pools
+               bitwise equal, outputs within the stated tolerance, a
+               poisoned pool gives the clean output; median times of
+               the kernel and the plain version (CUDA events).
+  4. serve   — the port's serving path end to end at full width
+               (``ServingServer`` -> ``PagedKVExecutor`` ->
+               ``PagedDecodeStep`` -> the CUDA kernel): 8 HTTP requests,
+               32 tokens each, in pipelined and sync mode and with the
+               plain attention; token streams must be identical. Before
+               it, a small configuration on the card must decode the same
+               streams as the CPU path the tests hold against the JAX
+               package.
+  5. profile — one more served run under ``torch.profiler``: device time
+               by kernel and the device's idle share.
+
+The second line from the end is one JSON object with a record per kernel
+(launches on the served run, max error, times, bound); the last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+package beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+# Kernel phase: the deploy shape of the serving phase below.
+KS, KC, KB, KBS, KH, KDH, KN = 16, 16, 256, 16, 32, 128, 8192
+# Kernel vs plain: both accumulate f32 over up to 4096 positions, in
+# another order (online softmax by blocks vs one softmax), and scale by
+# 1/sqrt(dh) vs divide by sqrt(dh).
+O_RTOL, O_ATOL = 1e-4, 1e-5
+
+# Serving phase: the attention widths of Llama-2-7B (d 4096, 32 heads
+# of 128), the repo's default MLP width 2*d, a 4096-token context.
+SERVE = dict(vocab=32000, d=4096, heads=32, block_size=16,
+             max_blocks_per_req=256, num_blocks=8192, slots=16,
+             prefill_chunk=16, pool_dtype="int8", seed=0)
+PROMPT_LENS = [256, 3000, 1200, 2000, 800, 2600]  # + two sharing 512
+SHARED_PREFIX = 512
+MAX_TOKENS = 32
+
+# Small configuration held against the CPU path (the tests' widths).
+SMALL = dict(slots=2, vocab=16, d=8, heads=2, block_size=4,
+             num_blocks=32, max_blocks_per_req=4, prefill_chunk=4, seed=0)
+SMALL_PROMPTS = [[1, 2, 3, 4, 5, 6], [7, 8, 9]]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond, msg) -> None:
+    """A phase's pass/fail test (kept under ``python -O``, unlike
+    ``assert``)."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# -- phase 3: kernel against plain --------------------------------------------
+
+
+def kernel_inputs(torch, pool_dtype, poisoned, seed=0):
+    """Seeded inputs at deploy shape: one idle slot, decode rows, and
+    16-row prefill chunks crossing block edges, ctx from 0 to ~4000. The
+    pools are drawn on the card (a CUDA generator), the rest with
+    numpy."""
+    rng = np.random.RandomState(seed)
+    S, C, B, bs, H, dh, N = KS, KC, KB, KBS, KH, KDH, KN
+    ctx = np.zeros(S, np.int64)
+    n_new = np.zeros(S, np.int64)
+    for s in range(1, S):
+        if s % 2:                      # decode
+            ctx[s] = rng.randint(1, 4000)
+            n_new[s] = 1
+        else:                          # prefill chunk, off a block edge
+            ctx[s] = rng.randint(0, 4000 - C) // bs * bs + rng.randint(1, bs)
+            n_new[s] = C
+    ctx[S - 1] = B * bs - 1            # the very last position
+    tables = rng.permutation(N)[:S * B].reshape(S, B)
+    tables[0] = 0                      # idle slot: the planner's zero row
+    q, k, v = (rng.randn(S, C, H, dh).astype(np.float32) for _ in range(3))
+    if pool_dtype == "int8":
+        kscale = rng.uniform(0.01, 0.03, N).astype(np.float32)
+        vscale = rng.uniform(0.01, 0.03, N).astype(np.float32)
+    else:
+        kscale = np.ones(N, np.float32)
+        vscale = np.ones(N, np.float32)
+    rows = np.clip((ctx[:, None] + np.arange(C)) // bs, 0, B - 1)
+    blk_rows = np.take_along_axis(tables, rows, axis=1)
+    ksc_tbl, vsc_tbl = kscale[tables], vscale[tables]
+    limit = ctx + n_new
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (N, bs, H, dh)
+    if pool_dtype == "int8":
+        kpool, vpool = (torch.randint(-127, 128, shape, generator=gen,
+                                      device="cuda", dtype=torch.int8)
+                        for _ in range(2))
+    else:
+        kpool, vpool = (torch.randn(shape, generator=gen, device="cuda")
+                        for _ in range(2))
+    if poisoned:
+        ok = np.zeros((N, bs), bool)
+        for s in range(S):
+            p = np.arange(limit[s])
+            ok[tables[s, p // bs], p % bs] = True
+        bad = torch.from_numpy(~ok).cuda()
+        if pool_dtype == "int8":
+            kpool[bad], vpool[bad] = 113, -113
+        else:
+            kpool[bad], vpool[bad] = float("nan"), float("nan")
+        past = np.arange(B)[None, :] >= -(-limit[:, None] // bs)
+        ksc_tbl = np.where(past, np.nan, ksc_tbl).astype(np.float32)
+        vsc_tbl = np.where(past, np.nan, vsc_tbl).astype(np.float32)
+    small = [tables.astype(np.int32), ctx.astype(np.int32),
+             n_new.astype(np.int32), q, k, v, kscale[blk_rows],
+             vscale[blk_rows], ksc_tbl, vsc_tbl]
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in small]
+    return args + [kpool, vpool], ctx, n_new
+
+
+def bits(torch, t):
+    """A view whose equality is bitwise (NaN rows compare equal)."""
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+def attn_cost(ctx, n_new, pool_dtype):
+    """(bytes, flops) the function needs on these inputs, each byte moved
+    once: q read and o written for all S*C rows; k_new, v_new and their
+    row scales read for the appended rows only (sum n_new); K/V read at
+    the sum(ctx) positions already in the pools, and the appended rows
+    written (the new rows attend them from k_new/v_new, they need not be
+    read back); table entries and table scales read for the blocks below
+    each slot's limit; ctx and n_new. 4 flops per (row, position,
+    element) attended (q.k and p.v)."""
+    item = 1 if pool_dtype == "int8" else 4
+    row = KH * KDH
+    appended = int(np.sum(n_new))
+    blocks = int(np.sum(-(-(ctx + n_new) // KBS)))
+    nbytes = (2 * KS * KC * row * 4                  # q in, o out
+              + 2 * appended * (row * 4 + 4)         # k/v_new, row scales
+              + 2 * int(np.sum(ctx)) * row * item    # K/V pages read
+              + 2 * appended * row * item            # appended rows
+              + 3 * blocks * 4                       # table, its scales
+              + 2 * KS * 4)                          # ctx, n_new
+    flops = 4 * row * int(sum(int(ctx[s]) * int(n_new[s])
+                              + int(n_new[s]) * (int(n_new[s]) + 1) // 2
+                              for s in range(len(ctx))))
+    return nbytes, flops
+
+
+def time_ms(torch, fn, n=25, warm=3):
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def phase_kernel(torch, card):
+    from dpu_operator_tpu_torch.parallel import paged_attn as pa
+
+    record = None
+    for pool_dtype in ("int8", "fp32"):
+        clean = {}
+        for poisoned in (False, True):
+            args, ctx, n_new = kernel_inputs(torch, pool_dtype, poisoned)
+            kargs = [a.clone() for a in args]
+            before = pa.paged_attn_step_cuda.launches
+            o_k = pa.paged_attn_step_cuda(*kargs)
+            o_p = pa.paged_attn_step_plain(*args)
+            torch.cuda.synchronize()
+            check(pa.paged_attn_step_cuda.launches == before + 1,
+                  "the wrapper must count its one launch")
+            tag = f"{pool_dtype}{' poisoned' if poisoned else ''}"
+            for i, name in ((10, "kpool"), (11, "vpool")):
+                if not torch.equal(bits(torch, kargs[i]),
+                                   bits(torch, args[i])):
+                    raise AssertionError(f"kernel {tag}: {name} differs "
+                                         f"from the plain version's")
+            check(torch.isfinite(o_k).all(), f"kernel {tag}: non-finite o")
+            check(torch.isfinite(o_p).all(), f"plain {tag}: non-finite o")
+            err = float((o_k - o_p).abs().max())
+            if not torch.allclose(o_k, o_p, rtol=O_RTOL, atol=O_ATOL):
+                raise AssertionError(f"kernel {tag}: o differs from the "
+                                     f"plain version by {err}")
+            check(not o_k[0].any(), "idle slot rows must be 0")
+            if poisoned:
+                if not (torch.equal(o_k, clean["k"])
+                        and torch.equal(o_p, clean["p"])):
+                    raise AssertionError(f"{tag}: poisoned pool leaked "
+                                         f"into o")
+                log(f"kernel {tag}: o equals the clean run's exactly")
+                continue
+            clean = {"k": o_k, "p": o_p}
+            ms = time_ms(torch, lambda: pa.paged_attn_step_cuda(*kargs))
+            plain_ms = time_ms(torch,
+                               lambda: pa.paged_attn_step_plain(*args),
+                               n=20, warm=2)
+            nbytes, flops = attn_cost(ctx, n_new, pool_dtype)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP32_FLOP_PER_S * 1e3
+            log(f"kernel {tag}: pools bitwise equal, max |o err| {err:.3e} "
+                f"(rtol {O_RTOL}, atol {O_ATOL}); kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms (median of 25/20 launches), "
+                f"bound {max(t_bytes, t_ops):.4f} ms "
+                f"({nbytes} B, {flops} flop) [{card}]")
+            if pool_dtype == "int8":
+                record = dict(
+                    name="paged_attn", route="cuda",
+                    source="dpu_operator_tpu_torch/csrc/paged_attn.cu",
+                    replaces="dpu_operator_tpu/parallel/"
+                             "pallas_paged_attn.py:292",
+                    launches=None, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=None)
+            del args, kargs
+    torch.cuda.empty_cache()
+    return record
+
+
+# -- phase 4: the serving path ------------------------------------------------
+
+
+def post(url, body, timeout):
+    req = urllib.request.Request(url + "/v1/generate",
+                                 data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def serve_prompts():
+    rng = np.random.RandomState(1)
+    vocab = SERVE["vocab"]
+    prefix = rng.randint(0, vocab, SHARED_PREFIX).tolist()
+    prompts = [prefix + rng.randint(0, vocab, 300).tolist(),
+               prefix + rng.randint(0, vocab, 700).tolist()]
+    prompts += [rng.randint(0, vocab, n).tolist() for n in PROMPT_LENS]
+    return prompts
+
+
+def serve_once(torch, ex, prompts, card):
+    from dpu_operator_tpu_torch.serving import ServingServer
+
+    srv = ServingServer([ex], max_tokens_cap=MAX_TOKENS,
+                        pool_opts={"watchdog_s": 300.0}).start()
+    results = [None] * len(prompts)
+
+    def one(i):
+        results[i] = post(srv.url, {"prompt_tokens": prompts[i],
+                                    "max_tokens": MAX_TOKENS,
+                                    "deadline_ms": 600000}, timeout=900)
+
+    steps0 = ex._step_no
+    t0 = time.monotonic()
+    try:
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        srv.stop()
+    wall = time.monotonic() - t0
+    steps = ex._step_no - steps0
+    streams = []
+    for i, res in enumerate(results):
+        check(res is not None, f"request {i}: no response")
+        code, body = res
+        check(code == 200, f"request {i}: HTTP {code} {body}")
+        toks = body["tokens"]
+        check(len(toks) == MAX_TOKENS and not body["truncated"],
+              f"request {i}: {len(toks)} tokens, "
+              f"truncated={body['truncated']}")
+        check(all(0 <= t < SERVE["vocab"] for t in toks),
+              f"request {i}: token out of vocab")
+        streams.append(toks)
+    if ex.prefix is not None:
+        ex.prefix.flush()
+    ex.allocator.assert_clean()
+    n_tok = MAX_TOKENS * len(prompts)
+    n_prompt = sum(len(p) for p in prompts)
+    return streams, dict(wall_s=wall, steps=steps,
+                         gen_tok_per_s=n_tok / wall,
+                         all_tok_per_s=(n_tok + n_prompt) / wall,
+                         step_ms=wall / max(steps, 1) * 1e3)
+
+
+def phase_small(torch):
+    """A small configuration on the card decodes the streams the CPU path
+    decodes; the CPU path is what the tests hold against the JAX
+    package."""
+    from dpu_operator_tpu_torch.serving import (GenerateRequest,
+                                                PagedKVExecutor)
+
+    def drive(ex):
+        reqs = [GenerateRequest(prompt_vec=None, max_tokens=4,
+                                deadline=time.monotonic() + 60,
+                                prompt_tokens=list(p))
+                for p in SMALL_PROMPTS]
+        for s, r in enumerate(reqs):
+            ex.kv_attach(s, r)
+        for _ in range(100):
+            toks = ex.collect(ex.submit((), gen=ex.kv_gen()))
+            for s, r in enumerate(reqs):
+                if toks[s] >= 0 and len(r.tokens) < 4:
+                    r.tokens.append(int(toks[s]))
+            if all(len(r.tokens) == 4 for r in reqs):
+                break
+        out = [list(r.tokens) for r in reqs]
+        for s, r in enumerate(reqs):
+            ex.kv_release_slot(s, cache=False)
+            r.finish()
+        ex.allocator.assert_clean()
+        return out
+
+    for pool_dtype in ("int8", "fp32"):
+        cpu = drive(PagedKVExecutor(**SMALL, pool_dtype=pool_dtype,
+                                    mode="sync", device="cpu"))
+        gpu = drive(PagedKVExecutor(**SMALL, pool_dtype=pool_dtype,
+                                    mode="sync", kernel="cuda",
+                                    device="cuda"))
+        check(gpu == cpu, f"small {pool_dtype}: card {gpu} != cpu {cpu}")
+        check(all(len(s) == 4 for s in gpu), f"small {pool_dtype}: short")
+        log(f"small {pool_dtype}: card streams == CPU streams {gpu}")
+
+
+def phase_serve(torch, card):
+    from dpu_operator_tpu_torch.parallel import paged_attn as pa
+    from dpu_operator_tpu_torch.serving import PagedKVExecutor
+
+    prompts = serve_prompts()
+    runs = {}
+    launches = None
+    for label, kw in (("pipelined/cuda", dict(mode="pipelined",
+                                               kernel="cuda")),
+                      ("sync/cuda", dict(mode="sync", kernel="cuda")),
+                      ("pipelined/torch", dict(mode="pipelined",
+                                                kernel="torch"))):
+        t0 = time.monotonic()
+        ex = PagedKVExecutor(**SERVE, **kw, device="cuda")
+        setup = time.monotonic() - t0
+        if label == "pipelined/cuda":
+            pa.paged_attn_step_cuda.launches = 0
+        streams, st = serve_once(torch, ex, prompts, card)
+        if label == "pipelined/cuda":
+            launches = pa.paged_attn_step_cuda.launches
+            check(launches >= st["steps"] > 0,
+                  f"kernel launches {launches} for {st['steps']} steps")
+        runs[label] = streams
+        log(f"serve {label}: {len(prompts)} requests x {MAX_TOKENS} "
+            f"tokens, prompts {sum(map(len, prompts))} tokens, "
+            f"{st['steps']} steps in {st['wall_s']:.3f} s -> "
+            f"{st['gen_tok_per_s']:.1f} generated tok/s, "
+            f"{st['all_tok_per_s']:.1f} prompt+generated tok/s, "
+            f"{st['step_ms']:.3f} ms/step wall (setup {setup:.1f} s) "
+            f"[{card}]")
+        del ex
+        torch.cuda.empty_cache()
+    base = runs["pipelined/cuda"]
+    for label, streams in runs.items():
+        check(streams == base,
+              f"{label} streams differ from pipelined/cuda")
+    distinct = [len(set(s)) for s in base]
+    check(min(distinct) > 1, f"degenerate streams: {distinct}")
+    check(len({tuple(s) for s in base}) == len(base), "identical streams")
+    log(f"serve: streams identical across pipelined/sync and cuda/torch; "
+        f"distinct tokens per stream {distinct}")
+    return launches
+
+
+def phase_profile(torch, card):
+    """Where a served run's device time goes: ``torch.profiler`` over one
+    pipelined run with the kernel, device time summed by kernel name.
+    The profiler's own host cost inflates the wall clock, so the idle
+    share read here is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpu_operator_tpu_torch.serving import PagedKVExecutor
+
+    ex = PagedKVExecutor(**SERVE, mode="pipelined", kernel="cuda",
+                         device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, st = serve_once(torch, ex, serve_prompts(), card)
+    rows = []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    wall_ms = st["wall_s"] * 1e3
+    log(f"profile: {st['steps']} steps, device busy {busy_ms:.1f} ms of "
+        f"{wall_ms:.1f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}, "
+        f"profiled) [{card}]")
+    for us, count, key in rows[:12]:
+        log(f"  {us / 1e3:10.3f} ms {us / 1e3 / busy_ms:6.3f}  x{count:<6d} "
+            f"{key[:90]}")
+    del ex
+    torch.cuda.empty_cache()
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        from dpu_operator_tpu_torch import cuda_build
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is not beside this script: "
+              f"{e}", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = card_line()
+    name = torch.cuda.get_device_name(0)
+    log(f"device: {card} (torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, capability "
+        f"{torch.cuda.get_device_capability(0)})")
+
+    t0 = time.monotonic()
+    cuda_build.build("paged_attn")
+    log(f"build: {time.monotonic() - t0:.1f} s")
+    for src, text in cuda_build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+
+    record = phase_kernel(torch, card)
+    phase_small(torch)
+    record["launches"] = phase_serve(torch, card)
+    phase_profile(torch, card)
+    print(card)
+    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,270 @@
+"""Device-resident paged-attention decode step, in PyTorch.
+
+Counterpart of the JAX package's ``serving/kvcache/paged.py`` (the chain
+step). K/V live in flat ``[num_blocks, block_size, heads, d_head]`` pools
+that never leave the device, indexed through per-slot block tables from
+the host allocator. One step, per ``[slots, chunk]`` token window:
+
+  * token + absolute-position embedding, q/k/v projections;
+  * the per-block int8 scale update (set once, by the step that writes
+    the block's row 0), run in PyTorch for both kernels so both quantize
+    with bit-identical scales;
+  * the fused quantize-append + page gather + per-row causal attention:
+    ``kernel="cuda"`` launches the hand-written Hopper kernel
+    (``parallel/paged_attn.py``), ``kernel="torch"`` runs its plain
+    version;
+  * output projection, a residual ReLU MLP, untied-head logits and the
+    argmax of the last written row: the ``[slots]`` int32 token ids.
+
+Unlike the reference, whose jitted step returns new (donated) arrays,
+this step updates the pools and scales IN PLACE and returns the same
+tensors. Callers order other pool reads and writes on the step's stream
+(see ``PagedKVExecutor``).
+
+Matmul precision: the reference runs float32 matmuls in full precision.
+Hold the port against it (or the kernel against its plain version) with
+``torch.backends.cuda.matmul.allow_tf32 = False`` and
+``torch.backends.cudnn.allow_tf32 = False``: TF32 would move logits by far
+more than the kernel's reassociation does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...parallel.paged_attn import (paged_attn_step_cuda,
+                                    paged_attn_step_plain)
+from ...parallel.quantize import int8_block_decode_np
+
+#: One weight set per (seed, vocab, d, max_context, hidden) identity, as
+#: numpy arrays, shared by every step built from it.
+_PARAM_CACHE: dict = {}
+
+PARAM_NAMES = ("embed", "wpos", "wq", "wk", "wv", "wo", "w1", "w2", "wout")
+
+
+def build_paged_params(seed: int, vocab: int, d: int, max_context: int,
+                       hidden: Optional[int] = None
+                       ) -> Dict[str, np.ndarray]:
+    """The paged model's weights as float32 numpy arrays, in the
+    reference's draw order (embed, wpos, wq, wk, wv, wo, w1, w2, wout).
+    Each float32 draw is divided by ``sqrt(rows)`` in float64 and then
+    rounded to float32 — what the reference's numpy-2 division followed
+    by ``jnp.asarray`` does — spelled out so the result does not depend
+    on the numpy version. Cached per identity."""
+    hidden = int(hidden or 2 * d)
+    key = (int(seed), int(vocab), int(d), int(max_context), hidden)
+    got = _PARAM_CACHE.get(key)
+    if got is not None:
+        return got
+    rng = np.random.RandomState(seed)
+
+    def w(*shape):
+        x = rng.randn(*shape).astype(np.float32).astype(np.float64)
+        return (x / np.sqrt(float(shape[0]))).astype(np.float32)
+
+    params = dict(
+        embed=w(vocab, d), wpos=w(max_context, d),
+        wq=w(d, d), wk=w(d, d), wv=w(d, d), wo=w(d, d),
+        w1=w(d, hidden), w2=w(hidden, d), wout=w(d, vocab))
+    _PARAM_CACHE[key] = params
+    return params
+
+
+def params_from_numpy(params: Dict[str, np.ndarray], device
+                      ) -> Dict[str, torch.Tensor]:
+    """The reference's parameters as numpy arrays (``np.asarray`` of each
+    entry of its ``build_paged_params``) -> float32 tensors on
+    ``device``."""
+    return {k: torch.from_numpy(np.array(params[k], np.float32))
+            .to(device) for k in PARAM_NAMES}
+
+
+def kv_bytes_per_slot(max_blocks_per_req: int, block_size: int,
+                      heads: int, d_head: int,
+                      pool_dtype: str = "int8") -> int:
+    """Resident KV bytes one slot's worst-case reservation pins:
+    ``max_blocks_per_req`` blocks of K and V rows plus their per-block
+    scale floats."""
+    elems = block_size * heads * d_head
+    itemsize = 1 if pool_dtype == "int8" else 4
+    return max_blocks_per_req * 2 * (elems * itemsize + 4)
+
+
+def paged_kv_error_bound(scale: float, amax: float) -> float:
+    """Per-element absolute error bound of one resident int8 KV element
+    against its fp32 truth: ``scale / 2`` of rounding plus whatever a row
+    exceeds the block's first-write range by (it clips at
+    ``127 * scale``)."""
+    return scale / 2.0 + max(0.0, amax - 127.0 * scale)
+
+
+def resolve_device(device, owner: str) -> torch.device:
+    """``None`` means the CUDA card: the port's entry points run there
+    unless the caller asks for the CPU, and with no CUDA device they
+    raise rather than fall back to it. A bare ``"cuda"`` gets the
+    current device's index."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{owner} runs on a CUDA device by default and none is "
+                f"available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class PagedDecodeStep(nn.Module):
+    """The fused chunk step over the paged KV pools, weights held as
+    buffers. ``params`` is a dict of the nine weights (numpy arrays or
+    tensors); without it the weights are drawn from ``seed``.
+
+    ``device=None`` means the CUDA card (see ``resolve_device``).
+    ``kernel=None`` means the hand-written kernel (``"cuda"``) on a CUDA
+    device and its plain version (``"torch"``) on the CPU;
+    ``kernel="cuda"`` on the CPU raises."""
+
+    def __init__(self, slots: int, vocab: int, d: int, heads: int,
+                 block_size: int, num_blocks: int,
+                 max_blocks_per_req: int, chunk: int,
+                 hidden: Optional[int] = None, seed: int = 0,
+                 params: Optional[dict] = None,
+                 kernel: Optional[str] = None,
+                 pool_dtype: str = "int8",
+                 scale_margin: float = 1.5, device=None):
+        super().__init__()
+        if d % heads:
+            raise ValueError(f"d={d} must divide by heads={heads}")
+        device = resolve_device(device, "PagedDecodeStep")
+        if kernel is None:
+            kernel = "cuda" if device.type == "cuda" else "torch"
+        if kernel not in ("cuda", "torch"):
+            raise ValueError(f"kernel must be cuda|torch, got {kernel!r}")
+        if kernel == "cuda" and device.type != "cuda":
+            raise ValueError(f"kernel='cuda' needs a CUDA device, got "
+                             f"{device}")
+        if pool_dtype not in ("int8", "fp32"):
+            raise ValueError(f"pool_dtype must be int8|fp32, got "
+                             f"{pool_dtype!r}")
+        self.kernel = kernel
+        self.pool_dtype = pool_dtype
+        self.device = device
+        self.scale_margin = float(scale_margin)
+        self.slots = int(slots)
+        self.vocab = int(vocab)
+        self.d = int(d)
+        self.heads = int(heads)
+        self.d_head = d // heads
+        self.block_size = int(block_size)
+        self.num_blocks = int(num_blocks)
+        self.max_blocks_per_req = int(max_blocks_per_req)
+        self.chunk = int(chunk)
+        # The reference multiplies by np.float32(margin / 127.0): the
+        # quotient is taken in float64, then rounded once to float32.
+        self._scale_c = float(np.float32(self.scale_margin / 127.0))
+        if params is None:
+            params = build_paged_params(seed, vocab, d,
+                                        max_blocks_per_req * block_size,
+                                        hidden)
+        for name in PARAM_NAMES:
+            w = params[name]
+            if not isinstance(w, torch.Tensor):
+                w = torch.from_numpy(np.array(w, np.float32))
+            self.register_buffer(name, w.to(device=device,
+                                            dtype=torch.float32))
+        S, C, B = self.slots, self.chunk, self.max_blocks_per_req
+        self.register_buffer("_rows", torch.arange(C, device=device))
+        # fp32 pools carry no scales: the fused call gets all-ones.
+        self.register_buffer("_ones_rows",
+                             torch.ones((S, C), device=device))
+        self.register_buffer("_ones_tbl", torch.ones((S, B), device=device))
+
+    def init_pools(self):
+        """Fresh zeroed (kpool, kscale, vpool, vscale): int8 codes +
+        per-block scales, or fp32 rows + all-ones scales."""
+        shape = (self.num_blocks, self.block_size, self.heads, self.d_head)
+        dtype = torch.int8 if self.pool_dtype == "int8" else torch.float32
+        return (torch.zeros(shape, dtype=dtype, device=self.device),
+                torch.ones((self.num_blocks,), device=self.device),
+                torch.zeros(shape, dtype=dtype, device=self.device),
+                torch.ones((self.num_blocks,), device=self.device))
+
+    def init_prev(self) -> torch.Tensor:
+        """Zeroed [slots] int32 token recurrence."""
+        return torch.zeros((self.slots,), dtype=torch.int32,
+                           device=self.device)
+
+    def dequantized_pools(self, kpool, kscale, vpool, vscale):
+        """Host-side fp32 view of resident pools (numpy)."""
+        k, v = kpool.cpu().numpy(), vpool.cpu().numpy()
+        if self.pool_dtype != "int8":
+            return k, v
+        return (int8_block_decode_np(k, kscale.cpu().numpy()),
+                int8_block_decode_np(v, vscale.cpu().numpy()))
+
+    def _update_scales(self, scales, vals, blk, pos, valid, ctx) -> None:
+        """Per-block scale, set once by the step that writes the block's
+        row 0 (``bstart >= ctx``): reset the touched blocks, then
+        scatter-max the group amax. Idle rows aim at a sink entry ``N``
+        past the end (the reference drops them), and the all-zero group
+        gets scale 1.0. In place."""
+        N, bs = self.num_blocks, self.block_size
+        bstart = (pos // bs) * bs
+        reset = valid & (bstart >= ctx[:, None])
+        amax = vals.abs().amax(dim=(2, 3))                     # [S, C]
+        tgt = torch.where(reset, blk, N).reshape(-1)
+        ext = torch.cat([scales, scales.new_zeros(1)])
+        ext.index_fill_(0, tgt, 0.0)
+        ext.scatter_reduce_(0, tgt, (amax * self._scale_c).reshape(-1),
+                            "amax", include_self=True)
+        new = ext[:N]
+        scales.copy_(torch.where(new > 0, new, torch.ones_like(new)))
+
+    def forward(self, kpool, kscale, vpool, vscale, prev_tok, host_tok,
+                use_host, ctx, n_new, tables):
+        """(kpool, kscale, vpool, vscale, out_tokens): the pools and
+        scales are the arguments, updated in place; ``out_tokens`` is
+        [slots] int32, still in flight on the device."""
+        S, C = self.slots, self.chunk
+        B, bs = self.max_blocks_per_req, self.block_size
+        H, dh = self.heads, self.d_head
+        T = B * bs
+        int8 = self.pool_dtype == "int8"
+        tok0 = torch.where(use_host, host_tok[:, 0], prev_tok)
+        toks = torch.cat([tok0[:, None], host_tok[:, 1:]], dim=1).long()
+        ctx_l = ctx.long()
+        pos = ctx_l[:, None] + self._rows[None, :]             # [S, C]
+        x = self.embed[toks] + self.wpos[torch.clamp(pos, 0, T - 1)]
+        q = (x @ self.wq).reshape(S, C, H, dh)
+        k = (x @ self.wk).reshape(S, C, H, dh)
+        v = (x @ self.wv).reshape(S, C, H, dh)
+        valid = self._rows[None, :] < n_new.long()[:, None]
+        blk_all = torch.gather(tables.long(), 1,
+                               torch.clamp(pos // bs, 0, B - 1))
+        if int8:
+            self._update_scales(kscale, k, blk_all, pos, valid, ctx_l)
+            self._update_scales(vscale, v, blk_all, pos, valid, ctx_l)
+            ksc_rows, vsc_rows = kscale[blk_all], vscale[blk_all]
+            tl = tables.long()
+            ksc_tbl, vsc_tbl = kscale[tl], vscale[tl]
+        else:
+            ksc_rows = vsc_rows = self._ones_rows
+            ksc_tbl = vsc_tbl = self._ones_tbl
+        fused = (paged_attn_step_cuda if self.kernel == "cuda"
+                 else paged_attn_step_plain)
+        o = fused(tables, ctx, n_new, q, k, v, ksc_rows, vsc_rows,
+                  ksc_tbl, vsc_tbl, kpool, vpool).reshape(S, C, H * dh)
+        y = x + o @ self.wo
+        y = y + torch.relu(y @ self.w1) @ self.w2
+        last = torch.clamp(n_new.long() - 1, 0, C - 1)
+        yl = torch.gather(y, 1, last[:, None, None].expand(S, 1, self.d)
+                          )[:, 0]                              # [S, d]
+        out = torch.argmax(yl @ self.wout, dim=1).to(torch.int32)
+        return kpool, kscale, vpool, vscale, out
+
