@@ -22,16 +22,31 @@ Phases, each of which raises on failure:
                package.
   5. profile — one more served run under ``torch.profiler``: device time
                by kernel and the device's idle share.
+  6. tiles   — the bf16 tile-product kernels of the health burn and the
+               benchmark matmul against their plain versions, at the
+               shapes their path gives them: the burn chain at 1024^2,
+               the burn tile at 2048^2 and 1024 x 2048, the matmul at
+               4096^3 on its full-K and K-blocked routes; max error
+               against the stated tolerance, median times of the kernel,
+               the plain version and (matmul) ``torch.matmul``, bound.
+  7. health  — the health/bench path: ``best_burn_step()`` on the health
+               burn's own inputs (one chain launch, finite signature), the
+               2048^2 burn (eight tile launches), the block-config sweep
+               of ``mxu_bench``, and one ``bench_gpu`` run in a process
+               of its own, whose JSON is logged.
 
-The second line from the end is one JSON object with a record per kernel
-(launches on the served run, max error, times, bound); the last line is
+Phase 2 builds every source at once (one nvcc each). The second line
+from the end is one JSON object with a record per kernel (launches on
+its path, max error, times, bound); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -47,6 +62,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+SOURCES = ("paged_attn", "tile_mma")
 
 # Kernel phase: the deploy shape of the serving phase below.
 KS, KC, KB, KBS, KH, KDH, KN = 16, 16, 256, 16, 32, 128, 8192
@@ -63,6 +81,29 @@ SERVE = dict(vocab=32000, d=4096, heads=32, block_size=16,
 PROMPT_LENS = [256, 3000, 1200, 2000, 800, 2600]  # + two sharing 512
 SHARED_PREFIX = 512
 MAX_TOKENS = 32
+
+# Tile phase: the health/bench path's shapes. Burn tile: x [m, n] @ w
+# [n, n], the tiled branch's smallest square and one m != n case.
+TILE_SHAPES = ((2048, 2048), (1024, 2048))
+MM_N = 4096
+MM_ROUTES = (("mm_fullk", (1024, 256, 4096), "mxu_bench.py:97"),
+             ("mm_kblocked", (512, 512, 1024), "mxu_bench.py:116"))
+# Kernel vs plain, in bf16 (burn.bf16_ulps: ulps at the larger magnitude,
+# at 2**-5 below it). One product or one tanh step: both sum exact f32
+# products in f32, in another order, and round once, so a value at a
+# rounding boundary may land on either side: at most 1 ulp.
+STEP_ULPS = 1.0
+# The 8-step chain: each step's 1-ulp flips enter the next step as
+# absolute perturbations, amplified by the burn weights (0.05 * sqrt(1024)
+# = 1.6 before tanh); on an H100 this phase measured 0.0188. The bound is
+# 2**-4 = 16 ulps at the top of tanh's range, far below a fault's O(1).
+CHAIN_ATOL = 2.0 ** -4
+# The f32 signature sum(h**2) over the burn: its per-element flips have
+# random signs (the reference's own test allows 5 %).
+SIG_RTOL = 1e-4
+# The 2048^2 health burn's signature against eight plain steps: the same
+# random flips, over a longer chain of wider steps.
+SIG2048_RTOL = 1e-3
 
 # Small configuration held against the CPU path (the tests' widths).
 SMALL = dict(slots=2, vocab=16, d=8, heads=2, block_size=4,
@@ -182,7 +223,13 @@ def attn_cost(ctx, n_new, pool_dtype):
     return nbytes, flops
 
 
-def time_ms(torch, fn, n=25, warm=3):
+def time_ms(torch, fn, n=25, warm=3, batch=10):
+    """Device ms of one ``fn()``: the median over ``n`` samples, each the
+    mean of ``batch`` back-to-back calls between two CUDA events. Within a
+    batch the host runs ahead of the card, so the wrappers' host work
+    (checks, allocation, the launch itself) hides behind the queue; an
+    event pair around a single call would count it whenever the card
+    waits for the host."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -191,10 +238,11 @@ def time_ms(torch, fn, n=25, warm=3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -243,7 +291,7 @@ def phase_kernel(torch, card):
             t_ops = flops / FP32_FLOP_PER_S * 1e3
             log(f"kernel {tag}: pools bitwise equal, max |o err| {err:.3e} "
                 f"(rtol {O_RTOL}, atol {O_ATOL}); kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms (median of 25/20 launches), "
+                f"plain {plain_ms:.4f} ms (median of 25/20 batches of 10), "
                 f"bound {max(t_bytes, t_ops):.4f} ms "
                 f"({nbytes} B, {flops} flop) [{card}]")
             if pool_dtype == "int8":
@@ -449,6 +497,192 @@ def phase_profile(torch, card):
     torch.cuda.empty_cache()
 
 
+# -- phase 6: the tile-product kernels against plain --------------------------
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it) for bf16 tensor-core work."""
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def tile_record(name, replaces, err, ms, plain_ms, flops, nbytes,
+                library_ms=None):
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(name=name, route="cuda",
+                source="dpu_operator_tpu_torch/csrc/tile_mma.cu",
+                replaces=f"dpu_operator_tpu/parallel/{replaces}",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def randn_pair(torch, m, n, seed):
+    """x [m, n] ~ N(0, 1) and w [n, n] ~ N(0, 1/n), bf16, drawn on the
+    card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((m, n), generator=gen, device="cuda")
+    w = torch.randn((n, n), generator=gen, device="cuda") / math.sqrt(n)
+    return x.to(torch.bfloat16), w.to(torch.bfloat16)
+
+
+def compare(torch, burn, tag, got, want, ulps=None, atol=None):
+    check(torch.isfinite(got.float()).all(), f"{tag}: non-finite kernel out")
+    check(torch.isfinite(want.float()).all(), f"{tag}: non-finite plain out")
+    err = float((got.float() - want.float()).abs().max())
+    dist = burn.bf16_ulps(got, want)
+    if ulps is not None and dist > ulps:
+        raise AssertionError(f"{tag}: {dist} bf16 ulps from the plain "
+                             f"version (max {ulps})")
+    if atol is not None and err > atol:
+        raise AssertionError(f"{tag}: max |err| {err} over {atol}")
+    return err, dist
+
+
+def phase_tiles(torch, card):
+    from dpu_operator_tpu_torch.parallel import burn, fabric_probe, mxu_bench
+
+    records = []
+    n = fabric_probe.BURN_DIM
+    x, w = fabric_probe.burn_example_args(device="cuda")
+    got, want = burn.burn_chain(x, w), burn.burn_chain_plain(x, w)
+    err, dist = compare(torch, burn, "burn_chain", got, want,
+                        atol=CHAIN_ATOL)
+    sig_k, sig_p = (float(torch.sum(h.float() ** 2)) for h in (got, want))
+    check(abs(sig_k - sig_p) <= SIG_RTOL * abs(sig_p),
+          f"burn_chain: signature {sig_k} vs plain {sig_p}")
+    differ = float((got != want).float().mean())
+    ms = time_ms(torch, lambda: burn.burn_chain(x, w))
+    plain_ms = time_ms(torch, lambda: burn.burn_chain_plain(x, w))
+    rec = tile_record("burn_chain", "pallas_burn.py:85", err, ms, plain_ms,
+                      8 * 2 * n ** 3, 3 * n * n * 2)
+    records.append(rec)
+    log(f"tiles burn_chain {n}^2 x 8: max |err| {err:.3e} (atol "
+        f"{CHAIN_ATOL}), {differ:.3f} of elements differ, signature "
+        f"{sig_k:.2f} vs plain {sig_p:.2f} (rtol {SIG_RTOL}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
+
+    for i, (m, n) in enumerate(TILE_SHAPES):
+        x, w = randn_pair(torch, m, n, seed=1 + i)
+        err, dist = compare(torch, burn, f"burn_tile {m}x{n}",
+                            burn.burn_tile(x, w), burn.burn_tile_plain(x, w),
+                            ulps=STEP_ULPS)
+        ms = time_ms(torch, lambda: burn.burn_tile(x, w))
+        plain_ms = time_ms(torch, lambda: burn.burn_tile_plain(x, w))
+        rec = tile_record("burn_tile", "pallas_burn.py:114", err, ms,
+                          plain_ms, 2 * m * n * n, (m * n + n * n + m * n) * 2)
+        if i == 0:
+            records.append(rec)
+        log(f"tiles burn_tile x {m}x{n} @ w {n}x{n}: {dist:.2f} ulps (max "
+            f"{STEP_ULPS}), max |err| {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}) [{card}]")
+
+    n = MM_N
+    x, w = randn_pair(torch, n, n, seed=3)
+    want = mxu_bench.matmul_plain(x, w)
+    plain_ms = time_ms(torch, lambda: mxu_bench.matmul_plain(x, w), n=10,
+                       warm=2)
+    library_ms = time_ms(torch, lambda: torch.matmul(x, w))
+    for name, cfg, replaces in MM_ROUTES:
+        got = mxu_bench.pallas_matmul(x, w, *cfg)
+        err, dist = compare(torch, burn, f"{name} {cfg}", got, want,
+                            ulps=STEP_ULPS)
+        ms = time_ms(torch, lambda: mxu_bench.pallas_matmul(x, w, *cfg))
+        rec = tile_record(name, replaces, err, ms, plain_ms, 2 * n ** 3,
+                          3 * n * n * 2, library_ms=library_ms)
+        records.append(rec)
+        log(f"tiles {name} {n}^3 blocks {cfg}: {dist:.2f} ulps (max "
+            f"{STEP_ULPS}), max |err| {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
+    torch.cuda.empty_cache()
+    return records
+
+
+# -- phase 7: the health/bench path -------------------------------------------
+
+
+def phase_health(torch, card, name):
+    """Drive the health/bench path with every tile-kernel count set to 0
+    first; return each kernel's launches on it (this process's, plus those
+    the bench process reports of its own)."""
+    from dpu_operator_tpu_torch.parallel import burn, fabric_probe, mxu_bench
+
+    counters = {"burn_chain": burn.burn_chain, "burn_tile": burn.burn_tile,
+                "mm_fullk": mxu_bench.mm_fullk,
+                "mm_kblocked": mxu_bench.mm_kblocked}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    sig = float(burn.best_burn_step()(
+        *fabric_probe.burn_example_args(device="cuda")))
+    wall_ms = (time.monotonic() - t0) * 1e3
+    check(math.isfinite(sig) and sig > 0, f"health signature {sig}")
+    check(burn.burn_chain.launches == 1 and burn.burn_tile.launches == 0,
+          f"health burn at {fabric_probe.BURN_DIM}^2: "
+          f"{burn.burn_chain.launches} chain, {burn.burn_tile.launches} "
+          f"tile launches (want 1, 0)")
+    log(f"health {fabric_probe.BURN_DIM}^2: signature {sig:.2f}, one chain "
+        f"launch, {wall_ms:.3f} ms wall (inputs drawn, burn, readback) "
+        f"[{card}]")
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    x = torch.randn((2048, 2048), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn((2048, 2048), generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * 0.05
+    t0 = time.monotonic()
+    sig = float(burn.best_burn_step()(x, w))
+    wall_ms = (time.monotonic() - t0) * 1e3
+    check(burn.burn_tile.launches == 8 and burn.burn_chain.launches == 1,
+          f"health burn at 2048^2: {burn.burn_tile.launches} tile "
+          f"launches (want 8)")
+    h = x
+    for _ in range(8):
+        h = burn.burn_tile_plain(h, w)
+    sig_p = float(torch.sum(h.float() ** 2))
+    check(math.isfinite(sig) and abs(sig - sig_p) <= SIG2048_RTOL * sig_p,
+          f"health 2048^2 signature {sig} vs plain {sig_p}")
+    log(f"health 2048^2: signature {sig:.2f} (plain {sig_p:.2f}, rtol "
+        f"{SIG2048_RTOL}), eight tile launches, {wall_ms:.3f} ms wall "
+        f"(burn, readback) [{card}]")
+
+    t0 = time.monotonic()
+    cfg, best = mxu_bench.best_pallas_config(n=MM_N, reps=1, device="cuda")
+    log(f"health sweep: best blocks {cfg} at {best['tflops']:.1f} TFLOP/s "
+        f"({best['utilization_vs_peak']:.3f} of peak), reps=1, "
+        f"{time.monotonic() - t0:.1f} s [{card}]")
+
+    t0 = time.monotonic()
+    env = dict(os.environ, PYTHONPATH=HERE)
+    res = subprocess.run(
+        [sys.executable, "-m", "dpu_operator_tpu_torch.parallel.bench_gpu"],
+        cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    check(res.returncode == 0,
+          f"bench_gpu exit {res.returncode}: {res.stderr[-2000:]}")
+    bench = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"bench_gpu ({time.monotonic() - t0:.1f} s) [{card}]: "
+        f"{json.dumps(bench)}")
+    errors = [k for k in bench if k.endswith("_error")]
+    check(not errors, f"bench_gpu sections failed: {errors}")
+    check(bench["device_kind"] == name, f"bench ran on {bench['device_kind']}")
+    for key in ("mxu_torch_tflops", "mxu_kernel_tflops", "burn_torch_tflops",
+                "burn_kernel_tflops", "hbm_gbps"):
+        check(bench[key] > 0, f"bench_gpu {key} = {bench[key]}")
+    launches = {k: fn.launches + bench["kernel_launches"][k]
+                for k, fn in counters.items()}
+    check(all(launches.values()), f"a kernel the path runs never launched: "
+                                  f"{launches}")
+    log(f"health/bench launches: {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -475,8 +709,9 @@ def main() -> int:
         f"{torch.cuda.get_device_capability(0)})")
 
     t0 = time.monotonic()
-    cuda_build.build("paged_attn")
-    log(f"build: {time.monotonic() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(cuda_build.build, SOURCES))
+    log(f"build: {', '.join(SOURCES)} in {time.monotonic() - t0:.1f} s")
     for src, text in cuda_build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -486,8 +721,12 @@ def main() -> int:
     phase_small(torch)
     record["launches"] = phase_serve(torch, card)
     phase_profile(torch, card)
+    tiles = phase_tiles(torch, card)
+    launches = phase_health(torch, card, name)
+    for rec in tiles:
+        rec["launches"] = launches[rec["name"]]
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record] + tiles}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

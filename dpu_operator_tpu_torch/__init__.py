@@ -8,13 +8,20 @@ its own copies, whose code stays the reference's statement for statement
 (``serving/kvcache/paged.py`` here ports ``serving/kvcache/paged.py``
 there).
 
-Ported so far: the paged-KV serving path — ``POST /v1/generate``
-(``serving/server.py``) -> ``AdmissionQueue`` -> ``ContinuousBatcher`` ->
-``PagedKVExecutor`` -> ``PagedDecodeStep`` — with the fused paged
-attention as a hand-written CUDA kernel for Hopper
-(``csrc/paged_attn.cu``, wrapped in ``parallel/paged_attn.py``).
+Ported so far:
+
+  * the paged-KV serving path — ``POST /v1/generate``
+    (``serving/server.py``) -> ``AdmissionQueue`` -> ``ContinuousBatcher``
+    -> ``PagedKVExecutor`` -> ``PagedDecodeStep`` — with the fused paged
+    attention as a hand-written CUDA kernel for Hopper
+    (``csrc/paged_attn.cu``, wrapped in ``parallel/paged_attn.py``);
+  * the chip-health burn (``parallel/burn.py``,
+    ``parallel/fabric_probe.py``) and the tensor-core/HBM microbench
+    (``parallel/mxu_bench.py``, run by ``parallel/bench_gpu.py``), whose
+    kernels are one hand-written CUDA source (``csrc/tile_mma.cu``).
+
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+``device="cpu"`` (``device.resolve_device``).
 """
 
 __version__ = "0.1.0"

@@ -1,2 +1,5 @@
-"""Kernels and codecs of the port: the fused paged-attention step
-(``paged_attn``) and the block-axis int8 codec (``quantize``)."""
+"""Kernels, codecs and microbenchmarks of the port: the fused
+paged-attention step (``paged_attn``), the block-axis int8 codec
+(``quantize``), the health burn (``fabric_probe``, ``burn``) and the
+tensor-core/HBM microbench (``mxu_bench``, run by ``bench_gpu``), whose
+kernels share the bf16 tile product of ``tile_mma``."""

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...device import resolve_device
 from ...parallel.paged_attn import (paged_attn_step_cuda,
                                     paged_attn_step_plain)
 from ...parallel.quantize import int8_block_decode_np
@@ -101,23 +102,6 @@ def paged_kv_error_bound(scale: float, amax: float) -> float:
     exceeds the block's first-write range by (it clips at
     ``127 * scale``)."""
     return scale / 2.0 + max(0.0, amax - 127.0 * scale)
-
-
-def resolve_device(device, owner: str) -> torch.device:
-    """``None`` means the CUDA card: the port's entry points run there
-    unless the caller asks for the CPU, and with no CUDA device they
-    raise rather than fall back to it. A bare ``"cuda"`` gets the
-    current device's index."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{owner} runs on a CUDA device by default and none is "
-                f"available; pass device='cpu' to run on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 class PagedDecodeStep(nn.Module):
