@@ -34,6 +34,15 @@ Phases, each of which raises on failure:
                2048^2 burn (eight tile launches), the block-config sweep
                of ``mxu_bench``, and one ``bench_gpu`` run in a process
                of its own, whose JSON is logged.
+  8. ring    — ring attention: small rings (n 1, 2, 4, 8; heads up to
+               256 wide; mixed bf16/f32 inputs) against the plain
+               version; the long-context path
+               (``make_ring_attention``, 8 ranks on the one card) at
+               S = 32768, d 128, f32 and bf16, causal and not, and at
+               the reference's proof shape S = 1024 bf16, each against
+               the plain version; 20 repeats bitwise equal; times of the
+               kernel, the plain version and one
+               ``scaled_dot_product_attention`` call (a yardstick only).
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -64,7 +73,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
-SOURCES = ("paged_attn", "tile_mma")
+SOURCES = ("paged_attn", "tile_mma", "ring_attn")
 
 # Kernel phase: the deploy shape of the serving phase below.
 KS, KC, KB, KBS, KH, KDH, KN = 16, 16, 256, 16, 32, 128, 8192
@@ -104,6 +113,35 @@ SIG_RTOL = 1e-4
 # The 2048^2 health burn's signature against eight plain steps: the same
 # random flips, over a longer chain of wider steps.
 SIG2048_RTOL = 1e-3
+
+# Ring phase: the long-context path at the served model's head width
+# (Llama-2-7B, 128) on an 8-rank ring, 4096 rows per rank (the served
+# run's context per rank), f32 and bf16, causal and not; then the
+# reference's own AOT proof shape (S 1024, 128, bf16, 8 ranks).
+RING_MESH = {"dp": 1, "sp": 8, "tp": 1}
+RING_S, RING_D = 32768, 128
+RING_AOT_S = 1024
+# Small rings held against the plain version: (n, S, dk, dv, q, k, v
+# types) -- the reference tests' widths, a shard that is no multiple of
+# the kernel's 64-row tile, the widest heads (dv > 128 takes the
+# kernel's other instance), and the mixed types: bf16 q and k with f32
+# v (K/V then circulate as f32), f32 q with bf16 K/V. Each names the
+# inputs it rounds to bf16.
+RING_SMALL = ((1, 256, 16, 8, ""), (2, 256, 16, 8, ""), (4, 256, 16, 8, ""),
+              (4, 400, 128, 128, ""), (8, 4096, 16, 8, ""),
+              (2, 512, 256, 256, ""), (4, 400, 64, 192, "qk"),
+              (8, 1024, 128, 128, "kv"))
+RING_REPEATS = 20
+# Kernel vs plain in f32: both sum f32 products over up to 32 768 keys in
+# another order (64-key tiles vs whole blocks), with expf vs torch.exp:
+# the bar of the paged-attention kernel above.
+RING_RTOL, RING_ATOL = 1e-4, 1e-5
+# bf16 out: both compute the same f32 value up to that reordering and
+# round once, so an element may land on either side of a rounding
+# boundary: 1 ulp, counted at the larger magnitude or at 2**-12 below
+# it (under 2**-12 an f32 sum's reordering error, ~1e-7, is no longer
+# small beside the value's own ulp).
+RING_ULPS, RING_ULP_FLOOR = 1.0, 2.0 ** -12
 
 # Small configuration held against the CPU path (the tests' widths).
 SMALL = dict(slots=2, vocab=16, d=8, heads=2, block_size=4,
@@ -683,6 +721,143 @@ def phase_health(torch, card, name):
     return launches
 
 
+# -- phase 8: ring attention ---------------------------------------------------
+
+
+def ring_inputs(torch, S, dk, dv, dtype, seed):
+    """q [S, dk], k [S, dk], v [S, dv] ~ N(0, 1), drawn on the card."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tuple(torch.randn((S, d), generator=gen, device="cuda").to(dtype)
+                 for d in (dk, dk, dv))
+
+
+def ring_cost(S, n, dk, dv, causal, kv_item, q_item):
+    """(bytes, flops) of one ring attention over S rows cut into n
+    shards: q, k, v read once, out written once, and each rank's relay
+    of n - 1 packed K/V shards; 2 (dk + dv) flops per (row, key) pair
+    attended."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    sk = S // n
+    nbytes = (S * dk * q_item + S * (dk + dv) * kv_item + S * dv * q_item
+              + n * (n - 1) * sk * (dk + dv) * kv_item)
+    return nbytes, 2 * (dk + dv) * pairs
+
+
+def ring_compare(torch, burn, tag, got, want):
+    """Max |err| of the kernel's output against the plain version's,
+    within the f32 or the bf16 bar; raises otherwise."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tag}: {got.dtype} {tuple(got.shape)} vs plain {want.dtype} "
+          f"{tuple(want.shape)}")
+    check(torch.isfinite(got.float()).all(), f"{tag}: non-finite kernel out")
+    check(torch.isfinite(want.float()).all(), f"{tag}: non-finite plain out")
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.bfloat16:
+        ulps = burn.bf16_ulps(got, want, floor=RING_ULP_FLOOR)
+        check(ulps <= RING_ULPS, f"{tag}: {ulps} bf16 ulps from the plain "
+                                 f"version (max {RING_ULPS})")
+        return err, f"{ulps:.2f} ulps (max {RING_ULPS})"
+    if not torch.allclose(got, want, rtol=RING_RTOL, atol=RING_ATOL):
+        raise AssertionError(f"{tag}: differs from the plain version by "
+                             f"{err}")
+    return err, f"rtol {RING_RTOL}, atol {RING_ATOL}"
+
+
+def phase_ring(torch, card):
+    """Ring attention: small rings against the plain version, then the
+    main path (``make_ring_attention`` at full width, counts set to 0
+    just before), each output against the plain version, 20 repeats
+    bitwise equal, and times of the kernel, the plain version and one
+    ``scaled_dot_product_attention`` call."""
+    from dpu_operator_tpu_torch.parallel import burn
+    from dpu_operator_tpu_torch.parallel import ring_attention as ra
+
+    n = RING_MESH["sp"]
+    for i, (ns, S, dk, dv, in_bf16) in enumerate(RING_SMALL):
+        q, k, v = (t.to(torch.bfloat16) if name in in_bf16 else t
+                   for name, t in zip("qkv", ring_inputs(
+                       torch, S, dk, dv, torch.float32, seed=10 + i)))
+        for causal in (False, True):
+            tag = (f"ring n={ns} S={S} dk={dk} dv={dv} bf16 inputs "
+                   f"{in_bf16 or '-'} causal={causal}")
+            err, bar = ring_compare(
+                torch, burn, tag, ra.ring_attention_cuda(q, k, v, ns, causal),
+                ra.ring_attention_plain(q, k, v, ns, causal))
+            log(f"{tag}: max |err| {err:.3e} ({bar})")
+
+    cases = [(S, dtype, causal)
+             for S, dtypes in ((RING_S, (torch.float32, torch.bfloat16)),
+                               (RING_AOT_S, (torch.bfloat16,)))
+             for dtype in dtypes for causal in (False, True)]
+    shapes = sorted({(S, dtype) for S, dtype, _ in cases}, key=str)
+    inputs = {key: ring_inputs(torch, key[0], RING_D, RING_D, key[1],
+                               seed=20 + j)
+              for j, key in enumerate(shapes)}
+    ra.ring_attention_cuda.launches = 0
+    outs = {}
+    t0 = time.monotonic()
+    for S, dtype, causal in cases:
+        fn = ra.make_ring_attention(RING_MESH, "sp", causal)
+        outs[(S, dtype, causal)] = fn(*inputs[(S, dtype)])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ra.ring_attention_cuda.launches
+    check(launches == len(cases),
+          f"ring main path: {launches} kernel launches for {len(cases)} calls")
+    log(f"ring main path: {len(cases)} calls of make_ring_attention "
+        f"({RING_MESH}), {launches} kernel launches, {wall:.3f} s wall "
+        f"[{card}]")
+
+    record = None
+    for S, dtype, causal in cases:
+        q, k, v = inputs[(S, dtype)]
+        got = outs[(S, dtype, causal)]
+        tag = (f"ring S={S} n={n} d={RING_D} {str(dtype)[6:]} "
+               f"causal={causal}")
+        err, bar = ring_compare(torch, burn, tag, got,
+                                ra.ring_attention_plain(q, k, v, n, causal))
+        ms = time_ms(torch, lambda: ra.ring_attention_cuda(q, k, v, n, causal),
+                     n=5, warm=1, batch=2)
+        plain_ms = time_ms(torch,
+                           lambda: ra.ring_attention_plain(q, k, v, n, causal),
+                           n=3, warm=1, batch=1)
+        q4, k4, v4 = (t[None, None] for t in (q, k, v))
+        library_ms = time_ms(
+            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal), n=5, warm=1, batch=2)
+        item = 2 if dtype == torch.bfloat16 else 4
+        nbytes, flops = ring_cost(S, n, RING_D, RING_D, causal, item, item)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        log(f"{tag}: max |err| {err:.3e} ({bar}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+            f"({nbytes} B, {flops} flop) [{card}]")
+        if S == RING_S and dtype == torch.float32 and causal:
+            record = dict(
+                name="ring_attn", route="cuda",
+                source="dpu_operator_tpu_torch/csrc/ring_attn.cu",
+                replaces="dpu_operator_tpu/parallel/ring_attention.py:184",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
+
+    q, k, v = inputs[(RING_S, torch.float32)]
+    first = outs[(RING_S, torch.float32, True)]
+    for i in range(RING_REPEATS):
+        again = ra.ring_attention_cuda(q, k, v, n, True)
+        if not torch.equal(bits(torch, again), bits(torch, first)):
+            raise AssertionError(f"ring repeat {i}: output differs from the "
+                                 f"first call's bits")
+    log(f"ring: {RING_REPEATS} repeated calls at S={RING_S}, n={n}, f32 "
+        f"causal give the first call's output bit for bit")
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -725,8 +900,9 @@ def main() -> int:
     launches = phase_health(torch, card, name)
     for rec in tiles:
         rec["launches"] = launches[rec["name"]]
+    ring = phase_ring(torch, card)
     print(card)
-    print(json.dumps({"kernels": [record] + tiles}))
+    print(json.dumps({"kernels": [record] + tiles + [ring]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -18,7 +18,11 @@ Ported so far:
   * the chip-health burn (``parallel/burn.py``,
     ``parallel/fabric_probe.py``) and the tensor-core/HBM microbench
     (``parallel/mxu_bench.py``, run by ``parallel/bench_gpu.py``), whose
-    kernels are one hand-written CUDA source (``csrc/tile_mma.cu``).
+    kernels are one hand-written CUDA source (``csrc/tile_mma.cu``);
+  * sequence-parallel ring attention (``parallel/ring_attention.py``:
+    ``make_ring_attention``), all ranks of the ring on one card in one
+    cooperative launch of ``csrc/ring_attn.cu``, whose ring protocol is
+    the shared template ``csrc/ring_stream.cuh``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``device.resolve_device``).

@@ -1,0 +1,203 @@
+// The one-way ring-stream protocol, device side, for Hopper (sm_90a).
+//
+// Counterpart of parallel/ring_probe.py `_run_ring_stream` in the JAX
+// package: the one protocol body that the ring kernels share, here a
+// template over a consumer, `consume(k, idx, block)`, called with each
+// block as it passes through this rank (k the ring step, idx the rank
+// that owns the block). The ring all-gather's consumer copies the block
+// out, the fused all-gather matmul's multiplies it, ring attention's
+// folds it into an online softmax; a fix to the protocol lands in all of
+// them at once.
+//
+// What the TPU's primitives become:
+//   * a rank is `ctas` CTAs of one cooperative launch (all of them
+//     resident at once, so a spin wait cannot starve the CTA it waits
+//     for), not one program. A rank-level event (its copy of a block is
+//     complete; it has finished reading a slot; it has entered) is an
+//     arrival counter: each CTA adds one after its own part, and the last
+//     to arrive resets the counter and raises the peer's flag;
+//   * DMA semaphores become 64-bit flag words in device memory. A flag
+//     only grows (atomicMax), and every value written is tagged with the
+//     call's epoch (`epoch * kTagSteps + step`), a counter the caller
+//     passes in that grows with every call: no flag needs clearing, and
+//     no flag left by an earlier call can release a wait of this one;
+//   * remote copies become plain stores into the right neighbour's slot,
+//     reached through a pointer. Within one card all ranks live in one
+//     launch; across cards only where the pointers come from changes.
+//
+// Memory ordering. A writer's stores, then __syncthreads(), then one
+// thread's __threadfence() and atomic arrival; the last arriver fences
+// again and raises the flag. A waiter spins on the flag with
+// ld.acquire.gpu, fences, and releases its CTA with __syncthreads().
+// Slot contents are read with ld.global.cg (L2 only): L1 is not coherent
+// across SMs, and a slot is rewritten every other step.
+//
+// The credit. Waiting on one's own receive flag bounds nothing about the
+// neighbours' progress: around an n-ring a neighbour could run up to
+// n - 1 steps ahead and overwrite a slot whose contents this rank has
+// not yet forwarded. The step-k copy targets the right neighbour's slot
+// (k + 1) % 2, which is free once that neighbour has finished step k - 1
+// with it; so each rank grants its left neighbour a credit after each
+// step (k < n - 2) and waits for one before every send after the first.
+// Skew is bounded to one step, which the two slots absorb.
+//
+// The rank's own shard is the block in hand at step 0 and is read in
+// place (the reference copied it into slot 0 because its remote copy
+// could start only from a slot).
+//
+// A wait that has not been released after kSpinLimitNs traps: a broken
+// protocol then fails the launch instead of hanging the card.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace ring {
+
+constexpr unsigned long long kTagSteps = 16;  // > the largest ring, 8
+constexpr unsigned long long kSpinLimitNs = 10ull * 1000 * 1000 * 1000;
+
+// One rank's control words, in device memory that lives across calls
+// (zeroed once when allocated). Flags are raised by peers; arrival
+// counters are this rank's own and are back at 0 after every call.
+struct alignas(128) Flags {
+  unsigned long long bar_from_left;   // the left neighbour has entered
+  unsigned long long bar_from_right;  // the right neighbour has entered
+  unsigned long long recv;            // blocks that have landed in my slots
+  unsigned long long credit;          // credits from the right neighbour
+  unsigned int bar_arrive;
+  unsigned int send_arrive[2];        // by step parity
+  unsigned int credit_arrive[2];      // by step parity
+};
+
+// What one CTA knows of its rank and the rank's neighbours.
+struct Rank {
+  int my_id;      // position on the ring
+  int n;          // ring size
+  int ctas;       // CTAs that make up this rank
+  int cta;        // this CTA's index within the rank
+  unsigned long long epoch;
+  long long block_bytes;     // one block, [rows, width] of the payload type
+  const char* local;         // this rank's own shard
+  char* my_slots;            // [2][block_bytes], this rank's
+  char* right_slots;         // the right neighbour's
+  Flags* me;
+  Flags* left;
+  Flags* right;
+};
+
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// All threads of the CTA: return once *flag >= target.
+__device__ __forceinline__ void wait_flag(const unsigned long long* flag,
+                                          unsigned long long target) {
+  if (threadIdx.x == 0) {
+    if (ld_acquire(flag) < target) {
+      const unsigned long long t0 = global_ns();
+      while (ld_acquire(flag) < target) {
+        __nanosleep(64);
+        if (global_ns() - t0 > kSpinLimitNs) __trap();
+      }
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ void raise_flag(unsigned long long* flag,
+                                           unsigned long long value) {
+  atomicMax(flag, value);
+}
+
+// All threads of the CTA, after their part of a rank-level event: the
+// last of the rank's CTAs to arrive resets the counter and calls
+// `signal()` (on thread 0).
+template <class Signal>
+__device__ __forceinline__ void arrive(unsigned int* counter, int ctas,
+                                       Signal signal) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(counter, 1u) == static_cast<unsigned>(ctas - 1)) {
+      atomicExch(counter, 0u);
+      __threadfence();
+      signal();
+    }
+  }
+}
+
+// This CTA's stripe of a block copy, `bytes` from src to dst: 16-byte
+// units where both ends allow, else 2-byte units (every payload type is
+// at least 2 bytes wide). The source is read through L2 only.
+__device__ __forceinline__ void copy_stripe(char* dst, const char* src,
+                                            long long bytes, int cta,
+                                            int ctas) {
+  const long long first = static_cast<long long>(cta) * blockDim.x +
+                          threadIdx.x;
+  const long long stride = static_cast<long long>(ctas) * blockDim.x;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) |
+        static_cast<uintptr_t>(bytes)) & 15) == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (long long i = first; i < bytes / 16; i += stride) {
+      __stcg(d + i, __ldcg(s + i));
+    }
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    unsigned short* d = reinterpret_cast<unsigned short*>(dst);
+    for (long long i = first; i < bytes / 2; i += stride) {
+      __stcg(d + i, __ldcg(s + i));
+    }
+  }
+}
+
+// The protocol, run by every CTA of every rank. `consume(k, idx, block)`
+// is called by all threads of the CTA for k = 0 .. n-1 with the block
+// owned by rank idx = (my_id - k) mod n; it must only read the block.
+template <class Consumer>
+__device__ void run_ring_stream(const Rank& r, Consumer& consume) {
+  const unsigned long long tag = r.epoch * kTagSteps;
+  // Neighbour barrier: both neighbours have entered the kernel.
+  arrive(&r.me->bar_arrive, r.ctas, [&] {
+    raise_flag(&r.left->bar_from_right, tag);
+    raise_flag(&r.right->bar_from_left, tag);
+  });
+  wait_flag(&r.me->bar_from_left, tag);
+  wait_flag(&r.me->bar_from_right, tag);
+
+  for (int k = 0; k < r.n; ++k) {
+    const char* block =
+        k == 0 ? r.local : r.my_slots + (k & 1) * r.block_bytes;
+    if (k > 0) wait_flag(&r.me->recv, tag + k);  // the block has landed
+    if (k < r.n - 1) {
+      if (k > 0) wait_flag(&r.me->credit, tag + k);  // its target is free
+      copy_stripe(r.right_slots + ((k + 1) & 1) * r.block_bytes, block,
+                  r.block_bytes, r.cta, r.ctas);
+      arrive(&r.me->send_arrive[k & 1], r.ctas,
+             [&] { raise_flag(&r.right->recv, tag + k + 1); });
+    }
+    consume(k, (r.my_id - k + r.n) % r.n, block);
+    if (k < r.n - 2) {
+      // Done with this slot: the left neighbour may overwrite it.
+      arrive(&r.me->credit_arrive[k & 1], r.ctas,
+             [&] { raise_flag(&r.left->credit, tag + k + 1); });
+    }
+  }
+}
+
+}  // namespace ring

@@ -3,8 +3,8 @@
 Each source under ``csrc/`` is one translation unit with a plain C entry
 point. ``nvcc`` compiles it for Hopper (``sm_90a``) into a shared library
 under ``_build/`` (listed in ``.gitignore``), named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-is reused. The library is loaded with ``ctypes``: no PyTorch headers are
+source, the headers under ``csrc/`` and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. The library is loaded with ``ctypes``: no PyTorch headers are
 compiled, which keeps a build to seconds.
 
 A failed build raises. Nothing falls back to the plain PyTorch versions.
@@ -51,10 +51,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where ``csrc/<name>.cu``'s library goes: named by a hash of the
+    source, of every header under ``csrc/`` (any source may include
+    any of them) and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

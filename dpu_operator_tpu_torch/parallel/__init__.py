@@ -1,5 +1,7 @@
 """Kernels, codecs and microbenchmarks of the port: the fused
 paged-attention step (``paged_attn``), the block-axis int8 codec
-(``quantize``), the health burn (``fabric_probe``, ``burn``) and the
+(``quantize``), the health burn (``fabric_probe``, ``burn``), the
 tensor-core/HBM microbench (``mxu_bench``, run by ``bench_gpu``), whose
-kernels share the bf16 tile product of ``tile_mma``."""
+kernels share the bf16 tile product of ``tile_mma``, and the
+sequence-parallel ring attention (``ring_attention``), whose kernel runs
+on the ring-stream protocol (``ring_probe``, ``csrc/ring_stream.cuh``)."""

@@ -1,0 +1,288 @@
+"""Ring attention: sequence-parallel exact attention over a ring of ranks.
+
+Counterpart of the JAX package's ``parallel/ring_attention.py``. Q, K and
+V are cut along the sequence into n row shards, one per rank of the ring
+axis. Each rank keeps its Q shard and streams the K/V shards around the
+ring, packed as one ``[S/n, dk + dv]`` block, folding every block into an
+f32 online softmax (the flash-attention recurrence) as it passes. Memory
+per rank stays O(S/n) while attention stays exact over the whole
+sequence. ``causal=True`` masks by GLOBAL position (query row
+``my_id * sq + r`` against key ``idx * sk + c``), so causality holds
+across shards. The accumulators are f32 whatever the input type.
+
+Two versions of the same function:
+
+  * ``ring_attention_plain`` — the counterpart of the reference's
+    ``_xla_ring_attention``: a loop over ring steps and ranks in which
+    ``ppermute`` becomes a rotation of the per-rank list of packed
+    blocks, with the reference's fold order;
+  * ``ring_attention_cuda`` — the counterpart of
+    ``_pallas_ring_attention``: one cooperative launch of
+    ``csrc/ring_attn.cu`` (built for ``sm_90a`` at first use) that holds
+    every rank of the ring on one card, the ring protocol of
+    ``csrc/ring_stream.cuh`` carrying the blocks from rank to rank. Given
+    tensors on the CPU it runs the plain version; on a CUDA tensor it
+    launches the kernel or raises. It counts its launches in
+    ``.launches``.
+
+``make_ring_attention`` is the entry point: ``fn(q, k, v)`` on whole
+``[S, D*]`` tensors, cut into ``mesh[axis]`` shards, giving ``[S, dv]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import torch
+
+from ..device import resolve_device
+from .ring_probe import _ring_ids
+
+_NEG_INF = -1e30  # not -inf: (-inf) - (-inf) would NaN the rescale
+
+#: Largest ring the kernel takes, and its largest head width.
+MAX_RANKS = 8
+MAX_DIM = 256
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _online_update(s, m, l, o, v_blk):
+    """One flash-attention fold: scores s [sq, sk] join running
+    (max m [sq, 1], denom l [sq, 1], accum o [sq, dv]); all f32."""
+    m_new = torch.maximum(m, torch.amax(s, dim=1, keepdim=True))
+    p = torch.exp(s - m_new)
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + torch.sum(p, dim=1, keepdim=True)
+    o_new = o * alpha + p @ v_blk
+    return m_new, l_new, o_new
+
+
+def _scores(q, k_blk, scale, causal, my_id, idx, sq, sk):
+    """Scaled q @ k^T with the cross-shard causal mask by GLOBAL
+    position: query row r is global my_id*sq + r, key column c is
+    idx*sk + c."""
+    s = (q @ k_blk.T) * scale
+    if causal:
+        dev = q.device
+        q_pos = my_id * sq + torch.arange(sq, device=dev)[:, None]
+        k_pos = idx * sk + torch.arange(sk, device=dev)[None, :]
+        s = torch.where(k_pos <= q_pos, s,
+                        torch.full((), _NEG_INF, dtype=s.dtype, device=dev))
+    return s
+
+
+def _check_qkv(q, k, v) -> None:
+    """Loud shape/dtype contract: a k width that differs from q would
+    slice the packed KV block at the wrong boundary and return garbage
+    that still type-checks."""
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(
+            f"k feature dim {k.shape[1]} != q feature dim {q.shape[1]}")
+    if k.shape[0] != v.shape[0]:
+        raise ValueError(
+            f"k rows {k.shape[0]} != v rows {v.shape[0]} (same shard)")
+
+
+def _pack_kv(k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K and V circulate as one block; promote to the WIDER dtype so a
+    mixed-precision cache (bf16 k, f32 v) is never silently quantized."""
+    dtype = torch.promote_types(k.dtype, v.dtype)
+    return torch.cat([k.to(dtype), v.to(dtype)], dim=1)
+
+
+def _shards(q, k, v, n: int) -> Tuple[int, int]:
+    """``(sq, sk)``, the rows of one rank's shards; raises where the
+    sequence does not cut into n equal shards."""
+    if q.dim() != 2 or k.dim() != 2 or v.dim() != 2:
+        raise ValueError(f"q, k, v must be [S, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_qkv(q, k, v)
+    if n < 1:
+        raise ValueError(f"ring of {n} ranks")
+    for name, t in (("q", q), ("k", k)):
+        if t.shape[0] == 0 or t.shape[0] % n:
+            raise ValueError(f"{name} rows {t.shape[0]} do not cut into "
+                             f"{n} equal shards")
+    return q.shape[0] // n, k.shape[0] // n
+
+
+def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n: int, causal: bool = False) -> torch.Tensor:
+    """Exact attention of q [S, dk] over k [S', dk], v [S', dv], each cut
+    into n row shards, as the ring computes it: rank r folds the block of
+    rank ``(r - step) mod n`` at each step, then divides once. Returns
+    [S, dv] in q's dtype."""
+    sq, sk = _shards(q, k, v, n)
+    d_k = q.shape[1]
+    d_v = v.shape[1]
+    scale = 1.0 / math.sqrt(d_k)
+    dev = q.device
+    qf = q.float()
+    kv = list(_pack_kv(k, v).split(sk))
+    state = [(torch.full((sq, 1), _NEG_INF, dtype=torch.float32, device=dev),
+              torch.zeros((sq, 1), dtype=torch.float32, device=dev),
+              torch.zeros((sq, d_v), dtype=torch.float32, device=dev))
+             for _ in range(n)]
+    for step in range(n):
+        for my_id in range(n):
+            idx = (my_id - step + n) % n
+            q_r = qf[my_id * sq:(my_id + 1) * sq]
+            k_blk = kv[my_id][:, :d_k].float()
+            v_blk = kv[my_id][:, d_k:].float()
+            s = _scores(q_r, k_blk, scale, causal, my_id, idx, sq, sk)
+            state[my_id] = _online_update(s, *state[my_id], v_blk)
+        if step < n - 1:  # ppermute i -> i + 1
+            kv = kv[-1:] + kv[:-1]
+    out = []
+    for m, l, o in state:
+        out.append((o / torch.where(l == 0.0, 1.0, l)).to(q.dtype))
+    return torch.cat(out, dim=0)
+
+
+# -- the kernel ---------------------------------------------------------------
+
+
+class _RingControl:
+    """The ring's flag words on one (device, stream), zeroed once and
+    kept across calls, and the epoch that tags each call's flag values
+    (``csrc/ring_stream.cuh``). Calls on one stream run in order, so they
+    can share the words."""
+
+    WORDS_PER_RANK = 16  # sizeof(ring::Flags) / 8, padded to 128 bytes
+
+    def __init__(self, device: torch.device):
+        self.flags = torch.zeros(MAX_RANKS * self.WORDS_PER_RANK,
+                                 dtype=torch.int64, device=device)
+        self.epoch = 0
+
+
+_controls: Dict[Tuple[int, int], _RingControl] = {}
+_controls_lock = threading.Lock()
+
+
+def _control(device: torch.device, stream: int) -> _RingControl:
+    with _controls_lock:
+        ctl = _controls.get((device.index, stream))
+        if ctl is None:
+            ctl = _RingControl(device)
+            _controls[(device.index, stream)] = ctl
+        ctl.epoch += 1
+        return ctl
+
+
+def _launcher():
+    from ..cuda_build import load
+
+    fn = load("ring_attn").ring_attn_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8
+                       + [ctypes.POINTER(ctypes.c_longlong)] * 2
+                       + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_ulonglong,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _neighbours(n: int) -> Tuple[List[int], List[int]]:
+    """Each rank's right and left neighbour on a ring of n."""
+    right, left = [], []
+    for rank in range(n):
+        _, r, l = _ring_ids("sp", n, ("sp",), (rank,))
+        right.append(r[0])
+        left.append(l[0])
+    return right, left
+
+
+def ring_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        n: int, causal: bool = False) -> torch.Tensor:
+    """``ring_attention_plain``'s function in one launch of the ring
+    kernel, all n ranks on q's card. q f32 or bf16; k and v packed to
+    their promoted type, which must be f32 or bf16; dk, dv <= 256;
+    1 <= n <= 8. Raises on anything else and where the card refuses the
+    launch."""
+    if q.device.type == "cpu":
+        return ring_attention_plain(q, k, v, n, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_attention_cuda: no kernel for device "
+                         f"{q.device}")
+    sq, sk = _shards(q, k, v, n)
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    kv = _pack_kv(k, v)
+    q = q.contiguous()
+    d_k, d_v = q.shape[1], v.shape[1]
+    if q.dtype not in KERNEL_DTYPES or kv.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"ring_attention_cuda: the kernel takes f32 or "
+                         f"bf16, got q {q.dtype}, packed k/v {kv.dtype}")
+    if not (1 <= n <= MAX_RANKS and d_k <= MAX_DIM and d_v <= MAX_DIM):
+        raise ValueError(f"ring_attention_cuda: the kernel takes 1..{MAX_RANKS}"
+                         f" ranks and dk, dv <= {MAX_DIM}, got n={n} "
+                         f"dk={d_k} dv={d_v}")
+    dev = q.device
+    out = torch.empty((n * sq, d_v), dtype=q.dtype, device=dev)
+    slots = torch.empty((n, 2, sk, d_k + d_v), dtype=kv.dtype, device=dev)
+    m = torch.empty(n * sq, dtype=torch.float32, device=dev)
+    l = torch.empty(n * sq, dtype=torch.float32, device=dev)
+    o = torch.empty((n * sq, d_v), dtype=torch.float32, device=dev)
+    right, left = _neighbours(n)
+    ids = ctypes.c_longlong * n
+    launch = _launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ctl = _control(dev, stream)
+        err = launch(q.data_ptr(), kv.data_ptr(), out.data_ptr(),
+                     slots.data_ptr(), m.data_ptr(), l.data_ptr(),
+                     o.data_ptr(), ctl.flags.data_ptr(), ids(*right),
+                     ids(*left), n, sq, sk, d_k, d_v,
+                     int(q.dtype == torch.bfloat16),
+                     int(kv.dtype == torch.bfloat16), int(causal),
+                     1.0 / math.sqrt(d_k), ctl.epoch, stream)
+    if err:
+        raise RuntimeError(f"ring_attn kernel launch failed: CUDA error "
+                           f"{err}")
+    ring_attention_cuda.launches += 1
+    return out
+
+
+#: Kernel launches so far (CPU calls of the wrapper do not count).
+ring_attention_cuda.launches = 0
+
+
+def make_ring_attention(mesh: Mapping[str, int], axis: str = "sp",
+                        causal: bool = False, *, kernel: Optional[str] = None,
+                        device=None):
+    """``fn(q, k, v)``: q [S, dk], k [S', dk], v [S', dv] on ``device``,
+    each cut into ``mesh[axis]`` row shards, one per rank of the ring
+    (the reference's ``P(axis, None)``) → exact attention [S, dv] in q's
+    dtype, computed by streaming K/V around the ring with an f32 online
+    softmax. ``mesh`` maps axis names to sizes (``{"dp": 2, "sp": 4,
+    "tp": 1}``); only ``axis`` shapes the result. ``kernel`` is
+    ``"cuda"`` (the default on a CUDA device: the ring kernel) or
+    ``"torch"`` (the default on the CPU: the plain version). ``device``
+    None means the CUDA card, and raises without one."""
+    if axis not in mesh:
+        raise ValueError(f"axis {axis!r} is not in the mesh {dict(mesh)}")
+    n = int(mesh[axis])
+    device = resolve_device(device, "make_ring_attention")
+    if kernel is None:
+        kernel = "cuda" if device.type == "cuda" else "torch"
+    if kernel not in ("cuda", "torch"):
+        raise ValueError(f"kernel must be 'cuda' or 'torch', got {kernel!r}")
+    if kernel == "cuda" and device.type != "cuda":
+        raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
+    impl = ring_attention_cuda if kernel == "cuda" else ring_attention_plain
+
+    def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+           ) -> torch.Tensor:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.device != device:
+                raise ValueError(f"{name} is on {t.device}; this ring "
+                                 f"attention runs on {device}")
+        return impl(q, k, v, n, causal)
+
+    return fn

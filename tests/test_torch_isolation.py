@@ -48,7 +48,8 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
     for mod in ("serving.server", "serving.kvcache.executor",
                 "serving.kvcache.paged", "parallel.paged_attn",
                 "parallel.burn", "parallel.mxu_bench", "parallel.bench_gpu",
-                "parallel.fabric_probe", "parallel.tile_mma", "device",
+                "parallel.fabric_probe", "parallel.tile_mma",
+                "parallel.ring_attention", "parallel.ring_probe", "device",
                 "cuda_build"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
