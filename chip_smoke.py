@@ -43,6 +43,21 @@ Phases, each of which raises on failure:
                the plain version; 20 repeats bitwise equal; times of the
                kernel, the plain version and one
                ``scaled_dot_product_attention`` call (a yardstick only).
+  9. collectives — the ring collectives of the fabric probe: the one-way
+               and the bidirectional ring all-gather and the ring
+               reduce-scatter. Small rings (n 1, 2, 3, 4, 8; f32, bf16,
+               f16 and int32 payloads; an odd shard, which must run the
+               one-way ring; blocks that are no multiple of 16 bytes):
+               every rank's gathered copy equals the input bit for bit,
+               the reduce-scatter equals its plain version bit for bit
+               and a float64 sum within the stated bar. Then the path at
+               full width on 8 ranks sharing the card:
+               ``measure_ring_bandwidth`` at the reference's 16 MiB
+               payload and at 256 MiB, one way and both ways,
+               ``make_ring_reduce_scatter`` on 16 MiB per rank and the
+               all-reduce composition against the plain one; 20 repeats
+               of each kernel bitwise equal; times of the kernel, the
+               plain version and one PyTorch call (a yardstick only).
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -73,7 +88,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
-SOURCES = ("paged_attn", "tile_mma", "ring_attn")
+SOURCES = ("paged_attn", "tile_mma", "ring_attn", "ring_collectives")
 
 # Kernel phase: the deploy shape of the serving phase below.
 KS, KC, KB, KBS, KH, KDH, KN = 16, 16, 256, 16, 32, 128, 8192
@@ -142,6 +157,30 @@ RING_RTOL, RING_ATOL = 1e-4, 1e-5
 # it (under 2**-12 an f32 sum's reordering error, ~1e-7, is no longer
 # small beside the value's own ulp).
 RING_ULPS, RING_ULP_FLOOR = 1.0, 2.0 ** -12
+
+# Collectives phase: the fabric probe's ring at the reference's default
+# payload, [8192, 512] f32 (16 MiB, 2 MiB per rank), on the ring mesh
+# above; once more at the HBM pass's 256 MiB, beyond the card's L2; the
+# reduce-scatter with 16 MiB per rank, so that its chunks are the
+# all-gather's 2 MiB blocks; and the all-gather at ring attention's
+# block (4 MiB per rank), to set its step beside that kernel's relay.
+COLL_WIDTH = 512
+COLL_MBYTES, COLL_BIG_MBYTES, COLL_ATTN_MBYTES = 16, 256, 32
+COLL_ROUNDS = 4
+# Small rings, checked and not timed: (n, rows per rank, width, type).
+# The reference tests' shapes (4 rows of 8 f32 per rank; 3 rows, the odd
+# shard that must run one way), blocks that are no multiple of 16 bytes
+# (20, 36 and 12 bytes; 33 000 and 17 000 bytes, which several CTAs of a
+# rank stripe by single values), and the 2-byte and integer payloads.
+COLL_SMALL = ([(n, 4, 8, "float32") for n in (1, 2, 3, 4, 8)]
+              + [(8, 3, 8, "float32"), (3, 2, 5, "bfloat16"),
+                 (4, 3, 3, "float32"), (4, 6, 64, "bfloat16"),
+                 (8, 2, 16, "float16"), (4, 4, 8, "int32"),
+                 (5, 2, 3, "int32"), (8, 66, 250, "bfloat16"),
+                 (4, 34, 125, "float32")])
+# Reduce-scatter against a float64 sum: the reference's own bar between
+# its ring and numpy (f32; up to 8 adds in another order).
+RS_RTOL, RS_ATOL = 1e-4, 1e-5
 
 # Small configuration held against the CPU path (the tests' widths).
 SMALL = dict(slots=2, vocab=16, d=8, heads=2, block_size=4,
@@ -710,8 +749,15 @@ def phase_health(torch, card, name):
     check(not errors, f"bench_gpu sections failed: {errors}")
     check(bench["device_kind"] == name, f"bench ran on {bench['device_kind']}")
     for key in ("mxu_torch_tflops", "mxu_kernel_tflops", "burn_torch_tflops",
-                "burn_kernel_tflops", "hbm_gbps"):
+                "burn_kernel_tflops", "hbm_gbps", "ring_gbps",
+                "ring_bidir_gbps"):
         check(bench[key] > 0, f"bench_gpu {key} = {bench[key]}")
+    check(bench["ring_ranks_share_card"] is True
+          and bench["ring_axis_size"] == RING_MESH["sp"],
+          f"bench_gpu ring block: {bench['ring_axis_size']} ranks")
+    for key in ("ring_all_gather", "ring_all_gather_bidir"):
+        check(bench["kernel_launches"][key] > 0,
+              f"bench_gpu launched no {key} kernel")
     launches = {k: fn.launches + bench["kernel_launches"][k]
                 for k, fn in counters.items()}
     check(all(launches.values()), f"a kernel the path runs never launched: "
@@ -858,6 +904,245 @@ def phase_ring(torch, card):
     return record
 
 
+# -- phase 9: the ring collectives --------------------------------------------
+
+
+def coll_payload(torch, rows, width, dtype, seed):
+    """[rows, width] of ``dtype`` drawn on the card: N(0, 1), or integers
+    in +-1000."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-1000, 1000, (rows, width), generator=gen,
+                             device="cuda", dtype=dtype)
+    return torch.randn((rows, width), generator=gen, device="cuda").to(dtype)
+
+
+def same_bits(torch, a, b):
+    """Equal shape, type and bits (2- and 4-byte types)."""
+    as_int = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(as_int), b.view(as_int)))
+
+
+def check_gather(torch, rp, tag, x, n, bidirectional):
+    """One launch of the all-gather: every rank's copy is x bit for bit
+    and equals the plain version's; the launch is counted under the ring
+    that ran. Returns the kernel's output."""
+    want_bidir = bidirectional and (x.shape[0] // n) % 2 == 0
+    before = (rp.ring_all_gather_cuda.launches,
+              rp.ring_all_gather_cuda.launches_bidir)
+    got = rp.ring_all_gather_cuda(x, n, bidirectional)
+    torch.cuda.synchronize()
+    after = (rp.ring_all_gather_cuda.launches,
+             rp.ring_all_gather_cuda.launches_bidir)
+    check(after == (before[0] + (not want_bidir), before[1] + want_bidir),
+          f"{tag}: launch counted as {after} after {before}")
+    check(got.shape == (n,) + tuple(x.shape) and got.dtype == x.dtype,
+          f"{tag}: {got.dtype} {tuple(got.shape)}")
+    for r in range(n):
+        check(same_bits(torch, got[r], x),
+              f"{tag}: rank {r}'s copy differs from x")
+    check(same_bits(torch, got, rp.ring_all_gather_plain(x, n,
+                                                          bidirectional)),
+          f"{tag}: differs from the plain version")
+    return got
+
+
+def check_scatter(torch, rp, tag, x, n):
+    """One launch of the reduce-scatter: the plain version's bits, and a
+    float64 sum within the bar. Returns (output, max |err| against the
+    plain version, against float64)."""
+    before = rp.ring_reduce_scatter_cuda.launches
+    got = rp.ring_reduce_scatter_cuda(x, n)
+    torch.cuda.synchronize()
+    check(rp.ring_reduce_scatter_cuda.launches == before + (n > 1),
+          f"{tag}: {rp.ring_reduce_scatter_cuda.launches - before} launches")
+    want = rp.ring_reduce_scatter_plain(x, n)
+    check(same_bits(torch, got, want), f"{tag}: differs from the plain "
+                                       f"version's bits")
+    rows = x.shape[0] // n
+    exact = x.double().view(n, rows, -1).sum(0)
+    err = float((got.double() - exact).abs().max())
+    if x.dtype == torch.int32:
+        check(err == 0, f"{tag}: integer sum off by {err}")
+    elif x.dtype == torch.float32:
+        check(torch.allclose(got.double(), exact, rtol=RS_RTOL,
+                             atol=RS_ATOL),
+              f"{tag}: {err} from the float64 sum")
+    return got, float((got.double() - want.double()).abs().max()), err
+
+
+def phase_collectives(torch, card):
+    """The ring collectives: small rings against x and the plain
+    versions, then the main path (``measure_ring_bandwidth``,
+    ``make_ring_reduce_scatter`` and the all-reduce composition at full
+    width, counts set to 0 just before), 20 repeats bitwise equal, and
+    times of each kernel, its plain version and one PyTorch call."""
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+
+    mesh = RING_MESH
+    n = mesh["sp"]
+    for i, (ns, rows, width, tname) in enumerate(COLL_SMALL):
+        dtype = getattr(torch, tname)
+        x = coll_payload(torch, ns * rows, width, dtype, seed=40 + i)
+        for bidirectional in (False, True):
+            check_gather(torch, rp, f"all-gather n={ns} [{ns * rows}, "
+                         f"{width}] {tname} bidirectional={bidirectional}",
+                         x, ns, bidirectional)
+        X = coll_payload(torch, ns * ns * rows, width, dtype, seed=60 + i)
+        _, err, err64 = check_scatter(
+            torch, rp, f"reduce-scatter n={ns} [{ns * ns * rows}, {width}] "
+            f"{tname}", X, ns)
+        log(f"collectives n={ns} rows/rank {rows} width {width} {tname}: "
+            f"all-gather (one way, both ways) every rank's copy == x bit "
+            f"for bit; reduce-scatter == plain bit for bit (max |err| "
+            f"{err:.1e}), {err64:.3e} from the float64 sum")
+
+    # The main path, counts at 0.
+    rows = COLL_MBYTES * 2 ** 20 // (4 * COLL_WIDTH)
+    rp.ring_all_gather_cuda.launches = 0
+    rp.ring_all_gather_cuda.launches_bidir = 0
+    rp.ring_reduce_scatter_cuda.launches = 0
+    probes = {}
+    for mbytes in (COLL_MBYTES, COLL_BIG_MBYTES):
+        for bidirectional in (False, True):
+            res = rp.measure_ring_bandwidth(
+                mesh, "sp", mbytes=mbytes, rounds=COLL_ROUNDS,
+                bidirectional=bidirectional)
+            mode = "bidir" if bidirectional else "unidir"
+            check(res["mode"] == mode and res["axis_size"] == n
+                  and res["ici_adjacent"] is None
+                  and res["effective_gbps"] > 0
+                  and res["seconds_per_round"] > 0,
+                  f"measure_ring_bandwidth {mbytes} MiB {mode}: {res}")
+            probes[(mbytes, mode)] = res
+            log(f"collectives measure_ring_bandwidth {mbytes} MiB {mode}: "
+                f"{res['seconds_per_round'] * 1e3:.4f} ms/round wall, "
+                f"{res['effective_gbps']:.2f} Gbit/s effective "
+                f"({n} ranks share the card: the protocol and copies "
+                f"within its memory, no link) [{card}]")
+    X = coll_payload(torch, n * rows, COLL_WIDTH, torch.float32, seed=30)
+    rs = rp.make_ring_reduce_scatter(mesh, "sp")
+    ag = rp.make_ring_all_gather(mesh, "sp")
+    rs_out = rs(X)
+    allred = ag(rs(X))
+    torch.cuda.synchronize()
+    calls = 2 * (1 + COLL_ROUNDS)
+    launches = {"ring_all_gather": rp.ring_all_gather_cuda.launches,
+                "ring_all_gather_bidir":
+                    rp.ring_all_gather_cuda.launches_bidir,
+                "ring_reduce_scatter": rp.ring_reduce_scatter_cuda.launches}
+    want = {"ring_all_gather": calls, "ring_all_gather_bidir": calls + 1,
+            "ring_reduce_scatter": 2}
+    check(launches == want, f"collectives main path: launches {launches}, "
+                            f"calls {want}")
+    rs_plain = rp.ring_reduce_scatter_plain(X, n)
+    check(same_bits(torch, rs_out, rs_plain),
+          "make_ring_reduce_scatter differs from the plain version's bits")
+    exact = X.double().view(n, rows, -1).sum(0)
+    check(torch.allclose(rs_out.double(), exact, rtol=RS_RTOL, atol=RS_ATOL),
+          "make_ring_reduce_scatter is off the float64 sum")
+    rs_err64 = float((rs_out.double() - exact).abs().max())
+    check(same_bits(torch, allred,
+                    rp.ring_all_gather_plain(rs_plain, n, True)[0]),
+          "all-reduce ag(rs(X)) differs from the plain composition's bits")
+    log(f"collectives main path: launches {launches}; reduce-scatter "
+        f"[{n * rows}, {COLL_WIDTH}] f32 == plain bit for bit, "
+        f"{rs_err64:.3e} from the float64 sum (rtol {RS_RTOL}, atol "
+        f"{RS_ATOL}); all-reduce ag(rs(X)) == plain composition bit for bit")
+    del rs_out, allred, exact
+
+    # Every rank's copy at full width, repeats, times.
+    x = coll_payload(torch, rows, COLL_WIDTH, torch.float32, seed=31)
+    nbytes = x.numel() * 4
+    chunk_bytes = nbytes // n
+    records = []
+    library_ms = time_ms(torch, lambda: x.expand(n, *x.shape).contiguous(),
+                         n=10, warm=2)
+    for name, bidirectional, line in (("ring_all_gather", False, 335),
+                                      ("ring_all_gather_bidir", True, 299)):
+        first = check_gather(torch, rp, f"{name} {COLL_MBYTES} MiB", x, n,
+                             bidirectional)
+        for i in range(RING_REPEATS):
+            again = rp.ring_all_gather_cuda(x, n, bidirectional)
+            check(same_bits(torch, again, first),
+                  f"{name} repeat {i}: differs from the first call's bits")
+        del again
+        ms = time_ms(torch, lambda: rp.ring_all_gather_cuda(
+            x, n, bidirectional), n=10, warm=2)
+        plain_ms = time_ms(torch, lambda: rp.ring_all_gather_plain(
+            x, n, bidirectional), n=5, warm=1, batch=2)
+        t_bytes = (nbytes + n * nbytes) / HBM_BYTES_PER_S * 1e3
+        moved = n * 2 * (2 * n - 1) * chunk_bytes
+        log(f"collectives {name} [{rows}, {COLL_WIDTH}] f32 n={n}: every "
+            f"rank's copy == x bit for bit, {RING_REPEATS} repeats bitwise "
+            f"equal; kernel {ms:.4f} ms ({ms / (n - 1) * 1e3:.1f} us per "
+            f"ring step), plain {plain_ms:.4f} ms, expand().contiguous() "
+            f"{library_ms:.4f} ms, bound {t_bytes:.4f} ms ({nbytes} B read, "
+            f"{n * nbytes} B written; the protocol reads and writes {moved} "
+            f"B: each rank relays {n - 1} blocks and copies {n} out) "
+            f"[{card}]")
+        records.append(dict(
+            name=name, route="cuda",
+            source="dpu_operator_tpu_torch/csrc/ring_collectives.cu",
+            replaces=f"dpu_operator_tpu/parallel/ring_probe.py:{line}",
+            launches=launches[name], max_abs_err=float(
+                (first - x).abs().max()), ms=ms, plain_ms=plain_ms,
+            bound_ms=t_bytes, bound_by="bytes", library_ms=library_ms))
+        del first
+    for mbytes in (COLL_ATTN_MBYTES, COLL_BIG_MBYTES):
+        big = coll_payload(torch, mbytes * 2 ** 20 // (4 * COLL_WIDTH),
+                           COLL_WIDTH, torch.float32, seed=32)
+        for bidirectional in (False, True):
+            check_gather(torch, rp, f"all-gather {mbytes} MiB", big, n,
+                         bidirectional)
+            ms = time_ms(torch, lambda: rp.ring_all_gather_cuda(
+                big, n, bidirectional), n=5, warm=1, batch=2)
+            t_bytes = (1 + n) * mbytes * 2 ** 20 / HBM_BYTES_PER_S * 1e3
+            log(f"collectives all-gather {mbytes} MiB f32 n={n} "
+                f"bidirectional={bidirectional}: every rank's copy == x; "
+                f"kernel {ms:.4f} ms ({ms / (n - 1) * 1e3:.1f} us per ring "
+                f"step of {mbytes // n} MiB blocks), bound {t_bytes:.4f} ms "
+                f"[{card}]")
+        del big
+        torch.cuda.empty_cache()
+
+    first, err, _ = check_scatter(torch, rp, f"reduce-scatter "
+                                  f"{COLL_MBYTES} MiB per rank", X, n)
+    for i in range(RING_REPEATS):
+        again = rp.ring_reduce_scatter_cuda(X, n)
+        check(same_bits(torch, again, first),
+              f"reduce-scatter repeat {i}: differs from the first call's "
+              f"bits")
+    ms = time_ms(torch, lambda: rp.ring_reduce_scatter_cuda(X, n), n=10,
+                 warm=2)
+    plain_ms = time_ms(torch, lambda: rp.ring_reduce_scatter_plain(X, n),
+                       n=5, warm=1, batch=2)
+    library_ms = time_ms(
+        torch, lambda: X.view(n, n, rows // n, COLL_WIDTH).sum(0), n=10,
+        warm=2)
+    t_bytes = (n * nbytes + nbytes) / HBM_BYTES_PER_S * 1e3
+    moved = n * chunk_bytes * (2 * n + 2 * (n - 1) + 3 * (n - 2) + 3)
+    log(f"collectives ring_reduce_scatter [{n * rows}, {COLL_WIDTH}] f32 "
+        f"n={n}: == plain bit for bit, {RING_REPEATS} repeats bitwise "
+        f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"view().sum(0) {library_ms:.4f} ms, bound {t_bytes:.4f} ms "
+        f"({n * nbytes} B read, {nbytes} B written; the protocol reads "
+        f"and writes {moved} B: each rank produces {n} blocks, sends "
+        f"{n - 1}, folds {n - 2} and finishes one) [{card}]")
+    records.append(dict(
+        name="ring_reduce_scatter", route="cuda",
+        source="dpu_operator_tpu_torch/csrc/ring_collectives.cu",
+        replaces="dpu_operator_tpu/parallel/ring_probe.py:644",
+        launches=launches["ring_reduce_scatter"], max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=t_bytes, bound_by="bytes",
+        library_ms=library_ms))
+    del X, x, first, again
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     try:
         import torch
@@ -901,8 +1186,9 @@ def main() -> int:
     for rec in tiles:
         rec["launches"] = launches[rec["name"]]
     ring = phase_ring(torch, card)
+    collectives = phase_collectives(torch, card)
     print(card)
-    print(json.dumps({"kernels": [record] + tiles + [ring]}))
+    print(json.dumps({"kernels": [record] + tiles + [ring] + collectives}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

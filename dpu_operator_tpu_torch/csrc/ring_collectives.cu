@@ -1,0 +1,324 @@
+// The ring collectives of the fabric probe for Hopper (sm_90a): one-way
+// and bidirectional ring all-gather and the ring reduce-scatter (sum).
+//
+// Replaces, in parallel/ring_probe.py of the JAX package, `_ring_kernel`
+// (`_pallas_all_gather`), `_ring_kernel_bidir`
+// (`_pallas_all_gather_bidir`) and `_rs_kernel`
+// (`_pallas_reduce_scatter`). The protocols are `ring_stream.cuh`'s, the
+// same bodies ring attention runs on; this file holds their consumers,
+// the kernels' entry code and the C entry points.
+//
+// All-gather. Rank r owns rows r * chunk .. of x [n * chunk, width] and
+// ends with a copy of all of x: `run_ring_stream` with a consumer that
+// copies the block in hand to the rank's output rows idx * chunk. The
+// bidirectional form is two such streams in one launch, each with its
+// own slots, flag words and credit chain: half of a rank's CTAs carry the
+// top half of every chunk towards higher positions, the other half carry
+// the bottom half the other way (`Rank::dir = -1`, the neighbours
+// swapped), so a block arrives after at most n - 1 hops of half the
+// bytes each way. Each stream copies its half of the rank's own chunk at
+// step 0, so the own chunk reaches the output whole.
+//
+// Reduce-scatter. Rank r contributes x_r [n * chunk, width] and ends with
+// the sum over ranks of row-block r: `run_rs_ring` with a `produce` that
+// copies a row-block of x_r and a `finish` that stores the last sum. The
+// adds run in the payload's own type (f32, bf16, f16, int32), in the
+// ring's order, rounding at every hop.
+//
+// Layout. One cooperative launch holds every rank: n x streams x G CTAs
+// of 256 threads, all resident at once (the occupancy query decides; the
+// kernels use no shared memory, so the card holds many), G chosen so
+// that a thread moves about four 16-byte units of a block. A rank's CTAs
+// stripe every copy and every add between them.
+//
+// What bounds them: bytes. The function itself reads x once and writes
+// each rank's result once; the protocol moves more, because a rank
+// relays n - 1 blocks through its neighbour's slots and copies n blocks
+// out (all-gather), or produces n blocks, sends n - 1 and folds n - 2
+// (reduce-scatter), each a read and a write of device memory or L2. With
+// all ranks on one card these are copies within that card's memory: the
+// kernels' time measures the protocol and the copies, not a link.
+// Still to do: bulk (TMA) copies, and one read of a block feeding both
+// the relay and the output store.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ring_stream.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxRanks = 8;
+// A CTA's share of a block before another CTA is worth its flag traffic.
+constexpr long long kBytesPerCta = 4ll * 16 * kThreads;
+
+struct Ring {
+  ring::Flags* flags;  // [streams][kMaxRanks]
+  int right[kMaxRanks];
+  int left[kMaxRanks];
+  int n;
+  int ctas;  // CTAs of one rank on one stream
+  unsigned long long epoch;
+};
+
+struct GatherParams {
+  Ring ring;
+  const char* x;  // [n * chunk, width]: rank r's shard at r * chunk_bytes
+  char* out;      // [n][n * chunk, width]: every rank's gathered copy
+  char* slots;    // [streams][n][2][chunk_bytes / streams]
+  int streams;    // 1: one way; 2: the halves of every chunk, one each way
+  long long chunk_bytes;
+};
+
+struct ScatterParams {
+  Ring ring;
+  const char* x;  // [n][n * chunk, width]: rank r's contribution
+  char* out;      // [n * chunk, width]: rank r's sum at r * block_bytes
+  char* send;     // [n][2][block_bytes]
+  char* recv;     // [n][2][block_bytes], written by the left neighbour
+  long long block_bytes;
+};
+
+// The rank of ring `g` at position `rank` whose blocks travel to `down`
+// and come from `up`, on the flag words `flags` and the slots `slots`
+// ([n][2][block_bytes]).
+__device__ __forceinline__ ring::Rank make_rank(const Ring& g, int rank,
+                                                int cta, int dir, int down,
+                                                int up, ring::Flags* flags,
+                                                char* slots,
+                                                long long block_bytes) {
+  ring::Rank r;
+  r.my_id = rank;
+  r.dir = dir;
+  r.n = g.n;
+  r.ctas = g.ctas;
+  r.cta = cta;
+  r.epoch = g.epoch;
+  r.block_bytes = block_bytes;
+  r.local = nullptr;
+  r.my_slots = slots + 2 * rank * block_bytes;
+  r.right_slots = slots + 2 * down * block_bytes;
+  r.me = flags + rank;
+  r.left = flags + up;
+  r.right = flags + down;
+  return r;
+}
+
+// The all-gather's consumer: the block in hand goes to this rank's
+// output rows of its owner, at this stream's half.
+struct CopyOut {
+  char* out;
+  long long chunk_bytes, block_bytes;
+  int cta, ctas;
+  __device__ __forceinline__ void operator()(int, int idx,
+                                             const char* block) const {
+    ring::copy_stripe(out + idx * chunk_bytes, block, block_bytes, cta, ctas);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+    ring_all_gather_kernel(GatherParams p) {
+  const Ring& g = p.ring;
+  const int per_rank = p.streams * g.ctas;
+  const int rank = blockIdx.x / per_rank;
+  const int stream = blockIdx.x % per_rank / g.ctas;
+  const int cta = blockIdx.x % g.ctas;
+  const long long block_bytes = p.chunk_bytes / p.streams;
+  const bool up_ring = stream == 0;
+  ring::Rank r = make_rank(
+      g, rank, cta, up_ring ? 1 : -1, up_ring ? g.right[rank] : g.left[rank],
+      up_ring ? g.left[rank] : g.right[rank], g.flags + stream * kMaxRanks,
+      p.slots + stream * g.n * 2 * block_bytes, block_bytes);
+  r.local = p.x + rank * p.chunk_bytes + stream * block_bytes;
+  CopyOut consume{p.out + rank * g.n * p.chunk_bytes + stream * block_bytes,
+                  p.chunk_bytes, block_bytes, cta, g.ctas};
+  ring::run_ring_stream(r, consume);
+}
+
+// Sums in the payload's own type, on bit patterns (see ring_stream.cuh).
+struct SumF32 {
+  using Raw = unsigned int;
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
+    return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+  }
+};
+
+struct SumI32 {
+  using Raw = unsigned int;  // two's complement: wraps as int32 does
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) { return a + b; }
+};
+
+// bf16 and f16: the exact operands added in f32 and rounded once to the
+// type, to nearest even, which is PyTorch's own bf16 and f16 add.
+struct SumBF16 {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
+    const float fa = __uint_as_float(static_cast<unsigned>(a) << 16);
+    const float fb = __uint_as_float(static_cast<unsigned>(b) << 16);
+    return __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_rn(fa, fb)));
+  }
+};
+
+struct SumF16 {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
+    const float fa = __half2float(__ushort_as_half(a));
+    const float fb = __half2float(__ushort_as_half(b));
+    return __half_as_ushort(__float2half_rn(__fadd_rn(fa, fb)));
+  }
+};
+
+template <class Sum>
+__global__ void __launch_bounds__(kThreads)
+    ring_reduce_scatter_kernel(ScatterParams p) {
+  using Raw = typename Sum::Raw;
+  const Ring& g = p.ring;
+  const int rank = blockIdx.x / g.ctas;
+  const int cta = blockIdx.x % g.ctas;
+  const long long bb = p.block_bytes;
+  const ring::Rank r = make_rank(g, rank, cta, 1, g.right[rank], g.left[rank],
+                                 g.flags, p.recv, bb);
+  const char* mine = p.x + rank * g.n * bb;
+  char* result = p.out + rank * bb;
+  auto produce = [&](int idx, char* dst) {
+    ring::copy_stripe<Raw>(dst, mine + idx * bb, bb, cta, g.ctas);
+  };
+  auto finish = [&](const char* a, const char* b) {
+    ring::add_stripe<Sum>(result, a, b, bb, cta, g.ctas);
+  };
+  ring::run_rs_ring<Sum>(r, p.send + 2 * rank * bb, produce, finish);
+}
+
+// Fill `g` from the C arguments; false where they name no ring.
+bool make_ring(Ring& g, void* flags, const long long* right,
+               const long long* left, int n, int min_n,
+               unsigned long long epoch) {
+  if (n < min_n || n > kMaxRanks || epoch < 1) return false;
+  g.flags = static_cast<ring::Flags*>(flags);
+  g.n = n;
+  g.ctas = 1;
+  g.epoch = epoch;
+  for (int r = 0; r < kMaxRanks; ++r) {
+    g.right[r] = r < n ? static_cast<int>(right[r]) : 0;
+    g.left[r] = r < n ? static_cast<int>(left[r]) : 0;
+    if (g.right[r] < 0 || g.right[r] >= n || g.left[r] < 0 ||
+        g.left[r] >= n) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// One cooperative launch of n x streams x G CTAs, G from the block's
+// bytes and capped by what the card holds at once: co-resident by
+// construction, so a spin wait cannot starve the CTA it waits for.
+template <class Params>
+int launch_ring(void (*fn)(Params), Params& p, int streams,
+                long long block_bytes, cudaStream_t stream) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      0);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const int groups = p.ring.n * streams;
+  const int room = per_sm * sms / groups;
+  if (room < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const long long want = (block_bytes + kBytesPerCta - 1) / kBytesPerCta;
+  p.ring.ctas = static_cast<int>(want < room ? want : room);
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                  dim3(groups * p.ring.ctas), dim3(kThreads),
+                                  args, 0, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns the CUDA error
+// code of the launch, 0 on success; launches on `stream` and does not
+// synchronize. The caller checks types, shapes, contiguity and that
+// every base pointer is 16-byte aligned. flags points at 2 x 8
+// ring::Flags that live across calls (zeroed once); epoch grows by at
+// least one from one call to the next on the same flags. right[r] and
+// left[r] are rank r's neighbours on the ring.
+
+// x [n * chunk, width] of any type, chunk_bytes the bytes of one rank's
+// shard (even; a multiple of 4 when bidirectional, so that each half is
+// even too); out [n][n * chunk, width] gets every rank's gathered copy;
+// slots is scratch of 2 * n * chunk_bytes.
+extern "C" int ring_all_gather_launch(const void* x, void* out, void* slots,
+                                      void* flags, const long long* right,
+                                      const long long* left, int n,
+                                      long long chunk_bytes,
+                                      int bidirectional,
+                                      unsigned long long epoch,
+                                      void* stream) {
+  GatherParams p;
+  const int streams = bidirectional ? 2 : 1;
+  if (!make_ring(p.ring, flags, right, left, n, 1, epoch) ||
+      chunk_bytes < 2 * streams || chunk_bytes % (2 * streams)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.x = static_cast<const char*>(x);
+  p.out = static_cast<char*>(out);
+  p.slots = static_cast<char*>(slots);
+  p.streams = streams;
+  p.chunk_bytes = chunk_bytes;
+  return launch_ring(ring_all_gather_kernel, p, streams,
+                     chunk_bytes / streams,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// x [n][n * chunk, width], rank r's contribution at r * n * block_bytes,
+// block_bytes the bytes of one [chunk, width] row-block; out
+// [n * chunk, width] gets rank r's sum at r * block_bytes; send and recv
+// are scratch of 2 * n * block_bytes each. dtype: 0 f32, 1 bf16, 2 f16,
+// 3 int32. n >= 2: a ring of one is the identity and the caller's.
+extern "C" int ring_reduce_scatter_launch(const void* x, void* out,
+                                          void* send, void* recv,
+                                          void* flags,
+                                          const long long* right,
+                                          const long long* left, int n,
+                                          long long block_bytes, int dtype,
+                                          unsigned long long epoch,
+                                          void* stream) {
+  ScatterParams p;
+  const long long item = dtype == 1 || dtype == 2 ? 2 : 4;
+  if (!make_ring(p.ring, flags, right, left, n, 2, epoch) || dtype < 0 ||
+      dtype > 3 || block_bytes < item || block_bytes % item) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.x = static_cast<const char*>(x);
+  p.out = static_cast<char*>(out);
+  p.send = static_cast<char*>(send);
+  p.recv = static_cast<char*>(recv);
+  p.block_bytes = block_bytes;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_ring(ring_reduce_scatter_kernel<SumF32>, p, 1,
+                         block_bytes, st);
+    case 1:
+      return launch_ring(ring_reduce_scatter_kernel<SumBF16>, p, 1,
+                         block_bytes, st);
+    case 2:
+      return launch_ring(ring_reduce_scatter_kernel<SumF16>, p, 1,
+                         block_bytes, st);
+    default:
+      return launch_ring(ring_reduce_scatter_kernel<SumI32>, p, 1,
+                         block_bytes, st);
+  }
+}

@@ -1,13 +1,16 @@
-// The one-way ring-stream protocol, device side, for Hopper (sm_90a).
+// The two ring protocols, device side, for Hopper (sm_90a).
 //
-// Counterpart of parallel/ring_probe.py `_run_ring_stream` in the JAX
-// package: the one protocol body that the ring kernels share, here a
-// template over a consumer, `consume(k, idx, block)`, called with each
-// block as it passes through this rank (k the ring step, idx the rank
-// that owns the block). The ring all-gather's consumer copies the block
-// out, the fused all-gather matmul's multiplies it, ring attention's
-// folds it into an online softmax; a fix to the protocol lands in all of
-// them at once.
+// `run_ring_stream` is the counterpart of parallel/ring_probe.py
+// `_run_ring_stream` in the JAX package: the one protocol body that the
+// streaming ring kernels share, here a template over a consumer,
+// `consume(k, idx, block)`, called with each block as it passes through
+// this rank (k the ring step, idx the rank that owns the block). The ring
+// all-gather's consumer copies the block out, the fused all-gather
+// matmul's multiplies it, ring attention's folds it into an online
+// softmax; a fix to the protocol lands in all of them at once.
+// `run_rs_ring`, further down, is the counterpart of `_run_rs_ring`: the
+// reduce-scatter ring, a template over what produces a rank's
+// contribution and where the finished sum goes.
 //
 // What the TPU's primitives become:
 //   * a rank is `ctas` CTAs of one cooperative launch (all of them
@@ -74,6 +77,10 @@ struct alignas(128) Flags {
 // What one CTA knows of its rank and the rank's neighbours.
 struct Rank {
   int my_id;      // position on the ring
+  int dir = 1;    // +1: blocks travel towards higher positions; -1: the
+                  // ring runs the other way, and `right`/`right_slots`
+                  // name the neighbour at my_id - 1, `left` the one at
+                  // my_id + 1 (downstream and upstream)
   int n;          // ring size
   int ctas;       // CTAs that make up this rank
   int cta;        // this CTA's index within the rank
@@ -142,8 +149,11 @@ __device__ __forceinline__ void arrive(unsigned int* counter, int ctas,
 }
 
 // This CTA's stripe of a block copy, `bytes` from src to dst: 16-byte
-// units where both ends allow, else 2-byte units (every payload type is
-// at least 2 bytes wide). The source is read through L2 only.
+// units where both ends allow, else units of `Unit` (2 bytes unless the
+// caller names the payload's own width: every payload type is at least
+// 2 bytes wide). Unit i belongs to thread i % blockDim.x of CTA
+// (i / blockDim.x) % ctas. The source is read through L2 only.
+template <class Unit = unsigned short>
 __device__ __forceinline__ void copy_stripe(char* dst, const char* src,
                                             long long bytes, int cta,
                                             int ctas) {
@@ -158,9 +168,10 @@ __device__ __forceinline__ void copy_stripe(char* dst, const char* src,
       __stcg(d + i, __ldcg(s + i));
     }
   } else {
-    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-    unsigned short* d = reinterpret_cast<unsigned short*>(dst);
-    for (long long i = first; i < bytes / 2; i += stride) {
+    const Unit* s = reinterpret_cast<const Unit*>(src);
+    Unit* d = reinterpret_cast<Unit*>(dst);
+    const long long units = bytes / static_cast<long long>(sizeof(Unit));
+    for (long long i = first; i < units; i += stride) {
       __stcg(d + i, __ldcg(s + i));
     }
   }
@@ -168,7 +179,8 @@ __device__ __forceinline__ void copy_stripe(char* dst, const char* src,
 
 // The protocol, run by every CTA of every rank. `consume(k, idx, block)`
 // is called by all threads of the CTA for k = 0 .. n-1 with the block
-// owned by rank idx = (my_id - k) mod n; it must only read the block.
+// owned by rank idx = (my_id - dir * k) mod n, the rank k hops upstream;
+// it must only read the block.
 template <class Consumer>
 __device__ void run_ring_stream(const Rank& r, Consumer& consume) {
   const unsigned long long tag = r.epoch * kTagSteps;
@@ -191,13 +203,140 @@ __device__ void run_ring_stream(const Rank& r, Consumer& consume) {
       arrive(&r.me->send_arrive[k & 1], r.ctas,
              [&] { raise_flag(&r.right->recv, tag + k + 1); });
     }
-    consume(k, (r.my_id - k + r.n) % r.n, block);
+    consume(k, (r.my_id - r.dir * k + r.n) % r.n, block);
     if (k < r.n - 2) {
       // Done with this slot: the left neighbour may overwrite it.
       arrive(&r.me->credit_arrive[k & 1], r.ctas,
              [&] { raise_flag(&r.left->credit, tag + k + 1); });
     }
   }
+}
+
+// -- the reduce-scatter ring --------------------------------------------------
+//
+// Chunk j starts at rank (j + 1) mod n and travels towards higher
+// positions, gathering each rank's contribution on the way, and is
+// complete when it lands on rank j after n - 1 hops. A rank keeps two
+// send buffers of its own (the sum it forwards next) and two receive
+// slots that its left neighbour writes (`my_slots`; `right_slots` are
+// the right neighbour's). Step k, for k = 0 .. n-2:
+//   * (k > 1) wait for one credit: the target slot (k + 1) % 2 of the
+//     right neighbour last held the arrival of step k - 2, which that
+//     neighbour has folded. Step 0's target was never written and step
+//     1's neither, so they need none;
+//   * copy send[k % 2] into the right neighbour's slot (k + 1) % 2 and
+//     raise its receive flag;
+//   * produce the NEXT block's contribution, row-block
+//     (my_id - k - 2) mod n, into send[(k + 1) % 2] (the reference did
+//     this while its copy was in flight);
+//   * wait for this step's own arrival in slot (k + 1) % 2 and
+//     (k < n - 2) fold it: send[(k + 1) % 2] += slot[(k + 1) % 2];
+//   * (k < n - 3) grant the left neighbour a credit: a later grant would
+//     have no send left to use it.
+// The last arrival (step n - 2) is not folded in the loop: by then
+// send[(n - 1) % 2] holds this rank's contribution to its own chunk, and
+// `finish(slot[(n - 1) % 2], send[(n - 1) % 2])` stores their sum. Rings
+// of 2 and 3 grant no credit; a ring of 1 must not come here (the
+// reduction is the identity, and the loop would add an unwritten slot).
+//
+// Within a rank every CTA owns the same stripe of every buffer at every
+// step: `produce`, the fold, the send and `finish` all cut a block into
+// the units of `copy_stripe<Raw>` (16 bytes where pointers and size
+// allow, else one value), so one stripe's produce -> fold -> send runs in
+// one CTA's program order, behind its __syncthreads(). Only the two
+// cross-rank events (a block has landed, a slot is free) go through the
+// rank's arrival counters. The caller keeps that promise by giving every
+// buffer a 16-byte-aligned base and blocks of whole values.
+//
+// `Sum::Raw` is a value's bit pattern (unsigned short or unsigned int)
+// and `Sum::add(a, b)` the sum in the payload's own type, rounded there
+// at every hop as the reference's scratch of the input's type rounds.
+// The adds run in a fixed order, so a result is the same on every call.
+
+// dst = a + b over this CTA's stripe; the units of copy_stripe<Raw>.
+template <class Sum>
+__device__ __forceinline__ void add_stripe(char* dst, const char* a,
+                                           const char* b, long long bytes,
+                                           int cta, int ctas) {
+  using Raw = typename Sum::Raw;
+  constexpr int kLanes = 16 / static_cast<int>(sizeof(Raw));
+  const long long first = static_cast<long long>(cta) * blockDim.x +
+                          threadIdx.x;
+  const long long stride = static_cast<long long>(ctas) * blockDim.x;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(a) |
+        reinterpret_cast<uintptr_t>(b) | static_cast<uintptr_t>(bytes)) &
+       15) == 0) {
+    union Vec {
+      uint4 v;
+      Raw lane[kLanes];
+    };
+    const uint4* pa = reinterpret_cast<const uint4*>(a);
+    const uint4* pb = reinterpret_cast<const uint4*>(b);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (long long i = first; i < bytes / 16; i += stride) {
+      Vec x, y;
+      x.v = __ldcg(pa + i);
+      y.v = __ldcg(pb + i);
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        x.lane[j] = Sum::add(x.lane[j], y.lane[j]);
+      }
+      __stcg(d + i, x.v);
+    }
+  } else {
+    const Raw* pa = reinterpret_cast<const Raw*>(a);
+    const Raw* pb = reinterpret_cast<const Raw*>(b);
+    Raw* d = reinterpret_cast<Raw*>(dst);
+    const long long units = bytes / static_cast<long long>(sizeof(Raw));
+    for (long long i = first; i < units; i += stride) {
+      __stcg(d + i, Sum::add(__ldcg(pa + i), __ldcg(pb + i)));
+    }
+  }
+}
+
+// The protocol, run by every CTA of every rank of a ring of n >= 2.
+// `send` is this rank's [2][block_bytes] of send buffers. All threads of
+// the CTA call `produce(idx, dst)`, which writes this CTA's stripe of
+// the rank's contribution to row-block idx into dst, and
+// `finish(a, b)`, which stores this CTA's stripe of a + b where the
+// completed block goes. `r.local` is not used.
+template <class Sum, class Produce, class Finish>
+__device__ void run_rs_ring(const Rank& r, char* send, Produce& produce,
+                            Finish& finish) {
+  const unsigned long long tag = r.epoch * kTagSteps;
+  arrive(&r.me->bar_arrive, r.ctas, [&] {
+    raise_flag(&r.left->bar_from_right, tag);
+    raise_flag(&r.right->bar_from_left, tag);
+  });
+  wait_flag(&r.me->bar_from_left, tag);
+  wait_flag(&r.me->bar_from_right, tag);
+
+  produce((r.my_id - 1 + r.n) % r.n, send);
+  __syncthreads();
+  for (int k = 0; k < r.n - 1; ++k) {
+    char* cur = send + (k & 1) * r.block_bytes;
+    char* next = send + ((k + 1) & 1) * r.block_bytes;
+    const char* arrival = r.my_slots + ((k + 1) & 1) * r.block_bytes;
+    if (k > 1) wait_flag(&r.me->credit, tag + k - 1);  // the target is free
+    copy_stripe<typename Sum::Raw>(
+        r.right_slots + ((k + 1) & 1) * r.block_bytes, cur, r.block_bytes,
+        r.cta, r.ctas);
+    arrive(&r.me->send_arrive[k & 1], r.ctas,
+           [&] { raise_flag(&r.right->recv, tag + k + 1); });
+    produce((r.my_id - k - 2 + 2 * r.n) % r.n, next);
+    wait_flag(&r.me->recv, tag + k + 1);  // this step's arrival has landed
+    if (k < r.n - 2) {
+      add_stripe<Sum>(next, next, arrival, r.block_bytes, r.cta, r.ctas);
+      __syncthreads();
+    }
+    if (k < r.n - 3) {
+      // The arrival is folded: the left neighbour may overwrite its slot.
+      arrive(&r.me->credit_arrive[k & 1], r.ctas,
+             [&] { raise_flag(&r.left->credit, tag + k + 1); });
+    }
+  }
+  finish(r.my_slots + ((r.n - 1) & 1) * r.block_bytes,
+         send + ((r.n - 1) & 1) * r.block_bytes);
 }
 
 }  // namespace ring

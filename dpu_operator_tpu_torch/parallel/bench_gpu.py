@@ -10,9 +10,17 @@ process of its own so that a caller can bound it with a timeout. Keys:
 (the hand-written kernel at ``mxu_kernel_config``, the reference's pinned
 blocks); the 8-step burn chain at 1024^2, ``burn_torch_tflops`` against
 ``burn_kernel_tflops``; ``hbm_gbps``. Each is the median of three runs,
-with ``<key>_minmax``. ``kernel_launches`` counts the kernel launches of
-this process. A section that fails leaves ``<section>_error`` and the
-others' numbers.
+with ``<key>_minmax``. Then the ring block: ``ring_gbps`` and
+``ring_axis_size`` from one ``measure_ring_bandwidth`` of the one-way
+ring all-gather kernel (gigabits per second, the reference's figure),
+and ``ring_bidir_gbps`` (median of three, ``_minmax``) from the
+bidirectional kernel. The reference ran this block on two or more
+devices; here ``RING_RANKS`` ranks share the one card
+(``ring_ranks_share_card``), so the figures rate the ring protocol and
+the copies within that card's memory and say nothing about any link
+between cards. ``kernel_launches`` counts the kernel launches of this
+process. A section that fails leaves ``<section>_error`` and the others'
+numbers.
 
 Without a CUDA device it exits 2 and prints nothing on stdout: it has no
 CPU result.
@@ -29,6 +37,8 @@ import sys
 # The reference's pinned blocks (full K: the accumulator-free route).
 KERNEL_CONFIG = (1024, 256, 4096)
 BURN_N = 1024
+# The ring block's mesh: every rank on the one card.
+RING_RANKS = 8
 
 
 def _runs(measure, n: int = 3) -> list:
@@ -50,7 +60,7 @@ def main() -> int:
               "and has no CPU result", file=sys.stderr)
         return 2
 
-    from . import burn, mxu_bench
+    from . import burn, mxu_bench, ring_probe
 
     device = torch.device("cuda", torch.cuda.current_device())
     out: dict = {
@@ -119,11 +129,37 @@ def main() -> int:
     except Exception as e:  # never discard the numbers already taken
         out["hbm_error"] = str(e)[:200]
 
+    # The one-way ring keeps the reference figure's meaning (the bytes a
+    # rank receives over the round's time); the bidirectional figure
+    # moves the same bytes both ways round at once. Own try and error key
+    # each: a bidirectional failure must not mislabel the one-way figure.
+    mesh = {"dp": 1, "sp": RING_RANKS, "tp": 1}
+    out["ring_ranks_share_card"] = True
+    try:
+        ring = ring_probe.measure_ring_bandwidth(mesh, "sp", device=device)
+        out["ring_gbps"] = round(ring["effective_gbps"], 2)
+        out["ring_axis_size"] = ring["axis_size"]
+    except Exception as e:
+        out["ring_error"] = str(e)[:200]
+        ring = None
+    if ring is not None and ring.get("mode") == "unidir":
+        try:
+            _record(out, "ring_bidir_gbps", _runs(
+                lambda: ring_probe.measure_ring_bandwidth(
+                    mesh, "sp", bidirectional=True,
+                    device=device)["effective_gbps"]))
+        except Exception as e:
+            out["ring_bidir_error"] = str(e)[:200]
+
     out["kernel_launches"] = {
         "burn_chain": burn.burn_chain.launches,
         "burn_tile": burn.burn_tile.launches,
         "mm_fullk": mxu_bench.mm_fullk.launches,
         "mm_kblocked": mxu_bench.mm_kblocked.launches,
+        "ring_all_gather": ring_probe.ring_all_gather_cuda.launches,
+        "ring_all_gather_bidir":
+            ring_probe.ring_all_gather_cuda.launches_bidir,
+        "ring_reduce_scatter": ring_probe.ring_reduce_scatter_cuda.launches,
     }
     print(json.dumps(out))
     return 0

@@ -33,18 +33,15 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
-from ..device import resolve_device
-from .ring_probe import _ring_ids
+from .ring_probe import MAX_RANKS, _launch, _ring_setup
 
 _NEG_INF = -1e30  # not -inf: (-inf) - (-inf) would NaN the rescale
 
-#: Largest ring the kernel takes, and its largest head width.
-MAX_RANKS = 8
+#: The kernel's largest head width (its largest ring is ``MAX_RANKS``).
 MAX_DIM = 256
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -145,34 +142,6 @@ def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # -- the kernel ---------------------------------------------------------------
 
 
-class _RingControl:
-    """The ring's flag words on one (device, stream), zeroed once and
-    kept across calls, and the epoch that tags each call's flag values
-    (``csrc/ring_stream.cuh``). Calls on one stream run in order, so they
-    can share the words."""
-
-    WORDS_PER_RANK = 16  # sizeof(ring::Flags) / 8, padded to 128 bytes
-
-    def __init__(self, device: torch.device):
-        self.flags = torch.zeros(MAX_RANKS * self.WORDS_PER_RANK,
-                                 dtype=torch.int64, device=device)
-        self.epoch = 0
-
-
-_controls: Dict[Tuple[int, int], _RingControl] = {}
-_controls_lock = threading.Lock()
-
-
-def _control(device: torch.device, stream: int) -> _RingControl:
-    with _controls_lock:
-        ctl = _controls.get((device.index, stream))
-        if ctl is None:
-            ctl = _RingControl(device)
-            _controls[(device.index, stream)] = ctl
-        ctl.epoch += 1
-        return ctl
-
-
 def _launcher():
     from ..cuda_build import load
 
@@ -185,16 +154,6 @@ def _launcher():
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
-
-
-def _neighbours(n: int) -> Tuple[List[int], List[int]]:
-    """Each rank's right and left neighbour on a ring of n."""
-    right, left = [], []
-    for rank in range(n):
-        _, r, l = _ring_ids("sp", n, ("sp",), (rank,))
-        right.append(r[0])
-        left.append(l[0])
-    return right, left
 
 
 def ring_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -229,22 +188,15 @@ def ring_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.empty(n * sq, dtype=torch.float32, device=dev)
     l = torch.empty(n * sq, dtype=torch.float32, device=dev)
     o = torch.empty((n * sq, d_v), dtype=torch.float32, device=dev)
-    right, left = _neighbours(n)
-    ids = ctypes.c_longlong * n
     launch = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ctl = _control(dev, stream)
-        err = launch(q.data_ptr(), kv.data_ptr(), out.data_ptr(),
-                     slots.data_ptr(), m.data_ptr(), l.data_ptr(),
-                     o.data_ptr(), ctl.flags.data_ptr(), ids(*right),
-                     ids(*left), n, sq, sk, d_k, d_v,
-                     int(q.dtype == torch.bfloat16),
-                     int(kv.dtype == torch.bfloat16), int(causal),
-                     1.0 / math.sqrt(d_k), ctl.epoch, stream)
-    if err:
-        raise RuntimeError(f"ring_attn kernel launch failed: CUDA error "
-                           f"{err}")
+    _launch("ring_attn", q, n,
+            lambda right, left, flags, epoch, stream: launch(
+                q.data_ptr(), kv.data_ptr(), out.data_ptr(),
+                slots.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
+                flags, right, left, n, sq, sk, d_k, d_v,
+                int(q.dtype == torch.bfloat16),
+                int(kv.dtype == torch.bfloat16), int(causal),
+                1.0 / math.sqrt(d_k), epoch, stream))
     ring_attention_cuda.launches += 1
     return out
 
@@ -265,16 +217,8 @@ def make_ring_attention(mesh: Mapping[str, int], axis: str = "sp",
     ``"cuda"`` (the default on a CUDA device: the ring kernel) or
     ``"torch"`` (the default on the CPU: the plain version). ``device``
     None means the CUDA card, and raises without one."""
-    if axis not in mesh:
-        raise ValueError(f"axis {axis!r} is not in the mesh {dict(mesh)}")
-    n = int(mesh[axis])
-    device = resolve_device(device, "make_ring_attention")
-    if kernel is None:
-        kernel = "cuda" if device.type == "cuda" else "torch"
-    if kernel not in ("cuda", "torch"):
-        raise ValueError(f"kernel must be 'cuda' or 'torch', got {kernel!r}")
-    if kernel == "cuda" and device.type != "cuda":
-        raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
+    n, device, kernel = _ring_setup(mesh, axis, kernel, device,
+                                    "make_ring_attention")
     impl = ring_attention_cuda if kernel == "cuda" else ring_attention_plain
 
     def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

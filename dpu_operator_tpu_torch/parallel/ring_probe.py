@@ -1,14 +1,37 @@
-"""Ring addressing and the ring-stream protocol of the port.
+"""Ring addressing, the ring protocols and the ring collectives of the
+fabric probe.
 
-Counterpart of the part of the JAX package's ``parallel/ring_probe.py``
-that ring attention needs: ``_ring_ids``, here plain integer arithmetic
-on a rank's mesh coordinates. The protocol body itself
-(``_run_ring_stream`` there) is device code here, written once in
-``csrc/ring_stream.cuh`` as a template over a consumer, so that every
-kernel built on the ring shares one copy of it.
+Counterpart of the JAX package's ``parallel/ring_probe.py``: ``_ring_ids``
+(plain integer arithmetic on a rank's mesh coordinates), the one-way and
+bidirectional ring all-gather, the ring reduce-scatter (sum) and
+``measure_ring_bandwidth``. The protocol bodies (``_run_ring_stream`` and
+``_run_rs_ring`` there) are device code here, written once in
+``csrc/ring_stream.cuh`` as templates, so that every kernel built on a
+ring shares one copy of each; ``csrc/ring_collectives.cu`` holds the
+collectives' kernels.
 
-The protocol, per rank of an n-rank one-way ring (block in hand at step
-k is the one whose owner is ``(my_id - k) mod n``):
+Each collective has two versions of the same function:
+
+  * ``ring_all_gather_plain`` / ``ring_reduce_scatter_plain`` -- the ring
+    written out in PyTorch, step by step and rank by rank (a rotation of
+    the per-rank list of blocks stands for the neighbour copy), in the
+    kernels' order, so that a wrong step index or a wrong operand order
+    shows;
+  * ``ring_all_gather_cuda`` / ``ring_reduce_scatter_cuda`` -- one
+    cooperative launch that holds every rank of the ring on the tensor's
+    card (built for ``sm_90a`` at first use). Given a tensor on the CPU
+    they run the plain version; on a CUDA tensor they launch the kernel
+    or raise. ``.launches`` counts their launches.
+
+``make_ring_all_gather`` and ``make_ring_reduce_scatter`` are the entry
+points, on whole tensors cut into ``mesh[axis]`` row shards.
+
+**The ranks of a ring share one card.** What ``measure_ring_bandwidth``
+times is then the protocol and the copies within that card's memory, not
+any link between cards.
+
+The stream protocol, per rank of an n-rank one-way ring (block in hand at
+step k is the one whose owner is ``(my_id - k) mod n``):
 
   * a neighbour barrier: both neighbours have entered before any block
     lands in this rank's slots;
@@ -31,11 +54,32 @@ which is free once that neighbour finished its step k - 1 with it; so
 each rank grants its left neighbour a credit after each step and waits
 for one before every send after the first. Skew is bounded to one step,
 which the two slots absorb.
+
+The reduce-scatter protocol: chunk j starts at rank ``(j + 1) mod n`` and
+travels right, gathering each rank's contribution, and is complete on
+rank j after n - 1 hops. Step k sends the accumulated block into the
+right neighbour's receive slot ``(k + 1) % 2``, produces the next block's
+contribution, then folds its own arrival into it (k < n - 2). That slot
+also takes the arrival of step k + 2, so sends from step 2 on wait for a
+credit, which the neighbour grants after each fold (k < n - 3: a later
+grant has no send to use it). The last arrival is added to the rank's
+contribution to its own chunk outside the loop.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+import threading
+import time
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from ..device import resolve_device
+from .mesh import ring_is_ici_adjacent
+
+#: Largest ring the kernels take.
+MAX_RANKS = 8
 
 
 def _ring_ids(axis: str, axis_size: int, axis_names: Sequence[str],
@@ -59,3 +103,389 @@ def _ring_ids(axis: str, axis_size: int, axis_names: Sequence[str],
     left = list(coords)
     left[ring_pos] = (my_id - 1 + axis_size) % axis_size
     return my_id, tuple(right), tuple(left)
+
+
+def _neighbours(n: int) -> Tuple[List[int], List[int]]:
+    """Each rank's right and left neighbour on a ring of n."""
+    right, left = [], []
+    for rank in range(n):
+        _, r, l = _ring_ids("sp", n, ("sp",), (rank,))
+        right.append(r[0])
+        left.append(l[0])
+    return right, left
+
+
+class _RingControl:
+    """The rings' flag words on one (device, stream), zeroed once and
+    kept across calls, and the epoch that tags each call's flag values
+    (``csrc/ring_stream.cuh``). Calls on one stream run in order, and a
+    flag only grows, so every ring kernel can share the words. Two sets:
+    a launch runs at most two streams (the bidirectional all-gather),
+    each on its own."""
+
+    WORDS_PER_RANK = 16  # sizeof(ring::Flags) / 8, padded to 128 bytes
+    STREAMS = 2
+
+    def __init__(self, device: torch.device):
+        self.flags = torch.zeros(
+            self.STREAMS * MAX_RANKS * self.WORDS_PER_RANK,
+            dtype=torch.int64, device=device)
+        self.epoch = 0
+
+
+_controls: Dict[Tuple[int, int], _RingControl] = {}
+_controls_lock = threading.Lock()
+
+
+def _control(device: torch.device, stream: int) -> _RingControl:
+    """The control words of (device, stream), its epoch advanced by one
+    for the call about to be launched."""
+    with _controls_lock:
+        ctl = _controls.get((device.index, stream))
+        if ctl is None:
+            ctl = _RingControl(device)
+            _controls[(device.index, stream)] = ctl
+        ctl.epoch += 1
+        return ctl
+
+
+# -- all-gather ---------------------------------------------------------------
+
+
+def _chunk_rows(x: torch.Tensor, n: int, what: str) -> int:
+    """Rows of one rank's shard of x [N, W]; raises where x does not cut
+    into n equal row shards."""
+    if x.dim() != 2:
+        raise ValueError(f"{what}: x must be [N, W], got {tuple(x.shape)}")
+    if n < 1:
+        raise ValueError(f"{what}: ring of {n} ranks")
+    if x.shape[0] == 0 or x.shape[0] % n:
+        raise ValueError(f"{what}: rows {x.shape[0]} do not cut into {n} "
+                         f"equal shards")
+    return x.shape[0] // n
+
+
+def ring_all_gather_plain(x: torch.Tensor, n: int,
+                          bidirectional: bool = False) -> torch.Tensor:
+    """The ring all-gather of x [N, W], cut into n row shards, one per
+    rank: every rank's gathered copy, [n, N, W], each equal to x. One
+    way, rank r receives at step k the block of rank ``(r - k) mod n``.
+    Bidirectional (and an even shard; an odd one runs the one-way ring),
+    the top half of every shard travels right and the bottom half left:
+    at step k rank r stores the top half of rank ``(r - k - 1) mod n``
+    and the bottom half of rank ``(r + k + 1) mod n``."""
+    chunk = _chunk_rows(x, n, "ring_all_gather")
+    out = x.new_empty((n,) + tuple(x.shape))
+    blocks = list(x.split(chunk))
+    if bidirectional and chunk % 2 == 0:
+        half = chunk // 2
+        cw = [b[:half] for b in blocks]
+        ccw = [b[half:] for b in blocks]
+        for r in range(n):
+            out[r, r * chunk:(r + 1) * chunk] = blocks[r]
+        for step in range(n - 1):
+            cw = cw[-1:] + cw[:-1]   # i -> i + 1
+            ccw = ccw[1:] + ccw[:1]  # i -> i - 1
+            for r in range(n):
+                src_cw = (r - step - 1 + 2 * n) % n
+                src_ccw = (r + step + 1) % n
+                out[r, src_cw * chunk:src_cw * chunk + half] = cw[r]
+                out[r, src_ccw * chunk + half:(src_ccw + 1) * chunk] = ccw[r]
+        return out
+    for step in range(n):
+        for r in range(n):
+            idx = (r - step + n) % n
+            out[r, idx * chunk:(idx + 1) * chunk] = blocks[r]
+        blocks = blocks[-1:] + blocks[:-1]  # i -> i + 1
+    return out
+
+
+def _library():
+    from ..cuda_build import load
+
+    lib = load("ring_collectives")
+    if lib.ring_all_gather_launch.argtypes is None:
+        ids = ctypes.POINTER(ctypes.c_longlong)
+        lib.ring_all_gather_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ids, ids, ctypes.c_int,
+                                     ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_ulonglong, ctypes.c_void_p])
+        lib.ring_all_gather_launch.restype = ctypes.c_int
+        lib.ring_reduce_scatter_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ids, ids, ctypes.c_int,
+                                     ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_ulonglong, ctypes.c_void_p])
+        lib.ring_reduce_scatter_launch.restype = ctypes.c_int
+    return lib
+
+
+def _kernel_input(x: torch.Tensor, n: int, what: str) -> torch.Tensor:
+    """x as the kernels read it: contiguous, its base 16-byte aligned."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {x.device}")
+    if not 1 <= n <= MAX_RANKS:
+        raise ValueError(f"{what}: the kernel takes 1..{MAX_RANKS} ranks, "
+                         f"got {n}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x
+
+
+def _launch(what: str, x: torch.Tensor, n: int, call) -> None:
+    """Run ``call(ids_right, ids_left, flags_ptr, epoch, stream)`` on x's
+    card and current stream; raise where the launch was refused."""
+    right, left = _neighbours(n)
+    ids = ctypes.c_longlong * n
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ctl = _control(x.device, stream)
+        err = call(ids(*right), ids(*left), ctl.flags.data_ptr(), ctl.epoch,
+                   stream)
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def ring_all_gather_cuda(x: torch.Tensor, n: int,
+                         bidirectional: bool = False) -> torch.Tensor:
+    """``ring_all_gather_plain``'s function in one launch of the ring
+    kernel, all n ranks on x's card: [n, N, W]. Any type whose shard has
+    an even number of bytes; 1 <= n <= 8. Raises on anything else and
+    where the card refuses the launch."""
+    if x.device.type == "cpu":
+        return ring_all_gather_plain(x, n, bidirectional)
+    chunk = _chunk_rows(x, n, "ring_all_gather")
+    x = _kernel_input(x, n, "ring_all_gather_cuda")
+    bidirectional = bool(bidirectional) and chunk % 2 == 0
+    chunk_bytes = chunk * x.shape[1] * x.element_size()
+    if chunk_bytes == 0 or chunk_bytes % 2 or (bidirectional
+                                               and chunk_bytes % 4):
+        raise ValueError(f"ring_all_gather_cuda: the kernel moves 2-byte "
+                         f"units; a shard of {chunk_bytes} bytes "
+                         f"({'halved' if bidirectional else 'whole'}) is "
+                         f"none")
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+    slots = torch.empty(2 * n * chunk_bytes, dtype=torch.uint8,
+                        device=x.device)
+    lib = _library()
+    _launch("ring_all_gather", x, n,
+            lambda right, left, flags, epoch, stream:
+            lib.ring_all_gather_launch(
+                x.data_ptr(), out.data_ptr(), slots.data_ptr(), flags, right,
+                left, n, chunk_bytes, int(bidirectional), epoch, stream))
+    if bidirectional:
+        ring_all_gather_cuda.launches_bidir += 1
+    else:
+        ring_all_gather_cuda.launches += 1
+    return out
+
+
+#: Kernel launches so far of the one-way ring and of the bidirectional
+#: ring (CPU calls of the wrapper do not count).
+ring_all_gather_cuda.launches = 0
+ring_all_gather_cuda.launches_bidir = 0
+
+
+# -- reduce-scatter -----------------------------------------------------------
+
+RS_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                    torch.int32: 3}
+
+
+def _rs_rows(x: torch.Tensor, n: int) -> int:
+    """Rows of one rank's contribution in x [n * rows, W]; raises where
+    they do not cut into n row-blocks."""
+    rows = _chunk_rows(x, n, "ring_reduce_scatter")
+    if rows % n:
+        raise ValueError(f"reduce-scatter rows {rows} must divide by axis "
+                         f"size {n}")
+    return rows
+
+
+def ring_reduce_scatter_plain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The ring reduce-scatter (sum) of n contributions: x [n * rows, W],
+    rank r's contribution its rows ``r * rows ..``; returns [rows, W],
+    rank j's chunk (the sum over ranks of row-block j) at rows
+    ``j * chunk ..``. Adds in the ring's order and in x's type: chunk j
+    starts as rank ``(j + 1) mod n``'s part and each rank on the way to
+    rank j adds its own to what arrives (``own + arrival``; the last hop
+    ``arrival + own``), rounding at every hop."""
+    rows = _rs_rows(x, n)
+    if n == 1:
+        return x
+    chunk = rows // n
+    parts = [c.split(chunk) for c in x.split(rows)]  # [rank][row-block]
+    send = [parts[r][(r - 1 + n) % n] for r in range(n)]
+    recv = send
+    for step in range(n - 1):
+        recv = send[-1:] + send[:-1]  # i -> i + 1
+        nxt = [parts[r][(r - step - 2 + 2 * n) % n] for r in range(n)]
+        if step < n - 2:
+            nxt = [nxt[r] + recv[r] for r in range(n)]
+        send = nxt
+    return torch.cat([recv[r] + send[r] for r in range(n)], dim=0)
+
+
+def ring_reduce_scatter_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``ring_reduce_scatter_plain``'s function in one launch of the ring
+    kernel, all n ranks on x's card, the same adds in the same order, so
+    the same bits. f32, bf16, f16 or int32; 1 <= n <= 8 (a ring of one is
+    the identity and launches nothing). Raises on anything else and where
+    the card refuses the launch."""
+    if x.device.type == "cpu":
+        return ring_reduce_scatter_plain(x, n)
+    rows = _rs_rows(x, n)
+    x = _kernel_input(x, n, "ring_reduce_scatter_cuda")
+    if x.dtype not in RS_KERNEL_DTYPES:
+        raise ValueError(f"ring_reduce_scatter_cuda: the kernel takes f32, "
+                         f"bf16, f16 or int32, got {x.dtype}")
+    if n == 1:
+        return x
+    block_bytes = rows // n * x.shape[1] * x.element_size()
+    if block_bytes == 0:
+        raise ValueError("ring_reduce_scatter_cuda: empty row-blocks")
+    out = torch.empty((rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    send, recv = (torch.empty(2 * n * block_bytes, dtype=torch.uint8,
+                              device=x.device) for _ in range(2))
+    lib = _library()
+    _launch("ring_reduce_scatter", x, n,
+            lambda right, left, flags, epoch, stream:
+            lib.ring_reduce_scatter_launch(
+                x.data_ptr(), out.data_ptr(), send.data_ptr(),
+                recv.data_ptr(), flags, right, left, n, block_bytes,
+                RS_KERNEL_DTYPES[x.dtype], epoch, stream))
+    ring_reduce_scatter_cuda.launches += 1
+    return out
+
+
+#: Kernel launches so far (CPU calls of the wrapper do not count).
+ring_reduce_scatter_cuda.launches = 0
+
+
+# -- entry points -------------------------------------------------------------
+
+
+def _ring_setup(mesh: Mapping[str, int], axis: str, kernel: Optional[str],
+                device, owner: str) -> Tuple[int, torch.device, str]:
+    """``(ring size, device, kernel)`` of an entry point: ``kernel`` is
+    ``"cuda"`` by default on a CUDA device and ``"torch"`` on the CPU;
+    ``device`` None means the CUDA card, and raises without one."""
+    if axis not in mesh:
+        raise ValueError(f"axis {axis!r} is not in the mesh {dict(mesh)}")
+    device = resolve_device(device, owner)
+    if kernel is None:
+        kernel = "cuda" if device.type == "cuda" else "torch"
+    if kernel not in ("cuda", "torch"):
+        raise ValueError(f"kernel must be 'cuda' or 'torch', got {kernel!r}")
+    if kernel == "cuda" and device.type != "cuda":
+        raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
+    return int(mesh[axis]), device, kernel
+
+
+def _on(device: torch.device, x: torch.Tensor, owner: str) -> None:
+    if x.device != device:
+        raise ValueError(f"x is on {x.device}; this {owner} runs on "
+                         f"{device}")
+
+
+def make_ring_all_gather(mesh: Mapping[str, int], axis: str = "sp", *,
+                         bidirectional: bool = True,
+                         kernel: Optional[str] = None, device=None):
+    """``fn(x)``: x [N, W] on ``device``, cut into ``mesh[axis]`` row
+    shards, one per rank of the ring (the reference's ``P(axis, None)``)
+    -> the gathered [N, W] as a rank holds it after the ring (the
+    reference's ``out_specs=P()``; every rank's copy is the same, and
+    ``ring_all_gather_cuda`` returns them all). The ring runs both ways
+    by default, each direction carrying half of every shard;
+    ``bidirectional=False`` gives the one-way ring, and odd shards fall
+    back to it. ``mesh`` maps axis names to sizes; only ``axis`` shapes
+    the result. ``kernel`` is ``"cuda"`` (the default on a CUDA device:
+    the ring kernel) or ``"torch"`` (the default on the CPU: the plain
+    version). ``device`` None means the CUDA card, and raises without
+    one."""
+    n, device, kernel = _ring_setup(mesh, axis, kernel, device,
+                                    "make_ring_all_gather")
+    impl = ring_all_gather_cuda if kernel == "cuda" else ring_all_gather_plain
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        _on(device, x, "ring all-gather")
+        return impl(x, n, bidirectional)[0]
+
+    return fn
+
+
+def make_ring_reduce_scatter(mesh: Mapping[str, int], axis: str = "sp", *,
+                             kernel: Optional[str] = None, device=None):
+    """``fn(x)``: x [n * rows, W] on ``device``, rank r's [rows, W]
+    contribution at rows ``r * rows ..`` (the reference's
+    ``P(axis, None)``) -> [rows, W], rank j's chunk of the sum at rows
+    ``j * rows / n ..`` (ring reduce-scatter). Composed with
+    ``make_ring_all_gather`` it is a bandwidth-optimal all-reduce.
+    ``mesh``, ``kernel`` and ``device`` as in ``make_ring_all_gather``."""
+    n, device, kernel = _ring_setup(mesh, axis, kernel, device,
+                                    "make_ring_reduce_scatter")
+    impl = (ring_reduce_scatter_cuda if kernel == "cuda"
+            else ring_reduce_scatter_plain)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        _on(device, x, "ring reduce-scatter")
+        return impl(x, n)
+
+    return fn
+
+
+def measure_ring_bandwidth(mesh: Mapping[str, int], axis: str = "sp",
+                           mbytes: int = 16, rounds: int = 4, *,
+                           bidirectional: bool = False,
+                           kernel: Optional[str] = None, device=None) -> dict:
+    """Time repeated ring all-gathers of an ``mbytes`` payload; returns
+    {"seconds_per_round", "effective_gbps", "axis_size", "ici_adjacent",
+    "mode"}. ``effective_gbps`` is the reference's figure, in gigabits
+    per second: the bytes every rank must receive, ``(n - 1) / n`` of the
+    payload, over the wall time of one round. Where the ranks share one
+    card it rates the protocol and the copies within that card's memory,
+    not a link.
+
+    Defaults to the one-way ring; with ``bidirectional=True`` the same
+    bytes move both ways round at once. ``mode`` records which protocol
+    ran: ``"unidir"``, ``"bidir"``, or ``"torch"`` for the plain version.
+    ``ici_adjacent`` is None: ranks that share a card carry no physical
+    coordinates."""
+    axis_size, device, kernel = _ring_setup(mesh, axis, kernel, device,
+                                            "measure_ring_bandwidth")
+    width = 512
+    rows = max(axis_size, (mbytes * 1024 * 1024) // (4 * width))
+    rows -= rows % axis_size or 0
+    rows = max(rows, axis_size)
+    chunk = rows // axis_size
+    if kernel != "cuda":
+        mode = "torch"
+    elif bidirectional and chunk % 2 == 0:
+        mode = "bidir"
+    else:
+        mode = "unidir"
+    x = torch.ones((rows, width), dtype=torch.float32, device=device)
+    fn = make_ring_all_gather(mesh, axis, bidirectional=bidirectional,
+                              kernel=kernel, device=device)
+
+    def wait() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn(x)  # builds the kernel at first use
+    wait()
+    start = time.perf_counter()
+    for _ in range(rounds):
+        fn(x)
+    wait()
+    elapsed = (time.perf_counter() - start) / rounds
+    moved_bytes = x.numel() * x.element_size() * (axis_size - 1) / max(
+        axis_size, 1)
+    return {
+        "seconds_per_round": elapsed,
+        "effective_gbps": (moved_bytes * 8 / elapsed / 1e9) if elapsed
+        else 0.0,
+        "axis_size": axis_size,
+        "ici_adjacent": ring_is_ici_adjacent(mesh, axis),
+        "mode": mode,
+    }

@@ -3,6 +3,10 @@ into it: the source, every header under ``csrc/`` and the flags. An
 edited header must rebuild, or a source that includes it would reuse a
 stale library."""
 
+import shutil
+
+import pytest
+
 from dpu_operator_tpu_torch import cuda_build
 
 
@@ -32,3 +36,19 @@ def test_library_name_follows_source_headers_and_flags(tmp_path,
                         cuda_build.NVCC_FLAGS + ["-lineinfo"])
     assert cuda_build.library_path("kern") != third
 
+
+@pytest.mark.parametrize("name", ["ring_attn", "ring_collectives"])
+def test_ring_sources_rebuild_when_the_protocol_header_changes(
+        name, tmp_path, monkeypatch):
+    """Both ring sources include ``ring_stream.cuh``: an edit to the
+    protocol must give each of them a new library."""
+    real = cuda_build.CSRC_DIR
+    assert '#include "ring_stream.cuh"' in (real / f"{name}.cu").read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(real, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    first = cuda_build.library_path(name)
+    assert first.name.startswith(f"lib{name}_")
+    with open(csrc / "ring_stream.cuh", "a") as f:
+        f.write("// edited\n")
+    assert cuda_build.library_path(name) != first

@@ -49,7 +49,8 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "serving.kvcache.paged", "parallel.paged_attn",
                 "parallel.burn", "parallel.mxu_bench", "parallel.bench_gpu",
                 "parallel.fabric_probe", "parallel.tile_mma",
-                "parallel.ring_attention", "parallel.ring_probe", "device",
+                "parallel.ring_attention", "parallel.ring_probe",
+                "parallel.mesh", "device",
                 "cuda_build"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
@@ -66,13 +67,14 @@ def test_executor_without_device_needs_cuda():
     assert PagedKVExecutor(**kw, device="cpu")._paged.kernel == "torch"
 
 
-# Copied host-plane modules (path under either package) -> definitions
-# the port adds there on top of the reference's.
+# Copied jax-free modules (path under either package) -> definitions the
+# port adds or rewrites there on top of the reference's.
 COPIES = {
     "faults.py": (),
     "obs/flight.py": (),
     "obs/logging.py": (),
     "obs/trace.py": (),
+    "parallel/mesh.py": ("ring_is_ici_adjacent",),
     "serving/api.py": (),
     "serving/executor.py": (),
     "serving/kvcache/allocator.py": (),

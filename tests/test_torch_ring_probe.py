@@ -1,0 +1,476 @@
+"""The port's ring collectives against the JAX package's.
+
+The same seeded numpy inputs go through the reference's
+``make_ring_all_gather`` / ``make_ring_reduce_scatter`` on the 8-device
+virtual CPU mesh (their XLA collectives in-process; their Pallas kernels
+in interpret mode in a subprocess, as the reference's own tests run
+them) and through the port's plain versions, which are what the
+``*_cuda`` wrappers run for tensors on the CPU.
+
+Bars:
+  * all-gather: exact. It only moves data; every rank's copy must equal
+    the reference's output bit for bit;
+  * reduce-scatter against the reference's ``psum_scatter`` and against a
+    float64 numpy sum: ``rtol=1e-4, atol=1e-5``, the reference's own bar
+    between its ring and numpy (``tests/test_ring_probe.py``): up to 8
+    f32 adds in another order;
+  * reduce-scatter against the Pallas ring kernel in interpret mode:
+    exact. The plain version adds in the kernel's order (own part plus
+    arrival at every hop, arrival plus own part at the last), and f32
+    addition is the same IEEE operation on both sides.
+
+The reduce-scatter kernel itself runs only on a card; what guards its
+schedule here is a data-level simulation of it under adversarial and
+random interleavings, with and without the credits.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from dpu_operator_tpu.parallel import mesh as ref_mesh
+from dpu_operator_tpu.parallel import ring_probe as ref_rp
+from dpu_operator_tpu_torch.parallel import mesh as port_mesh
+from dpu_operator_tpu_torch.parallel import ring_probe as rp
+from virtual_mesh import REPO, run_virtual
+
+torch.set_num_threads(1)
+
+RS_RTOL, RS_ATOL = 1e-4, 1e-5
+MESHES = ((1, 8, 1), (2, 4, 1), (1, 2, 4))
+AXES = ("dp", "sp", "tp")
+
+
+def _ref_mesh(shape):
+    devices = np.array(jax.devices()[:int(np.prod(shape))])
+    return Mesh(devices.reshape(shape), axis_names=AXES)
+
+
+def _ref_call(make, shape, x, **kw):
+    """The reference's XLA collective on the virtual mesh of ``shape``."""
+    mesh = _ref_mesh(shape)
+    xs = jax.device_put(jnp.asarray(x), NamedSharding(mesh, P("sp", None)))
+    return np.asarray(make(mesh, "sp", use_pallas=False, **kw)(xs))
+
+
+def _float64_sum(X, n):
+    rows = X.shape[0] // n
+    return X.astype(np.float64).reshape(n, rows, -1).sum(axis=0)
+
+
+# -- all-gather ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+@pytest.mark.parametrize("shape", MESHES)
+def test_all_gather_matches_reference_xla(shape, bidirectional):
+    n = shape[1]
+    x = np.random.RandomState(n).randn(4 * n, 8).astype(np.float32)
+    want = _ref_call(ref_rp.make_ring_all_gather, shape, x,
+                     bidirectional=bidirectional)
+    every = rp.ring_all_gather_plain(torch.from_numpy(x), n, bidirectional)
+    assert every.shape == (n, 4 * n, 8) and every.dtype == torch.float32
+    for r in range(n):
+        np.testing.assert_array_equal(every[r].numpy(), want)
+    fn = rp.make_ring_all_gather(dict(zip(AXES, shape)), "sp",
+                                 bidirectional=bidirectional, device="cpu")
+    np.testing.assert_array_equal(fn(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+def test_all_gather_every_rank_gets_x(n, dtype):
+    """Rings of every size, even and odd shards, both directions' settings:
+    a wrong step index or a wrong half would misplace a block."""
+    rng = np.random.RandomState(10 + n)
+    for rows in (1, 2, 3, 6):
+        x = torch.from_numpy(
+            rng.randint(-99, 99, (n * rows, 5)).astype(np.float32)).to(dtype)
+        for bidirectional in (False, True):
+            every = rp.ring_all_gather_plain(x, n, bidirectional)
+            assert every.dtype == dtype
+            for r in range(n):
+                assert torch.equal(every[r], x), (n, rows, bidirectional, r)
+
+
+def test_all_gather_errors():
+    with pytest.raises(ValueError, match="equal shards"):
+        rp.ring_all_gather_plain(torch.zeros(7, 2), 2)
+    with pytest.raises(ValueError, match=r"\[N, W\]"):
+        rp.ring_all_gather_plain(torch.zeros(8), 2)
+    with pytest.raises(ValueError, match="ring of 0"):
+        rp.ring_all_gather_plain(torch.zeros(8, 2), 0)
+    fn = rp.make_ring_all_gather({"sp": 3}, device="cpu")
+    with pytest.raises(ValueError, match="equal shards"):
+        fn(torch.zeros(8, 2))
+
+
+# -- reduce-scatter -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_reduce_scatter_matches_reference_xla(shape):
+    n = shape[1]
+    rows = 2 * n
+    X = np.random.RandomState(20 + n).randn(n * rows, 8).astype(np.float32)
+    want = _ref_call(ref_rp.make_ring_reduce_scatter, shape, X)
+    fn = rp.make_ring_reduce_scatter(dict(zip(AXES, shape)), "sp",
+                                     device="cpu")
+    got = fn(torch.from_numpy(X))
+    assert got.shape == (rows, 8) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=RS_RTOL, atol=RS_ATOL)
+    np.testing.assert_allclose(got.numpy(), _float64_sum(X, n), rtol=RS_RTOL,
+                               atol=RS_ATOL)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+def test_reduce_scatter_matches_float64_sum(n):
+    rows = 3 * n
+    X = np.random.RandomState(30 + n).randn(n * rows, 5).astype(np.float32)
+    got = rp.ring_reduce_scatter_plain(torch.from_numpy(X), n)
+    np.testing.assert_allclose(got.numpy(), _float64_sum(X, n), rtol=RS_RTOL,
+                               atol=RS_ATOL)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_reduce_scatter_adds_in_the_rings_order(n):
+    """Chunk j starts at rank (j + 1) mod n and every rank on the way to
+    rank j adds its part to what arrives, rounding to the input's type at
+    every hop: in bf16 the order and the rounding both show."""
+    rows = n
+    X = torch.from_numpy(np.random.RandomState(40 + n).randn(
+        n * rows, 16).astype(np.float32)).to(torch.bfloat16)
+    got = rp.ring_reduce_scatter_plain(X, n)
+    assert got.dtype == torch.bfloat16
+    parts = X.view(n, n, 1, 16)  # [rank][row-block]
+    for j in range(n):
+        acc = parts[(j + 1) % n, j]
+        for hop in range(2, n + 1):
+            acc = parts[(j + hop) % n, j] + acc
+        assert torch.equal(got[j:j + 1], acc), j
+
+
+def test_reduce_scatter_contract():
+    """The reference's contract: rows that do not divide raise with its
+    message, and a ring of one is the identity."""
+    x = torch.arange(12.0).reshape(6, 2)
+    with pytest.raises(ValueError, match="reduce-scatter rows 3 must divide "
+                                         "by axis size 2"):
+        rp.ring_reduce_scatter_plain(x, 2)
+    with pytest.raises(ValueError, match="reduce-scatter rows 3 must divide "
+                                         "by axis size 2"):
+        rp.ring_reduce_scatter_cuda(x, 2)
+    with pytest.raises(ValueError, match="equal shards"):
+        rp.ring_reduce_scatter_plain(torch.zeros(7, 2), 2)
+    assert torch.equal(rp.ring_reduce_scatter_plain(x, 1), x)
+    assert torch.equal(rp.make_ring_reduce_scatter({"sp": 1},
+                                                   device="cpu")(x), x)
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_all_reduce_composition(shape):
+    """Reduce-scatter then all-gather is an all-reduce, as the reference's
+    own test composes them."""
+    n = shape[1]
+    mesh = dict(zip(AXES, shape))
+    X = np.random.RandomState(50 + n).randn(n * 2 * n, 8).astype(np.float32)
+    rs = rp.make_ring_reduce_scatter(mesh, "sp", device="cpu")
+    ag = rp.make_ring_all_gather(mesh, "sp", device="cpu")
+    got = ag(rs(torch.from_numpy(X))).numpy()
+    np.testing.assert_allclose(got, _float64_sum(X, n), rtol=RS_RTOL,
+                               atol=RS_ATOL)
+    ref = _ref_call(ref_rp.make_ring_all_gather, shape,
+                    _ref_call(ref_rp.make_ring_reduce_scatter, shape, X))
+    np.testing.assert_allclose(got, ref, rtol=RS_RTOL, atol=RS_ATOL)
+
+
+# -- against the Pallas kernels in interpret mode -----------------------------
+
+
+def test_plain_versions_match_pallas_kernels_in_interpret_mode(tmp_path):
+    """The reference's Pallas ring kernels, executed in interpret mode:
+    the all-gather one way and both ways on the 8-wide ring (the widest
+    skew the credit protocol absorbs), the reduce-scatter at n = 8 and
+    n = 4 (a multi-axis mesh). All exact."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(32, 8).astype(np.float32)
+    X8 = rng.randn(8 * 16, 8).astype(np.float32)
+    X4 = rng.randn(4 * 8, 8).astype(np.float32)
+    src = tmp_path / "in.npz"
+    dst = tmp_path / "out.npz"
+    np.savez(src, x=x, X8=X8, X4=X4)
+    r = run_virtual(
+        "import sys; sys.path.insert(0, %r)\n"
+        "import numpy as np, jax, jax.numpy as jnp\n"
+        "from jax.sharding import Mesh, NamedSharding, PartitionSpec as P\n"
+        "from jax.experimental.pallas import tpu as pltpu\n"
+        "from dpu_operator_tpu.parallel.ring_probe import (\n"
+        "    make_ring_all_gather, make_ring_reduce_scatter)\n"
+        "a = np.load(%r)\n"
+        "def mesh_of(shape):\n"
+        "    return Mesh(np.array(jax.devices()).reshape(shape),\n"
+        "                axis_names=('dp', 'sp', 'tp'))\n"
+        "def put(mesh, v):\n"
+        "    return jax.device_put(jnp.asarray(v),\n"
+        "                          NamedSharding(mesh, P('sp', None)))\n"
+        "out = {}\n"
+        "with pltpu.force_tpu_interpret_mode():\n"
+        "    m8, m4 = mesh_of((1, 8, 1)), mesh_of((2, 4, 1))\n"
+        "    for bidir in (False, True):\n"
+        "        fn = make_ring_all_gather(m8, 'sp', use_pallas=True,\n"
+        "                                  bidirectional=bidir)\n"
+        "        out['ag_%%s' %% bidir] = np.asarray(fn(put(m8, a['x'])))\n"
+        "    for name, m in (('X8', m8), ('X4', m4)):\n"
+        "        fn = make_ring_reduce_scatter(m, 'sp', use_pallas=True)\n"
+        "        out['rs_' + name] = np.asarray(fn(put(m, a[name])))\n"
+        "np.savez(%r, **out)\n" % (REPO, str(src), str(dst)))
+    assert r.returncode == 0, r.stdout + r.stderr
+    ref = np.load(dst)
+    for bidirectional in (False, True):
+        every = rp.ring_all_gather_plain(torch.from_numpy(x), 8,
+                                         bidirectional)
+        for rank in range(8):
+            np.testing.assert_array_equal(every[rank].numpy(),
+                                          ref[f"ag_{bidirectional}"])
+    for name, X, n in (("X8", X8, 8), ("X4", X4, 4)):
+        got = rp.ring_reduce_scatter_plain(torch.from_numpy(X), n).numpy()
+        np.testing.assert_array_equal(got, ref[f"rs_{name}"])
+
+
+# -- wrappers, devices, the bandwidth probe -----------------------------------
+
+
+def test_cuda_wrappers_on_cpu_run_the_plain_versions():
+    x = torch.from_numpy(np.random.RandomState(9).randn(24, 8).astype(
+        np.float32))
+    before = (rp.ring_all_gather_cuda.launches,
+              rp.ring_all_gather_cuda.launches_bidir,
+              rp.ring_reduce_scatter_cuda.launches)
+    for bidirectional in (False, True):  # 3 rows per rank: odd
+        assert torch.equal(rp.ring_all_gather_cuda(x, 8, bidirectional),
+                           rp.ring_all_gather_plain(x, 8, bidirectional))
+    X = x.repeat(4, 1)[:64]
+    assert torch.equal(rp.ring_reduce_scatter_cuda(X, 4),
+                       rp.ring_reduce_scatter_plain(X, 4))
+    assert before == (rp.ring_all_gather_cuda.launches,
+                      rp.ring_all_gather_cuda.launches_bidir,
+                      rp.ring_reduce_scatter_cuda.launches)
+
+
+def test_odd_shard_runs_the_one_way_ring():
+    """3 rows per rank cannot be halved: the bidirectional request takes
+    the one-way ring's steps (the reference's rule) and still gathers."""
+    x = torch.arange(3 * 8 * 8, dtype=torch.float32).reshape(24, 8)
+    both = rp.ring_all_gather_plain(x, 8, True)
+    one = rp.ring_all_gather_plain(x, 8, False)
+    assert torch.equal(both, one)
+    assert all(torch.equal(both[r], x) for r in range(8))
+    want = _ref_call(ref_rp.make_ring_all_gather, (1, 8, 1), x.numpy(),
+                     bidirectional=True)
+    np.testing.assert_array_equal(both[0].numpy(), want)
+
+
+@pytest.mark.parametrize("make", [rp.make_ring_all_gather,
+                                  rp.make_ring_reduce_scatter,
+                                  rp.measure_ring_bandwidth])
+def test_kernel_and_device_selection(make):
+    with pytest.raises(ValueError, match="CUDA"):
+        make({"sp": 2}, kernel="cuda", device="cpu")
+    with pytest.raises(ValueError, match="kernel"):
+        make({"sp": 2}, kernel="xla", device="cpu")
+    with pytest.raises(ValueError, match="axis"):
+        make({"dp": 2}, device="cpu")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make({"sp": 2})
+
+
+def test_entry_points_check_the_tensors_device():
+    fn = rp.make_ring_all_gather({"sp": 2}, device="cpu")
+    with pytest.raises(ValueError, match="runs on cpu"):
+        fn(torch.zeros(4, 2, device="meta"))
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_measure_ring_bandwidth_keys_and_rows(n, monkeypatch):
+    """The reference's keys and its payload arithmetic: both sides are
+    made to report the payload they build."""
+    seen = {}
+
+    def ref_fake(mesh, axis, **kw):
+        def fn(x):
+            seen["ref"] = tuple(x.shape)
+            return x
+        return fn
+
+    def port_fake(mesh, axis, **kw):
+        def fn(x):
+            seen["port"] = tuple(x.shape)
+            return x
+        return fn
+
+    shape = (1, n, 1)
+    monkeypatch.setattr(ref_rp, "make_ring_all_gather", ref_fake)
+    ref = ref_rp.measure_ring_bandwidth(_ref_mesh(shape), "sp", mbytes=1,
+                                        rounds=2)
+    with monkeypatch.context() as m:
+        m.setattr(rp, "make_ring_all_gather", port_fake)
+        rp.measure_ring_bandwidth(dict(zip(AXES, shape)), "sp", mbytes=1,
+                                  rounds=2, device="cpu")
+    assert seen["port"] == seen["ref"]
+    assert seen["port"][0] % n == 0
+
+    got = rp.measure_ring_bandwidth(dict(zip(AXES, shape)), "sp", mbytes=1,
+                                    rounds=2, device="cpu")
+    assert set(got) == set(ref) == {"seconds_per_round", "effective_gbps",
+                                    "axis_size", "ici_adjacent", "mode"}
+    assert got["mode"] == "torch" and ref["mode"] == "xla"
+    assert got["axis_size"] == n == ref["axis_size"]
+    assert got["effective_gbps"] > 0 and got["seconds_per_round"] > 0
+    assert got["ici_adjacent"] is None and ref["ici_adjacent"] is None
+    moved = seen["port"][0] * seen["port"][1] * 4 * (n - 1) / n
+    assert got["effective_gbps"] == pytest.approx(
+        moved * 8 / got["seconds_per_round"] / 1e9)
+
+
+def test_measure_ring_bandwidth_bidirectional_on_cpu_is_the_plain_ring():
+    got = rp.measure_ring_bandwidth({"sp": 4}, mbytes=1, rounds=1,
+                                    bidirectional=True, device="cpu")
+    assert got["mode"] == "torch" and got["axis_size"] == 4
+
+
+# -- the mesh helpers ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_devices", range(1, 17))
+def test_axis_sizes_match_reference(n_devices):
+    assert port_mesh.axis_sizes(n_devices) == ref_mesh.axis_sizes(n_devices)
+    assert port_mesh.AXES == ref_mesh.AXES
+
+
+@pytest.mark.parametrize("shape,stride,want", [
+    ((1, 8, 1), 1, True), ((1, 8, 1), 2, False), ((2, 4, 1), 1, True),
+    ((1, 2, 4), 1, True)])
+def test_ring_is_ici_adjacent_matches_reference(shape, stride, want):
+    """A fabricated chip grid, as the reference's ``coords_of`` allows: sp
+    along x with the given stride, dp along y, tp along z."""
+    mesh = _ref_mesh(shape)
+    where = {d.id: idx for idx, d in np.ndenumerate(mesh.devices)}
+
+    def grid(idx):
+        return (stride * idx[1], idx[0], idx[2])
+
+    ref = ref_mesh.ring_is_ici_adjacent(mesh, "sp",
+                                        coords_of=lambda d: grid(where[d.id]))
+    port = dict(zip(AXES, shape))
+    assert port_mesh.ring_is_ici_adjacent(port, "sp", coords_of=grid) is want
+    assert ref is want
+    assert port_mesh.ring_is_ici_adjacent(port, "sp") is None
+    assert port_mesh.ring_is_ici_adjacent(
+        port, "sp", coords_of=lambda idx: None) is None
+
+
+# -- the reduce-scatter schedule, simulated -----------------------------------
+
+
+def _simulate_rs_ring(n, credit, pick, max_events=100000):
+    """Data-level simulation of the reduce-scatter ring's schedule
+    (``ring::run_rs_ring``, the reference's ``_run_rs_ring``).
+
+    A block's content is the multiset of (contributor, row-block) parts
+    summed into it. Each rank's step k is split into the two events the
+    kernel performs: ``send(d, k)`` -- (k > 1, with credits) take one
+    credit, copy send[k % 2] into the right neighbour's receive slot
+    (k + 1) % 2 NOW (delivery modelled as immediate, the worst case for
+    an overwrite), then produce the next block's part into
+    send[(k + 1) % 2] -- and ``fold(d, k)`` -- enabled once the left
+    neighbour's step-k send has landed: (k < n - 2) add the arrival into
+    send[(k + 1) % 2], (k < n - 3) grant the left neighbour a credit.
+    ``pick`` chooses among the enabled events. Returns True iff no rank
+    deadlocks, every rank ends with exactly the n parts of its own
+    row-block, and no credit is left over."""
+    def part(d, idx):
+        return ((d, idx % n),)
+
+    send = [[part(d, d - 1), None] for d in range(n)]
+    recv = [[None, None] for _ in range(n)]
+    sent = [0] * n
+    folded = [0] * n
+    credits = [0] * n
+    steps = n - 1
+    for _ in range(max_events):
+        events = []
+        for d in range(n):
+            k = sent[d]
+            if k < steps and folded[d] >= k:
+                if not credit or k < 2 or credits[d] > 0:
+                    events.append(("send", d, k))
+            k = folded[d]
+            if k < steps and sent[d] > k and sent[(d - 1) % n] > k:
+                events.append(("fold", d, k))
+        if not events:
+            break
+        kind, d, k = pick(events)
+        nxt = (k + 1) % 2
+        if kind == "send":
+            if credit and k > 1:
+                credits[d] -= 1
+            recv[(d + 1) % n][nxt] = send[d][k % 2]
+            send[d][nxt] = part(d, d - k - 2)
+            sent[d] = k + 1
+        else:
+            if k < n - 2:
+                send[d][nxt] = send[d][nxt] + recv[d][nxt]
+            if k < n - 3:
+                credits[(d - 1) % n] += 1
+            folded[d] = k + 1
+    if not all(f == steps for f in folded):
+        return False  # deadlock
+    if credit and any(credits):
+        return False  # a grant with no send to use it
+    last = (n - 1) % 2
+    return all(
+        sorted(recv[d][last] + send[d][last]) == [(c, d) for c in range(n)]
+        for d in range(n))
+
+
+def _most_ahead(events):
+    # Adversarial: always advance the rank furthest along, sends first,
+    # which maximises the skew between neighbours.
+    return max(events, key=lambda e: (e[2], e[0] == "send"))
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_rs_ring_schedule_with_credits(n):
+    """Waits from step 2 on and grants while k < n - 3: every adversarial
+    and random interleaving gives the right sums, no deadlock and no
+    credit left over."""
+    assert _simulate_rs_ring(n, credit=True, pick=_most_ahead)
+    assert _simulate_rs_ring(n, credit=True, pick=min)
+    rng = random.Random(1234 + n)
+    for trial in range(60):
+        assert _simulate_rs_ring(n, credit=True, pick=rng.choice), trial
+
+
+@pytest.mark.parametrize("n", [4, 5, 8])
+def test_rs_ring_schedule_without_credits_corrupts(n):
+    """Without the credits a rank that runs ahead overwrites a receive
+    slot whose arrival its neighbour has not folded yet: the simulation
+    must show the race the credits close, or it no longer models it."""
+    assert not _simulate_rs_ring(n, credit=False, pick=_most_ahead)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_rs_ring_small_rings_need_no_credit(n):
+    """Rings of 2 and 3 never reuse a receive slot: the schedule grants
+    and waits for nothing, with or without the credit rule."""
+    for credit in (False, True):
+        assert _simulate_rs_ring(n, credit=credit, pick=_most_ahead)
