@@ -58,6 +58,22 @@ Phases, each of which raises on failure:
                all-reduce composition against the plain one; 20 repeats
                of each kernel bitwise equal; times of the kernel, the
                plain version and one PyTorch call (a yardstick only).
+ 10. ulysses — the all-to-all and Ulysses attention. Small all-to-alls
+               (n 1, 2, 3, 4, 5, 8; f32, bf16, f16, int32; blocks of 1
+               and 3 rows that are no multiple of 16 bytes) equal the
+               plain version and the transpose bit for bit; n = 1
+               launches nothing; an odd-byte block raises. Then the path
+               at full width on 8 ranks sharing the card:
+               ``make_all_to_all`` at the probe's 16 MiB payload and
+               ``make_ulysses_attention`` at Llama-2-7B's attention widths
+               (S = 16384, 32 heads of 128), f32 and bf16, causal and not:
+               4 launches a call, the kernel route equal to the torch
+               route bit for bit, within the stated bars of the dense
+               reference and of ring attention on heads 0 and 31, repeats
+               bitwise equal; times of the all-to-all (CUDA events, and
+               its launch's device time from the profiler), its plain
+               version and one PyTorch call, and of a Ulysses call with
+               the exchanges' share of it.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -88,7 +104,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
-SOURCES = ("paged_attn", "tile_mma", "ring_attn", "ring_collectives")
+SOURCES = ("paged_attn", "tile_mma", "ring_attn", "ring_collectives",
+           "all_to_all")
 
 # Kernel phase: the deploy shape of the serving phase below.
 KS, KC, KB, KBS, KH, KDH, KN = 16, 16, 256, 16, 32, 128, 8192
@@ -181,6 +198,27 @@ COLL_SMALL = ([(n, 4, 8, "float32") for n in (1, 2, 3, 4, 8)]
 # Reduce-scatter against a float64 sum: the reference's own bar between
 # its ring and numpy (f32; up to 8 adds in another order).
 RS_RTOL, RS_ATOL = 1e-4, 1e-5
+
+# Ulysses phase: the exchange at the probe's payload above, then Ulysses
+# attention at Llama-2-7B's attention widths (32 heads of 128) on the ring
+# mesh, S = 16384 (2048 rows a rank). Not ring attention's 32 768: a
+# rank's [4, S, S] f32 scores are 4 GiB at 16 384, and would be 16 GiB
+# (about 48 GiB with the softmax's copies) at 32 768.
+ULY_S, ULY_H, ULY_D = 16384, 32, 128
+ULY_REPEATS = 3
+# Small all-to-alls, checked and not timed: (n, rows per block, width,
+# type). Blocks of 12, 30, 6 and 84 bytes, and of 24 006 and 32 764
+# bytes, which two CTAs of a rank stripe by 2-byte units: none a multiple
+# of 16 bytes.
+A2A_SMALL = ([(n, 1, 3, "float32") for n in (1, 2, 3, 4, 5, 8)]
+             + [(n, 3, 5, "bfloat16") for n in (2, 3, 5, 8)]
+             + [(4, 1, 3, "float16"), (8, 3, 7, "int32"),
+                (3, 3, 4001, "bfloat16"), (5, 1, 8191, "float32")])
+# Ulysses against the dense reference and against ring attention: the
+# same f32 products and softmax up to reassociation (one softmax over the
+# whole sequence vs 64-key online folds, expf vs torch.exp), so ring
+# attention's bars (``ring_compare``): f32 within RING_RTOL / RING_ATOL,
+# bf16 within RING_ULPS.
 
 # Small configuration held against the CPU path (the tests' widths).
 SMALL = dict(slots=2, vocab=16, d=8, heads=2, block_size=4,
@@ -791,8 +829,9 @@ def ring_cost(S, n, dk, dv, causal, kv_item, q_item):
 
 
 def ring_compare(torch, burn, tag, got, want):
-    """Max |err| of the kernel's output against the plain version's,
-    within the f32 or the bf16 bar; raises otherwise."""
+    """Max |err| of the kernel's output against the plain version's (or
+    another reference), within the f32 or the bf16 bar; raises
+    otherwise."""
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{tag}: {got.dtype} {tuple(got.shape)} vs plain {want.dtype} "
           f"{tuple(want.shape)}")
@@ -801,12 +840,11 @@ def ring_compare(torch, burn, tag, got, want):
     err = float((got.float() - want.float()).abs().max())
     if got.dtype == torch.bfloat16:
         ulps = burn.bf16_ulps(got, want, floor=RING_ULP_FLOOR)
-        check(ulps <= RING_ULPS, f"{tag}: {ulps} bf16 ulps from the plain "
-                                 f"version (max {RING_ULPS})")
+        check(ulps <= RING_ULPS, f"{tag}: {ulps} bf16 ulps from the "
+                                 f"reference (max {RING_ULPS})")
         return err, f"{ulps:.2f} ulps (max {RING_ULPS})"
     if not torch.allclose(got, want, rtol=RING_RTOL, atol=RING_ATOL):
-        raise AssertionError(f"{tag}: differs from the plain version by "
-                             f"{err}")
+        raise AssertionError(f"{tag}: differs from the reference by {err}")
     return err, f"rtol {RING_RTOL}, atol {RING_ATOL}"
 
 
@@ -1143,6 +1181,214 @@ def phase_collectives(torch, card):
     return records
 
 
+# -- phase 10: the all-to-all and Ulysses attention ----------------------------
+
+
+def device_ms(torch, fn, kernel, calls=20):
+    """Device ms of one launch of the kernel whose name holds ``kernel``,
+    from ``torch.profiler`` over ``calls`` calls of ``fn``: the kernel
+    alone. ``time_ms`` counts the wrapper's host time too wherever the
+    card runs a call faster than the host queues the next."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if str(evt.device_type).endswith("CUDA") and kernel in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+    check(us > 0, f"the profiler saw no {kernel} on the card")
+    return us / calls / 1e3
+
+
+def check_a2a(torch, rp, tag, x, n):
+    """One launch of the all-to-all (none for n = 1): the plain version's
+    bits and the transpose's. Returns the kernel's output."""
+    before = rp.all_to_all_cuda.launches
+    got = rp.all_to_all_cuda(x, n)
+    torch.cuda.synchronize()
+    check(rp.all_to_all_cuda.launches == before + (n > 1),
+          f"{tag}: {rp.all_to_all_cuda.launches - before} launches")
+    chunk = x.shape[0] // (n * n)
+    lib = x.view(n, n, chunk, x.shape[1]).transpose(0, 1).reshape(x.shape)
+    check(same_bits(torch, got, rp.all_to_all_plain(x, n)),
+          f"{tag}: differs from the plain version's bits")
+    check(same_bits(torch, got, lib), f"{tag}: differs from the transpose")
+    return got
+
+
+def uly_inputs(torch, dtype, seed):
+    """q, k, v [S, H, D] ~ N(0, 1), drawn on the card in f32, cast."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tuple(torch.randn((ULY_S, ULY_H, ULY_D), generator=gen,
+                             device="cuda").to(dtype) for _ in range(3))
+
+
+def phase_ulysses(torch, card):
+    """The all-to-all and Ulysses attention: small all-to-alls against the
+    plain version and the transpose, then the main path
+    (``make_all_to_all`` at the probe's payload and
+    ``make_ulysses_attention`` at full width, counts set to 0 just
+    before), each Ulysses output against the torch route, the dense
+    reference and ring attention, repeats bitwise equal, and times."""
+    from dpu_operator_tpu_torch.parallel import burn
+    from dpu_operator_tpu_torch.parallel import ring_attention as ra
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.parallel import ulysses_attention as uly
+
+    mesh = RING_MESH
+    n = mesh["sp"]
+    for i, (ns, chunk, width, tname) in enumerate(A2A_SMALL):
+        x = coll_payload(torch, ns * ns * chunk, width, getattr(torch, tname),
+                         seed=90 + i)
+        check_a2a(torch, rp, f"all-to-all n={ns} [{ns * ns * chunk}, "
+                  f"{width}] {tname}", x, ns)
+        log(f"ulysses all-to-all n={ns} block {chunk}x{width} {tname} "
+            f"({chunk * width * x.element_size()} B): == plain == transpose "
+            f"bit for bit, {int(ns > 1)} launch")
+    odd = torch.zeros((4, 3), dtype=torch.int8, device="cuda")
+    try:
+        rp.all_to_all_cuda(odd, 2)
+    except ValueError as e:
+        log(f"ulysses all-to-all of 3-byte blocks raises: {e}")
+    else:
+        raise AssertionError("all-to-all of 3-byte blocks did not raise")
+
+    # The main path, counts at 0.
+    rows = COLL_MBYTES * 2 ** 20 // (4 * COLL_WIDTH)
+    x = coll_payload(torch, rows, COLL_WIDTH, torch.float32, seed=33)
+    dtypes = (torch.float32, torch.bfloat16)
+    inputs = {dtype: uly_inputs(torch, dtype, seed=34) for dtype in dtypes}
+    cases = [(dtype, causal) for dtype in dtypes for causal in (False, True)]
+    rp.all_to_all_cuda.launches = 0
+    t0 = time.monotonic()
+    probe = rp.make_all_to_all(mesh, "sp")(x)
+    outs = {}
+    for dtype, causal in cases:
+        fn = uly.make_ulysses_attention(mesh, "sp", causal)
+        outs[(dtype, causal)] = fn(*inputs[dtype])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = rp.all_to_all_cuda.launches
+    check(launches == 1 + 4 * len(cases),
+          f"ulysses main path: {launches} all-to-all launches for one "
+          f"exchange and {len(cases)} Ulysses calls")
+    log(f"ulysses main path: make_all_to_all on [{rows}, {COLL_WIDTH}] f32 "
+        f"and {len(cases)} calls of make_ulysses_attention ({mesh}, S "
+        f"{ULY_S}, {ULY_H} heads of {ULY_D}), {launches} all-to-all "
+        f"launches, {wall:.3f} s wall [{card}]")
+
+    first = check_a2a(torch, rp, f"all-to-all {COLL_MBYTES} MiB", x, n)
+    check(same_bits(torch, probe, first),
+          "make_all_to_all differs from all_to_all_cuda's bits")
+    for i in range(RING_REPEATS):
+        again = rp.all_to_all_cuda(x, n)
+        check(same_bits(torch, again, first),
+              f"all-to-all repeat {i}: differs from the first call's bits")
+    err = float((first - rp.all_to_all_plain(x, n)).abs().max())
+    chunk = rows // (n * n)
+    ms = time_ms(torch, lambda: rp.all_to_all_cuda(x, n), n=10, warm=2)
+    plain_ms = time_ms(torch, lambda: rp.all_to_all_plain(x, n), n=5,
+                       warm=1, batch=2)
+    library_ms = time_ms(torch, lambda: x.view(
+        n, n, chunk, COLL_WIDTH).transpose(0, 1).contiguous(), n=10, warm=2)
+    kernel_ms = device_ms(torch, lambda: rp.all_to_all_cuda(x, n),
+                          "all_to_all_kernel")
+    nbytes = x.numel() * x.element_size()
+    t_bytes = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"ulysses all_to_all [{rows}, {COLL_WIDTH}] f32 n={n}: == plain == "
+        f"transpose bit for bit, {RING_REPEATS} repeats bitwise equal; "
+        f"kernel {ms:.4f} ms ({kernel_ms:.4f} ms a launch on the card, "
+        f"profiled), plain {plain_ms:.4f} ms, "
+        f"view().transpose().contiguous() {library_ms:.4f} ms, bound "
+        f"{t_bytes:.4f} ms ({nbytes} B read, {nbytes} B written) [{card}]")
+    record = dict(
+        name="all_to_all", route="cuda",
+        source="dpu_operator_tpu_torch/csrc/all_to_all.cu",
+        replaces="dpu_operator_tpu/parallel/ring_probe.py:576",
+        launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=t_bytes, bound_by="bytes", library_ms=library_ms)
+    del probe, first, again
+
+    h_loc = ULY_H // n
+    s_loc = ULY_S // n
+    flops = 4 * ULY_H * ULY_S * ULY_S * ULY_D  # two products, every pair
+    exchange_ms = {}
+    for dtype, causal in cases:
+        q, k, v = inputs[dtype]
+        got = outs.pop((dtype, causal))
+        tag = (f"ulysses S={ULY_S} H={ULY_H} D={ULY_D} n={n} "
+               f"{str(dtype)[6:]} causal={causal}")
+        check(got.shape == (ULY_S, ULY_H, ULY_D) and got.dtype == dtype,
+              f"{tag}: {got.dtype} {tuple(got.shape)}")
+        check(torch.isfinite(got.float()).all(), f"{tag}: non-finite out")
+        torch_route = uly.make_ulysses_attention(
+            mesh, "sp", causal, kernel="torch", device="cuda")(q, k, v)
+        check(same_bits(torch, got, torch_route),
+              f"{tag}: kernel route differs from the torch route's bits")
+        del torch_route
+        # The dense reference a head group at a time: at all 32 heads its
+        # [H, S, S] f32 scores alone would take 32 GiB. Heads are
+        # independent, so the groups' outputs side by side are the whole.
+        dense = torch.cat([uly.dense_attention_reference(
+            q[:, g:g + h_loc], k[:, g:g + h_loc], v[:, g:g + h_loc], causal)
+            for g in range(0, ULY_H, h_loc)], dim=1)
+        err_d, bar_d = ring_compare(torch, burn, f"{tag} vs dense", got,
+                                    dense)
+        del dense
+        ring_errs = []
+        for h in (0, ULY_H - 1):
+            ring = ra.make_ring_attention(mesh, "sp", causal)(
+                *(t[:, h].contiguous() for t in (q, k, v)))
+            ring_errs.append(ring_compare(
+                torch, burn, f"{tag} head {h} vs ring attention",
+                got[:, h].contiguous(), ring)[0])
+        fn = uly.make_ulysses_attention(mesh, "sp", causal)
+        for i in range(ULY_REPEATS):
+            before = rp.all_to_all_cuda.launches
+            again = fn(q, k, v)
+            check(rp.all_to_all_cuda.launches == before + 4,
+                  f"{tag}: {rp.all_to_all_cuda.launches - before} launches "
+                  f"in a call")
+            check(same_bits(torch, again, got),
+                  f"{tag} repeat {i}: differs from the first call's bits")
+        del again, got
+        call_ms = time_ms(torch, lambda: fn(q, k, v), n=3, warm=1, batch=1)
+        if dtype not in exchange_ms:
+            xu = coll_payload(torch, n * ULY_H, s_loc * ULY_D, dtype,
+                              seed=35)
+            exchange_ms[dtype] = time_ms(
+                torch, lambda: rp.all_to_all_cuda(xu, n), n=10, warm=2)
+            kernel_ms = device_ms(torch, lambda: rp.all_to_all_cuda(xu, n),
+                                  "all_to_all_kernel")
+            xbytes = xu.numel() * xu.element_size()
+            log(f"ulysses exchange [{n * ULY_H}, {s_loc * ULY_D}] "
+                f"{str(dtype)[6:]} n={n}: kernel {exchange_ms[dtype]:.4f} "
+                f"ms ({kernel_ms:.4f} ms a launch on the card, profiled), "
+                f"bound {2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"({xbytes} B read and written) [{card}]")
+            del xu
+        share = 4 * exchange_ms[dtype] / call_ms
+        log(f"{tag}: 4 launches a call, == torch route bit for bit, "
+            f"{ULY_REPEATS} repeats bitwise equal; vs dense max |err| "
+            f"{err_d:.3e} ({bar_d}); vs ring attention heads 0, "
+            f"{ULY_H - 1} max |err| {max(ring_errs):.3e}; call {call_ms:.3f} "
+            f"ms, the four exchanges {4 * exchange_ms[dtype]:.4f} ms "
+            f"({share:.4f} of it); the local attention's f32 operation "
+            f"bound {flops / FP32_FLOP_PER_S * 1e3:.3f} ms ({flops} flop) "
+            f"[{card}]")
+        torch.cuda.empty_cache()
+    del inputs, x
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -1187,8 +1433,10 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
     ring = phase_ring(torch, card)
     collectives = phase_collectives(torch, card)
+    a2a = phase_ulysses(torch, card)
     print(card)
-    print(json.dumps({"kernels": [record] + tiles + [ring] + collectives}))
+    print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
+                      + [a2a]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -8,9 +8,9 @@
 // is `ring_stream.cuh`, the one protocol body; this file is its consumer
 // and the C entry point.
 //
-// Layout. One cooperative launch holds every rank: n x G CTAs of 256
-// threads, G per rank, as many as the card holds at once (the occupancy
-// query decides). A rank's query rows are cut into 64-row tiles, dealt
+// Layout. One cooperative launch (`ring::launch_ring`) holds every rank:
+// n x G CTAs of 256 threads, G per rank, one per 64-row tile up to what
+// the card holds at once (the occupancy query decides). A rank's query rows are cut into 64-row tiles, dealt
 // round-robin to its G CTAs. Where a step brings a block, a CTA folds it
 // into each of its tiles in turn: the tile's Q rows and 64-key tiles of
 // K and V go through shared memory as f32, each thread computes a 4 x 4
@@ -62,11 +62,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;  // 16 x 16: ty picks 4 rows, tx columns
+// 256 = 16 x 16: ty picks 4 rows, tx columns.
+constexpr int kThreads = ring::kThreads;
+static_assert(kThreads == 256, "the 16 x 16 thread layout");
 constexpr int kBM = 64;        // query rows of a tile
 constexpr int kBN = 64;        // keys of a tile
 constexpr int kLdp = kBN + 4;  // row stride of the probability tile
-constexpr int kMaxRanks = 8;
+constexpr int kMaxRanks = ring::kMaxRanks;
 constexpr int kMaxDim = 256;
 constexpr float kNegInf = -1e30f;  // not -inf: (-inf) - (-inf) is NaN
 
@@ -388,36 +390,9 @@ int launch_typed(Params& p, cudaStream_t stream) {
   const int kp = kBN * ldq > kBM * kLdp ? kBN * ldq : kBM * kLdp;
   const size_t smem =
       sizeof(float) * (static_cast<size_t>(kBM) * ldq + kp + kBN * 64 * NG);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                      smem);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  const int capacity = per_sm * sms;
-  if (capacity < p.n) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int tiles = (p.sq + kBM - 1) / kBM;
-  // Co-resident by construction: n * ctas <= what the card holds at once.
-  p.ctas = tiles < capacity / p.n ? tiles : capacity / p.n;
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                  dim3(p.n * p.ctas), dim3(kThreads), args,
-                                  smem, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  // At most one CTA per 64-row tile: a second would idle.
+  return ring::launch_ring(fn, p, p.ctas, p.n, (p.sq + kBM - 1) / kBM, smem,
+                           stream);
 }
 
 template <typename QT, typename KT>

@@ -25,8 +25,9 @@
 // adds run in the payload's own type (f32, bf16, f16, int32), in the
 // ring's order, rounding at every hop.
 //
-// Layout. One cooperative launch holds every rank: n x streams x G CTAs
-// of 256 threads, all resident at once (the occupancy query decides; the
+// Layout. One cooperative launch (`ring::launch_ring`) holds every rank:
+// n x streams x G CTAs of 256 threads, all resident at once (the
+// occupancy query decides; the
 // kernels use no shared memory, so the card holds many), G chosen so
 // that a thread moves about four 16-byte units of a block. A rank's CTAs
 // stripe every copy and every add between them.
@@ -50,19 +51,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxRanks = 8;
-// A CTA's share of a block before another CTA is worth its flag traffic.
-constexpr long long kBytesPerCta = 4ll * 16 * kThreads;
-
-struct Ring {
-  ring::Flags* flags;  // [streams][kMaxRanks]
-  int right[kMaxRanks];
-  int left[kMaxRanks];
-  int n;
-  int ctas;  // CTAs of one rank on one stream
-  unsigned long long epoch;
-};
+using ring::Ring;
+using ring::kMaxRanks;
+using ring::kThreads;
 
 struct GatherParams {
   Ring ring;
@@ -192,57 +183,11 @@ __global__ void __launch_bounds__(kThreads)
   ring::run_rs_ring<Sum>(r, p.send + 2 * rank * bb, produce, finish);
 }
 
-// Fill `g` from the C arguments; false where they name no ring.
-bool make_ring(Ring& g, void* flags, const long long* right,
-               const long long* left, int n, int min_n,
-               unsigned long long epoch) {
-  if (n < min_n || n > kMaxRanks || epoch < 1) return false;
-  g.flags = static_cast<ring::Flags*>(flags);
-  g.n = n;
-  g.ctas = 1;
-  g.epoch = epoch;
-  for (int r = 0; r < kMaxRanks; ++r) {
-    g.right[r] = r < n ? static_cast<int>(right[r]) : 0;
-    g.left[r] = r < n ? static_cast<int>(left[r]) : 0;
-    if (g.right[r] < 0 || g.right[r] >= n || g.left[r] < 0 ||
-        g.left[r] >= n) {
-      return false;
-    }
-  }
-  return true;
-}
-
-// One cooperative launch of n x streams x G CTAs, G from the block's
-// bytes and capped by what the card holds at once: co-resident by
-// construction, so a spin wait cannot starve the CTA it waits for.
-template <class Params>
-int launch_ring(void (*fn)(Params), Params& p, int streams,
-                long long block_bytes, cudaStream_t stream) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                      0);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  const int groups = p.ring.n * streams;
-  const int room = per_sm * sms / groups;
-  if (room < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const long long want = (block_bytes + kBytesPerCta - 1) / kBytesPerCta;
-  p.ring.ctas = static_cast<int>(want < room ? want : room);
-  void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                  dim3(groups * p.ring.ctas), dim3(kThreads),
-                                  args, 0, stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+template <class Sum>
+int launch_scatter(ScatterParams& p, cudaStream_t stream) {
+  return ring::launch_ring(ring_reduce_scatter_kernel<Sum>, p, p.ring.ctas,
+                           p.ring.n, ring::ctas_for(p.block_bytes), 0,
+                           stream);
 }
 
 }  // namespace
@@ -268,7 +213,7 @@ extern "C" int ring_all_gather_launch(const void* x, void* out, void* slots,
                                       void* stream) {
   GatherParams p;
   const int streams = bidirectional ? 2 : 1;
-  if (!make_ring(p.ring, flags, right, left, n, 1, epoch) ||
+  if (!ring::make_ring(p.ring, flags, right, left, n, 1, epoch) ||
       chunk_bytes < 2 * streams || chunk_bytes % (2 * streams)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -277,9 +222,10 @@ extern "C" int ring_all_gather_launch(const void* x, void* out, void* slots,
   p.slots = static_cast<char*>(slots);
   p.streams = streams;
   p.chunk_bytes = chunk_bytes;
-  return launch_ring(ring_all_gather_kernel, p, streams,
-                     chunk_bytes / streams,
-                     static_cast<cudaStream_t>(stream));
+  return ring::launch_ring(ring_all_gather_kernel, p, p.ring.ctas,
+                           n * streams,
+                           ring::ctas_for(chunk_bytes / streams), 0,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // x [n][n * chunk, width], rank r's contribution at r * n * block_bytes,
@@ -297,8 +243,8 @@ extern "C" int ring_reduce_scatter_launch(const void* x, void* out,
                                           void* stream) {
   ScatterParams p;
   const long long item = dtype == 1 || dtype == 2 ? 2 : 4;
-  if (!make_ring(p.ring, flags, right, left, n, 2, epoch) || dtype < 0 ||
-      dtype > 3 || block_bytes < item || block_bytes % item) {
+  if (!ring::make_ring(p.ring, flags, right, left, n, 2, epoch) ||
+      dtype < 0 || dtype > 3 || block_bytes < item || block_bytes % item) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.x = static_cast<const char*>(x);
@@ -309,16 +255,12 @@ extern "C" int ring_reduce_scatter_launch(const void* x, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_ring(ring_reduce_scatter_kernel<SumF32>, p, 1,
-                         block_bytes, st);
+      return launch_scatter<SumF32>(p, st);
     case 1:
-      return launch_ring(ring_reduce_scatter_kernel<SumBF16>, p, 1,
-                         block_bytes, st);
+      return launch_scatter<SumBF16>(p, st);
     case 2:
-      return launch_ring(ring_reduce_scatter_kernel<SumF16>, p, 1,
-                         block_bytes, st);
+      return launch_scatter<SumF16>(p, st);
     default:
-      return launch_ring(ring_reduce_scatter_kernel<SumI32>, p, 1,
-                         block_bytes, st);
+      return launch_scatter<SumI32>(p, st);
   }
 }

@@ -50,16 +50,27 @@
 //
 // A wait that has not been released after kSpinLimitNs traps: a broken
 // protocol then fails the launch instead of hanging the card.
+//
+// The host side, at the end: `Ring` (what a ring kernel's launch carries),
+// `make_ring` (it from the C arguments) and `launch_ring`, the one
+// cooperative launcher that every kernel built on these primitives uses
+// (the ring collectives, ring attention, the all-to-all).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace ring {
 
 constexpr unsigned long long kTagSteps = 16;  // > the largest ring, 8
 constexpr unsigned long long kSpinLimitNs = 10ull * 1000 * 1000 * 1000;
+constexpr int kMaxRanks = 8;
+constexpr int kThreads = 256;  // threads of every CTA that launch_ring starts
+// A CTA's share of a copied block before another CTA is worth its flag
+// traffic: about four 16-byte units a thread.
+constexpr long long kBytesPerCta = 4ll * 16 * kThreads;
 
 // One rank's control words, in device memory that lives across calls
 // (zeroed once when allocated). Flags are raised by peers; arrival
@@ -337,6 +348,84 @@ __device__ void run_rs_ring(const Rank& r, char* send, Produce& produce,
   }
   finish(r.my_slots + ((r.n - 1) & 1) * r.block_bytes,
          send + ((r.n - 1) & 1) * r.block_bytes);
+}
+
+// -- the host side ------------------------------------------------------------
+
+// What a ring kernel's launch carries: the ranks' flag words, each rank's
+// neighbours, the ring size, the CTAs of one rank (set by launch_ring) and
+// the call's epoch.
+struct Ring {
+  Flags* flags;  // [streams][kMaxRanks]
+  int right[kMaxRanks];
+  int left[kMaxRanks];
+  int n;
+  int ctas;  // CTAs of one rank on one stream
+  unsigned long long epoch;
+};
+
+// Fill `g` from the C arguments; false where they name no ring.
+inline bool make_ring(Ring& g, void* flags, const long long* right,
+                      const long long* left, int n, int min_n,
+                      unsigned long long epoch) {
+  if (n < min_n || n > kMaxRanks || epoch < 1) return false;
+  g.flags = static_cast<Flags*>(flags);
+  g.n = n;
+  g.ctas = 1;
+  g.epoch = epoch;
+  for (int r = 0; r < kMaxRanks; ++r) {
+    g.right[r] = r < n ? static_cast<int>(right[r]) : 0;
+    g.left[r] = r < n ? static_cast<int>(left[r]) : 0;
+    if (g.right[r] < 0 || g.right[r] >= n || g.left[r] < 0 ||
+        g.left[r] >= n) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// The CTAs a rank wants for copies of `block_bytes`.
+inline long long ctas_for(long long block_bytes) {
+  return (block_bytes + kBytesPerCta - 1) / kBytesPerCta;
+}
+
+// One cooperative launch of `groups` x G CTAs of kThreads threads, each
+// with `smem` bytes of dynamic shared memory. G is `want`, capped by what
+// the card holds at once: all CTAs are co-resident by construction, so a
+// spin wait cannot starve the CTA it waits for. G is stored in `ctas`, a
+// field of `p`, before the launch copies `p`. Returns the CUDA error code,
+// 0 on success.
+template <class Params>
+int launch_ring(void (*fn)(Params), Params& p, int& ctas, int groups,
+                long long want, size_t smem, cudaStream_t stream) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  }
+  if (e == cudaSuccess && smem > 0) {
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const int room = per_sm * sms / groups;
+  if (room < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  ctas = static_cast<int>(want < room ? want : room);
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
+                                  dim3(groups * ctas), dim3(kThreads), args,
+                                  smem, stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ring

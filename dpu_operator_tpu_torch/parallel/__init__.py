@@ -4,4 +4,7 @@ paged-attention step (``paged_attn``), the block-axis int8 codec
 tensor-core/HBM microbench (``mxu_bench``, run by ``bench_gpu``), whose
 kernels share the bf16 tile product of ``tile_mma``, and the
 sequence-parallel ring attention (``ring_attention``), whose kernel runs
-on the ring-stream protocol (``ring_probe``, ``csrc/ring_stream.cuh``)."""
+on the ring-stream protocol (``ring_probe``, ``csrc/ring_stream.cuh``),
+the fabric probe's collectives (``ring_probe``: ring all-gather, ring
+reduce-scatter, all-to-all) and Ulysses attention (``ulysses_attention``),
+whose four exchanges are the all-to-all."""

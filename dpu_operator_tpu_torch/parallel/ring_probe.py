@@ -1,14 +1,15 @@
-"""Ring addressing, the ring protocols and the ring collectives of the
-fabric probe.
+"""Ring addressing, the ring protocols and the collectives of the fabric
+probe.
 
 Counterpart of the JAX package's ``parallel/ring_probe.py``: ``_ring_ids``
 (plain integer arithmetic on a rank's mesh coordinates), the one-way and
-bidirectional ring all-gather, the ring reduce-scatter (sum) and
-``measure_ring_bandwidth``. The protocol bodies (``_run_ring_stream`` and
-``_run_rs_ring`` there) are device code here, written once in
-``csrc/ring_stream.cuh`` as templates, so that every kernel built on a
-ring shares one copy of each; ``csrc/ring_collectives.cu`` holds the
-collectives' kernels.
+bidirectional ring all-gather, the ring reduce-scatter (sum), the
+all-to-all and ``measure_ring_bandwidth``. The protocol bodies
+(``_run_ring_stream`` and ``_run_rs_ring`` there) are device code here,
+written once in ``csrc/ring_stream.cuh`` as templates, so that every
+kernel built on a ring shares one copy of each; ``csrc/ring_collectives.cu``
+holds the ring collectives' kernels and ``csrc/all_to_all.cu`` the
+all-to-all's, whose all-rank barrier needs no ring.
 
 Each collective has two versions of the same function:
 
@@ -23,8 +24,12 @@ Each collective has two versions of the same function:
     they run the plain version; on a CUDA tensor they launch the kernel
     or raise. ``.launches`` counts their launches.
 
-``make_ring_all_gather`` and ``make_ring_reduce_scatter`` are the entry
-points, on whole tensors cut into ``mesh[axis]`` row shards.
+The all-to-all has the same two versions, ``all_to_all_plain`` (rank by
+rank, in the kernel's order of stores) and ``all_to_all_cuda``.
+
+``make_ring_all_gather``, ``make_ring_reduce_scatter`` and
+``make_all_to_all`` are the entry points, on whole tensors cut into
+``mesh[axis]`` row shards.
 
 **The ranks of a ring share one card.** What ``measure_ring_bandwidth``
 times is then the protocol and the copies within that card's memory, not
@@ -133,18 +138,30 @@ class _RingControl:
         self.epoch = 0
 
 
-_controls: Dict[Tuple[int, int], _RingControl] = {}
+class _A2AControl(_RingControl):
+    """The all-to-all's own flag words (``A2AFlags`` of
+    ``csrc/all_to_all.cu``: one tagged word per source rank for "entered"
+    and one for "landed", and two arrival counters), apart from the
+    rings'. The library reports the struct's size, which must be this."""
+
+    WORDS_PER_RANK = 32  # sizeof(A2AFlags) / 8, padded to 256 bytes
+    STREAMS = 1
+
+
+_controls: Dict[Tuple[type, int, int], _RingControl] = {}
 _controls_lock = threading.Lock()
 
 
-def _control(device: torch.device, stream: int) -> _RingControl:
-    """The control words of (device, stream), its epoch advanced by one
-    for the call about to be launched."""
+def _control(device: torch.device, stream: int,
+             kind: type = _RingControl) -> _RingControl:
+    """The control words of ``kind`` on (device, stream), its epoch
+    advanced by one for the call about to be launched."""
     with _controls_lock:
-        ctl = _controls.get((device.index, stream))
+        key = (kind, device.index, stream)
+        ctl = _controls.get(key)
         if ctl is None:
-            ctl = _RingControl(device)
-            _controls[(device.index, stream)] = ctl
+            ctl = kind(device)
+            _controls[key] = ctl
         ctl.epoch += 1
         return ctl
 
@@ -362,6 +379,97 @@ def ring_reduce_scatter_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
 ring_reduce_scatter_cuda.launches = 0
 
 
+# -- all-to-all ---------------------------------------------------------------
+
+
+def _a2a_rows(x: torch.Tensor, n: int) -> int:
+    """Rows of one rank's shard in x [n * rows, W]; raises where they do
+    not cut into n blocks (the reference's error)."""
+    rows = _chunk_rows(x, n, "all_to_all")
+    if rows % n:
+        raise ValueError(f"all-to-all rows {rows} must divide by axis size "
+                         f"{n}")
+    return rows
+
+
+def all_to_all_plain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The all-to-all of n ranks: x [n * rows, W], rank s's shard its rows
+    ``s * rows ..``, cut into n blocks of ``rows / n``; returns the
+    exchanged [n * rows, W], in which rank r's block s is rank s's input
+    block r. Written as the kernel works, rank by rank: the own block,
+    then the n - 1 peers, block ``dst = (my_id + k) mod n`` to rank dst
+    for k = 1 .. n - 1. A ring of one is the identity."""
+    rows = _a2a_rows(x, n)
+    if n == 1:
+        return x
+    chunk = rows // n
+    blocks = [shard.split(chunk) for shard in x.split(rows)]  # [rank][blk]
+    out = x.new_empty(tuple(x.shape))
+    for my_id in range(n):
+        for k in range(n):
+            dst = (my_id + k) % n
+            at = dst * rows + my_id * chunk
+            out[at:at + chunk] = blocks[my_id][dst]
+    return out
+
+
+def _a2a_library():
+    from ..cuda_build import load
+
+    lib = load("all_to_all")
+    if lib.all_to_all_launch.argtypes is None:
+        lib.all_to_all_flag_words.argtypes = []
+        lib.all_to_all_flag_words.restype = ctypes.c_int
+        words = lib.all_to_all_flag_words()
+        if words != _A2AControl.WORDS_PER_RANK:
+            raise RuntimeError(f"all_to_all.cu's A2AFlags holds {words} "
+                               f"words a rank; the wrapper allocates "
+                               f"{_A2AControl.WORDS_PER_RANK}")
+        lib.all_to_all_launch.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_ulonglong, ctypes.c_void_p]
+        lib.all_to_all_launch.restype = ctypes.c_int
+    return lib
+
+
+def all_to_all_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``all_to_all_plain``'s function in one launch of the all-to-all
+    kernel, all n ranks on x's card, every block moved bit for bit. Any
+    type whose block is a whole number of 2-byte units; 1 <= n <= 8 (a
+    ring of one is the identity and launches nothing). Raises on anything
+    else and where the card refuses the launch."""
+    if x.device.type == "cpu":
+        return all_to_all_plain(x, n)
+    rows = _a2a_rows(x, n)
+    x = _kernel_input(x, n, "all_to_all_cuda")
+    if n == 1:
+        return x
+    block_bytes = rows // n * x.shape[1] * x.element_size()
+    if block_bytes == 0 or block_bytes % 2:
+        raise ValueError(f"all_to_all_cuda: the kernel moves 2-byte units; "
+                         f"a block of {block_bytes} bytes is none")
+    out = torch.empty_like(x)
+    rank_bytes = rows * x.shape[1] * x.element_size()
+    outs = (ctypes.c_void_p * n)(*(out.data_ptr() + r * rank_bytes
+                                   for r in range(n)))
+    lib = _a2a_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        ctl = _control(x.device, stream, _A2AControl)
+        err = lib.all_to_all_launch(x.data_ptr(), outs, ctl.flags.data_ptr(),
+                                    n, block_bytes, ctl.epoch, stream)
+    if err:
+        raise RuntimeError(f"all_to_all kernel launch failed: CUDA error "
+                           f"{err}")
+    all_to_all_cuda.launches += 1
+    return out
+
+
+#: Kernel launches so far (CPU calls of the wrapper do not count).
+all_to_all_cuda.launches = 0
+
+
 # -- entry points -------------------------------------------------------------
 
 
@@ -429,6 +537,26 @@ def make_ring_reduce_scatter(mesh: Mapping[str, int], axis: str = "sp", *,
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         _on(device, x, "ring reduce-scatter")
+        return impl(x, n)
+
+    return fn
+
+
+def make_all_to_all(mesh: Mapping[str, int], axis: str = "sp", *,
+                    kernel: Optional[str] = None, device=None):
+    """``fn(x)``: x [n * rows, W] on ``device``, rank r's [rows, W] shard
+    at rows ``r * rows ..`` (the reference's ``P(axis, None)``), each cut
+    into n blocks -> the exchanged [n * rows, W], sharded the same way:
+    block j of every rank's shard goes to rank j, which stores it as its
+    block of the sender's index (the sequence/expert-parallel shuffle
+    behind Ulysses attention). ``mesh``, ``kernel`` and ``device`` as in
+    ``make_ring_all_gather``."""
+    n, device, kernel = _ring_setup(mesh, axis, kernel, device,
+                                    "make_all_to_all")
+    impl = all_to_all_cuda if kernel == "cuda" else all_to_all_plain
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        _on(device, x, "all-to-all")
         return impl(x, n)
 
     return fn

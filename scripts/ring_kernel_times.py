@@ -1,0 +1,60 @@
+#!/usr/bin/env python3
+"""Device times of the port's ring kernels in one source tree, on one card.
+
+    python3 scripts/ring_kernel_times.py [TREE]
+
+TREE (default: this checkout) is a checkout of the repository, e.g. a
+parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists. Its own ``chip_smoke.py`` helpers and kernels are
+used, so two trees timed in turns in one command (parent, change, change,
+parent) compare on the same card. Prints one JSON line: ms of the one-way
+and the bidirectional ring all-gather at the probe's 16 MiB, of the ring
+reduce-scatter at 16 MiB a rank, of ring attention at S = 32768 f32 causal
+(8 ranks sharing the card), and of the all-to-all at 16 MiB where the tree
+has it, with the card's name and power limit. Needs a CUDA card.
+"""
+
+import json
+import os
+import sys
+
+tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                       os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, tree)
+
+import torch  # noqa: E402
+
+import chip_smoke as c  # noqa: E402
+from dpu_operator_tpu_torch.parallel import ring_attention as ra  # noqa: E402
+from dpu_operator_tpu_torch.parallel import ring_probe as rp  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("ring_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = 8
+    x = c.coll_payload(torch, 8192, 512, torch.float32, seed=31)
+    X = c.coll_payload(torch, n * 8192, 512, torch.float32, seed=30)
+    q, k, v = c.ring_inputs(torch, 32768, 128, 128, torch.float32, seed=20)
+    out = {"tree": os.path.basename(tree)}
+    out["all_gather_ms"] = c.time_ms(
+        torch, lambda: rp.ring_all_gather_cuda(x, n, False), n=10, warm=2)
+    out["all_gather_bidir_ms"] = c.time_ms(
+        torch, lambda: rp.ring_all_gather_cuda(x, n, True), n=10, warm=2)
+    out["reduce_scatter_ms"] = c.time_ms(
+        torch, lambda: rp.ring_reduce_scatter_cuda(X, n), n=10, warm=2)
+    out["ring_attn_ms"] = c.time_ms(
+        torch, lambda: ra.ring_attention_cuda(q, k, v, n, True), n=5, warm=1,
+        batch=2)
+    if hasattr(rp, "all_to_all_cuda"):
+        out["all_to_all_ms"] = c.time_ms(
+            torch, lambda: rp.all_to_all_cuda(x, n), n=10, warm=2)
+    out["card"] = c.card_line()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

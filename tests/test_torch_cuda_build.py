@@ -37,11 +37,14 @@ def test_library_name_follows_source_headers_and_flags(tmp_path,
     assert cuda_build.library_path("kern") != third
 
 
-@pytest.mark.parametrize("name", ["ring_attn", "ring_collectives"])
+RING_SOURCES = ["ring_attn", "ring_collectives", "all_to_all"]
+
+
+@pytest.mark.parametrize("name", RING_SOURCES)
 def test_ring_sources_rebuild_when_the_protocol_header_changes(
         name, tmp_path, monkeypatch):
-    """Both ring sources include ``ring_stream.cuh``: an edit to the
-    protocol must give each of them a new library."""
+    """Every source built on ``ring_stream.cuh`` includes it: an edit to
+    the protocol or the launcher must give each of them a new library."""
     real = cuda_build.CSRC_DIR
     assert '#include "ring_stream.cuh"' in (real / f"{name}.cu").read_text()
     csrc = tmp_path / "csrc"
@@ -52,3 +55,16 @@ def test_ring_sources_rebuild_when_the_protocol_header_changes(
     with open(csrc / "ring_stream.cuh", "a") as f:
         f.write("// edited\n")
     assert cuda_build.library_path(name) != first
+
+
+@pytest.mark.parametrize("name", RING_SOURCES)
+def test_ring_sources_share_the_headers_launcher(name):
+    """The cooperative launcher lives once, in ``ring_stream.cuh``: every
+    source built on it launches through ``ring::launch_ring`` and keeps no
+    launcher of its own."""
+    header = (cuda_build.CSRC_DIR / "ring_stream.cuh").read_text()
+    assert "int launch_ring(" in header and "struct Ring {" in header
+    src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+    assert "ring::launch_ring(" in src
+    assert "cudaLaunchCooperativeKernel" not in src
+    assert "int launch_ring(" not in src and "struct Ring {" not in src

@@ -50,7 +50,7 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "parallel.burn", "parallel.mxu_bench", "parallel.bench_gpu",
                 "parallel.fabric_probe", "parallel.tile_mma",
                 "parallel.ring_attention", "parallel.ring_probe",
-                "parallel.mesh", "device",
+                "parallel.ulysses_attention", "parallel.mesh", "device",
                 "cuda_build"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
@@ -75,6 +75,10 @@ COPIES = {
     "obs/logging.py": (),
     "obs/trace.py": (),
     "parallel/mesh.py": ("ring_is_ici_adjacent",),
+    "parallel/ulysses_attention.py": ("_heads_to_rows", "_seq_to_head_shard",
+                                      "_full_attention", "_ulysses_body",
+                                      "make_ulysses_attention",
+                                      "dense_attention_reference"),
     "serving/api.py": (),
     "serving/executor.py": (),
     "serving/kvcache/allocator.py": (),

@@ -1,15 +1,17 @@
-"""The port's ring collectives against the JAX package's.
+"""The port's ring collectives and all-to-all against the JAX package's.
 
 The same seeded numpy inputs go through the reference's
-``make_ring_all_gather`` / ``make_ring_reduce_scatter`` on the 8-device
+``make_ring_all_gather`` / ``make_ring_reduce_scatter`` /
+``make_all_to_all`` on the 8-device
 virtual CPU mesh (their XLA collectives in-process; their Pallas kernels
 in interpret mode in a subprocess, as the reference's own tests run
 them) and through the port's plain versions, which are what the
 ``*_cuda`` wrappers run for tensors on the CPU.
 
 Bars:
-  * all-gather: exact. It only moves data; every rank's copy must equal
-    the reference's output bit for bit;
+  * all-gather and all-to-all: exact. They only move data; every rank's
+    copy must equal the reference's output bit for bit (the all-to-all
+    against its Pallas kernel in interpret mode: ``test_torch_ulysses.py``);
   * reduce-scatter against the reference's ``psum_scatter`` and against a
     float64 numpy sum: ``rtol=1e-4, atol=1e-5``, the reference's own bar
     between its ring and numpy (``tests/test_ring_probe.py``): up to 8
@@ -191,6 +193,65 @@ def test_all_reduce_composition(shape):
     np.testing.assert_allclose(got, ref, rtol=RS_RTOL, atol=RS_ATOL)
 
 
+# -- all-to-all ---------------------------------------------------------------
+
+
+def _transpose(x, n):
+    """The all-to-all as one numpy transpose (``tests/test_ring_probe.py``):
+    rank r's block s is rank s's block r."""
+    rows = x.shape[0] // n
+    return (x.reshape(n, n, rows // n, -1).transpose(1, 0, 2, 3)
+            .reshape(x.shape))
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_all_to_all_matches_reference_xla(shape):
+    n = shape[1]
+    x = np.random.RandomState(70 + n).randn(n * 2 * n, 8).astype(np.float32)
+    want = _ref_call(ref_rp.make_all_to_all, shape, x)
+    np.testing.assert_array_equal(want, _transpose(x, n))
+    got = rp.all_to_all_plain(torch.from_numpy(x), n)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    fn = rp.make_all_to_all(dict(zip(AXES, shape)), "sp", device="cpu")
+    np.testing.assert_array_equal(fn(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+def test_all_to_all_every_size_and_type(n, dtype):
+    """Rings of every size, blocks of 1 and 3 rows: a wrong source or
+    destination index would misplace a block."""
+    rng = np.random.RandomState(80 + n)
+    for chunk in (1, 3):
+        x = torch.from_numpy(rng.randint(
+            -99, 99, (n * n * chunk, 5)).astype(np.float32)).to(dtype)
+        got = rp.all_to_all_plain(x, n)
+        assert got.dtype == dtype and got.shape == x.shape
+        want = x.view(n, n, chunk, 5).transpose(0, 1).reshape(x.shape)
+        assert torch.equal(got, want), (n, chunk)
+        # Twice is the identity: block r of rank s goes there and back.
+        assert torch.equal(rp.all_to_all_plain(got, n), x)
+
+
+def test_all_to_all_contract():
+    """The reference's contract: rows that do not divide raise with its
+    message, and a ring of one is the identity."""
+    x = torch.arange(12.0).reshape(6, 2)
+    for fn in (rp.all_to_all_plain, rp.all_to_all_cuda):
+        with pytest.raises(ValueError, match="all-to-all rows 3 must divide "
+                                             "by axis size 2"):
+            fn(x, 2)
+    with pytest.raises(ValueError, match="equal shards"):
+        rp.all_to_all_plain(torch.zeros(7, 2), 2)
+    with pytest.raises(ValueError, match="runs on cpu"):
+        rp.make_all_to_all({"sp": 2}, device="cpu")(
+            torch.zeros(4, 2, device="meta"))
+    assert torch.equal(rp.all_to_all_plain(x, 1), x)
+    assert torch.equal(rp.make_all_to_all({"sp": 1}, device="cpu")(x), x)
+
+
 # -- against the Pallas kernels in interpret mode -----------------------------
 
 
@@ -264,6 +325,15 @@ def test_cuda_wrappers_on_cpu_run_the_plain_versions():
                       rp.ring_reduce_scatter_cuda.launches)
 
 
+def test_all_to_all_cuda_on_cpu_runs_the_plain_version():
+    x = torch.from_numpy(np.random.RandomState(8).randn(32, 8).astype(
+        np.float32))
+    before = rp.all_to_all_cuda.launches
+    assert torch.equal(rp.all_to_all_cuda(x, 4), rp.all_to_all_plain(x, 4))
+    assert torch.equal(rp.all_to_all_cuda(x, 1), x)
+    assert rp.all_to_all_cuda.launches == before
+
+
 def test_odd_shard_runs_the_one_way_ring():
     """3 rows per rank cannot be halved: the bidirectional request takes
     the one-way ring's steps (the reference's rule) and still gathers."""
@@ -279,7 +349,8 @@ def test_odd_shard_runs_the_one_way_ring():
 
 @pytest.mark.parametrize("make", [rp.make_ring_all_gather,
                                   rp.make_ring_reduce_scatter,
-                                  rp.measure_ring_bandwidth])
+                                  rp.measure_ring_bandwidth,
+                                  rp.make_all_to_all])
 def test_kernel_and_device_selection(make):
     with pytest.raises(ValueError, match="CUDA"):
         make({"sp": 2}, kernel="cuda", device="cpu")
