@@ -70,10 +70,27 @@ Phases, each of which raises on failure:
                4 launches a call, the kernel route equal to the torch
                route bit for bit, within the stated bars of the dense
                reference and of ring attention on heads 0 and 31, repeats
-               bitwise equal; times of the all-to-all (CUDA events, and
-               its launch's device time from the profiler), its plain
-               version and one PyTorch call, and of a Ulysses call with
+               bitwise equal; times of the all-to-all (CUDA events, its
+               launch's device time from the profiler and the host's time
+               to queue a call), its plain version and one PyTorch call,
+               and of a Ulysses call with
                the exchanges' share of it.
+ 11. tp-mlp  — the collective matmuls (all-gather matmul, matmul
+               reduce-scatter). Small rings (n 1, 2, 3, 4, 5, 8 at the
+               reference tests' shapes, one shape off every tile edge, f32
+               and bf16) against the plain versions; n = 1 of the
+               reduce-scatter launches nothing; rows that are no whole
+               16-byte units and ``overlap=False`` with the kernel raise.
+               Then the tensor-parallel MLP pair of the served model
+               (``make_allgather_matmul`` -> relu ->
+               ``make_matmul_reduce_scatter``; x [4096, 4096], w1
+               [4096, 8192], w2 [8192, 4096], 8 ranks sharing the card),
+               f32 and bf16: 2 launches a pair call, each kernel against
+               its plain version and the pair against the dense product
+               within the stated bars, 20 repeats bitwise equal; times of
+               each kernel (CUDA events, a launch's device time from the
+               profiler, the host's time to queue a call), its plain
+               version and ``torch.matmul``, and the pair's wall time.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -105,7 +122,7 @@ FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
 
 SOURCES = ("paged_attn", "tile_mma", "ring_attn", "ring_collectives",
-           "all_to_all")
+           "all_to_all", "collective_matmul")
 
 # Kernel phase: the deploy shape of the serving phase below.
 KS, KC, KB, KBS, KH, KDH, KN = 16, 16, 256, 16, 32, 128, 8192
@@ -219,6 +236,36 @@ A2A_SMALL = ([(n, 1, 3, "float32") for n in (1, 2, 3, 4, 5, 8)]
 # whole sequence vs 64-key online folds, expf vs torch.exp), so ring
 # attention's bars (``ring_compare``): f32 within RING_RTOL / RING_ATOL,
 # bf16 within RING_ULPS.
+
+# Collective-matmul phase: the served model's MLP (d 4096, the repo's
+# width 2d) over a 4096-token sequence, tensor-parallel on 8 ranks sharing
+# the card: x [4096, 4096] @ w1 [4096, 8192] (chunk 512, 1024 columns a
+# rank), relu, @ w2 [8192, 4096] (1024 contraction rows a rank).
+TP_MESH = {"dp": 1, "sp": 1, "tp": 8}
+TP_B, TP_D, TP_H = 4096, SERVE["d"], 2 * SERVE["d"]
+TP_REPEATS = 20
+# Small rings, checked and not timed: the reference tests' shapes (all-
+# gather x [2n, 16] @ w [16, 8n]; reduce-scatter x [2n, 8n] @ w [8n, 16])
+# at every ring size, its bf16 case ([16, 64] @ [64, 16], n = 8), and one
+# shape a ring off every tile edge: (n, rows, k, f) with 200-row shards,
+# and 136 (all-gather) or 3 x 72 (reduce-scatter) contraction and 200 a
+# rank's columns, none a multiple of a 64- or 128-wide tile or its step.
+CM_RINGS = (1, 2, 3, 4, 5, 8)
+CM_OFF_GRID = ((3, 600, 136, 600), (8, 1600, 136, 1600))
+CM_RS_OFF_GRID = ((3, 600, 216, 200), (8, 1600, 576, 200))
+# Kernel vs plain: in f32 both sum the same exact products in another
+# order (FMA tiles over k vs cuBLAS), so max |a - b| <= 1e-5 * max |b|; in
+# bf16 both round an f32 value that differs by that reordering once: 1
+# ulp, counted as phase 6 counts its matmul (STEP_ULPS): at the larger
+# magnitude or at 2**-5 below it. Not ring attention's 2**-12: over k up
+# to 8192 the reordering reaches ~1e-5 absolute, 5 ulps of a value near
+# 2**-12 (seen on an H100 at the full-width all-gather matmul).
+CM_F32_REL = 1e-5
+# The pair against the dense product: f32 within CM_F32_REL as above. In
+# bf16 the two round h = x @ w1 separately, and an element of h may land
+# on either side of a rounding boundary (the all-gather check above allows
+# 1 ulp), so the outputs may differ by that freedom carried through w2,
+# sum_j ulp(h_j) |w2_jk|, plus 1 ulp of their own rounding.
 
 # Small configuration held against the CPU path (the tests' widths).
 SMALL = dict(slots=2, vocab=16, d=8, heads=2, block_size=4,
@@ -1184,26 +1231,60 @@ def phase_collectives(torch, card):
 # -- phase 10: the all-to-all and Ulysses attention ----------------------------
 
 
+PROFILE_WINDOWS = 3
+
+
 def device_ms(torch, fn, kernel, calls=20):
-    """Device ms of one launch of the kernel whose name holds ``kernel``,
-    from ``torch.profiler`` over ``calls`` calls of ``fn``: the kernel
-    alone. ``time_ms`` counts the wrapper's host time too wherever the
-    card runs a call faster than the host queues the next."""
+    """(device ms, host ms, how the device ms was read): the median device
+    time of one launch of the kernel whose name holds ``kernel``, over the
+    launches that ``torch.profiler`` recorded in up to ``PROFILE_WINDOWS``
+    windows of ``calls`` calls of ``fn``, and the host's time to queue
+    one call, unprofiled. ``time_ms`` reads the larger of the two: where
+    the card runs a call faster than the host queues the next, the
+    host's. On an H100 the profiler drops launch records, at times every
+    one of a window's (a total over the recorded ones divided by
+    ``calls`` reads short). Where no window recorded one, the device ms is
+    the median gap between CUDA events recorded between back-to-back
+    calls: a launch's own time where the host queues faster than the card
+    runs, the host's otherwise."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    us = []
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [evt.time_range.elapsed_us() for evt in prof.events()
+              if str(evt.device_type).endswith("CUDA") and kernel in evt.name]
+        if us:
+            break
+    if us:
+        launch_ms = statistics.median(us) / 1e3
+        how = (f"profiled over {len(us)} of {calls} launches in window "
+               f"{window}")
+    else:
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(calls + 1)]
+        marks[0].record()
+        for mark in marks[1:]:
             fn()
+            mark.record()
         torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():
-        if str(evt.device_type).endswith("CUDA") and kernel in evt.key:
-            t = getattr(evt, "self_device_time_total", None)
-            us += evt.self_cuda_time_total if t is None else t
-    check(us > 0, f"the profiler saw no {kernel} on the card")
-    return us / calls / 1e3
+        launch_ms = statistics.median(
+            a.elapsed_time(b) for a, b in zip(marks, marks[1:]))
+        how = (f"the profiler recorded none of {PROFILE_WINDOWS * calls} "
+               f"launches; median of CUDA events between {calls} "
+               f"back-to-back calls")
+    t0 = time.monotonic()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.monotonic() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return launch_ms, host_ms, how
 
 
 def check_a2a(torch, rp, tag, x, n):
@@ -1298,14 +1379,15 @@ def phase_ulysses(torch, card):
                        warm=1, batch=2)
     library_ms = time_ms(torch, lambda: x.view(
         n, n, chunk, COLL_WIDTH).transpose(0, 1).contiguous(), n=10, warm=2)
-    kernel_ms = device_ms(torch, lambda: rp.all_to_all_cuda(x, n),
-                          "all_to_all_kernel")
+    kernel_ms, host_ms, seen = device_ms(
+        torch, lambda: rp.all_to_all_cuda(x, n), "all_to_all_kernel")
     nbytes = x.numel() * x.element_size()
     t_bytes = 2 * nbytes / HBM_BYTES_PER_S * 1e3
     log(f"ulysses all_to_all [{rows}, {COLL_WIDTH}] f32 n={n}: == plain == "
         f"transpose bit for bit, {RING_REPEATS} repeats bitwise equal; "
         f"kernel {ms:.4f} ms ({kernel_ms:.4f} ms a launch on the card, "
-        f"profiled), plain {plain_ms:.4f} ms, "
+        f"{seen}; {host_ms:.4f} ms of host time to queue a call), plain "
+        f"{plain_ms:.4f} ms, "
         f"view().transpose().contiguous() {library_ms:.4f} ms, bound "
         f"{t_bytes:.4f} ms ({nbytes} B read, {nbytes} B written) [{card}]")
     record = dict(
@@ -1365,13 +1447,13 @@ def phase_ulysses(torch, card):
                               seed=35)
             exchange_ms[dtype] = time_ms(
                 torch, lambda: rp.all_to_all_cuda(xu, n), n=10, warm=2)
-            kernel_ms = device_ms(torch, lambda: rp.all_to_all_cuda(xu, n),
-                                  "all_to_all_kernel")
+            kernel_ms, host_ms, seen = device_ms(
+                torch, lambda: rp.all_to_all_cuda(xu, n), "all_to_all_kernel")
             xbytes = xu.numel() * xu.element_size()
             log(f"ulysses exchange [{n * ULY_H}, {s_loc * ULY_D}] "
                 f"{str(dtype)[6:]} n={n}: kernel {exchange_ms[dtype]:.4f} "
-                f"ms ({kernel_ms:.4f} ms a launch on the card, profiled), "
-                f"bound {2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"ms ({kernel_ms:.4f} ms a launch on the card, {seen}; "
+                f"{host_ms:.4f} ms of host time to queue a call), bound {2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
                 f"({xbytes} B read and written) [{card}]")
             del xu
         share = 4 * exchange_ms[dtype] / call_ms
@@ -1387,6 +1469,249 @@ def phase_ulysses(torch, card):
     del inputs, x
     torch.cuda.empty_cache()
     return record
+
+
+# -- phase 11: the collective matmuls -----------------------------------------
+
+
+def cm_compare(torch, burn, tag, got, want):
+    """Max |err| of ``got`` against ``want`` within the collective matmuls'
+    bar (f32: CM_F32_REL of max |want|; bf16: 1 ulp); raises otherwise."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tag}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+          f"{tuple(want.shape)}")
+    check(torch.isfinite(got.float()).all(), f"{tag}: non-finite kernel out")
+    check(torch.isfinite(want.float()).all(), f"{tag}: non-finite reference")
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.bfloat16:
+        ulps = burn.bf16_ulps(got, want)
+        check(ulps <= STEP_ULPS, f"{tag}: {ulps} bf16 ulps (max {STEP_ULPS})")
+        return err, f"{ulps:.2f} ulps (max {STEP_ULPS})"
+    top = float(want.abs().max())
+    check(err <= CM_F32_REL * top, f"{tag}: max |err| {err} over "
+                                   f"{CM_F32_REL} x {top}")
+    return err, f"{err / top:.2e} of max |b| (max {CM_F32_REL})"
+
+
+def bf16_ulp(torch, t):
+    """The bf16 ulp at each element's magnitude, at 2**-5 below it (the
+    floor of ``burn.bf16_ulps``), in f32."""
+    mag = t.float().abs().clamp_min(2.0 ** -5)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def cm_pair_compare(torch, burn, tag, got, x, w1, w2, h):
+    """The pair's output against the dense relu(x @ w1) @ w2 (torch.matmul,
+    TF32 off), h the pair's own first half. f32: cm_compare's bar. bf16:
+    |got - dense| <= sum_j ulp(h_j) |w2_jk| + 1 ulp of the output, each h
+    ulp at the larger of the two h's; raises otherwise. Returns (max
+    |err|, bar)."""
+    h_dense = torch.matmul(x, w1)
+    dense = torch.matmul(torch.relu(h_dense), w2)
+    if got.dtype != torch.bfloat16:
+        return cm_compare(torch, burn, tag, got, dense)
+    check(torch.isfinite(got.float()).all(), f"{tag}: non-finite output")
+    carried = torch.matmul(
+        bf16_ulp(torch, torch.maximum(h.float().abs(), h_dense.float().abs())),
+        w2.float().abs())
+    diff = (got.float() - dense.float()).abs()
+    own = bf16_ulp(torch, torch.maximum(got.float().abs(),
+                                        dense.float().abs()))
+    excess = float(((diff - carried) / own).max())
+    check(excess <= STEP_ULPS, f"{tag}: {excess} output ulps beyond h's "
+                               f"carried freedom (max {STEP_ULPS})")
+    return float(diff.max()), (f"{burn.bf16_ulps(got, dense):.2f} ulps; "
+                               f"{excess:.2f} ulps beyond h's 1-ulp freedom "
+                               f"carried through w2 (max {STEP_ULPS})")
+
+
+def cm_case(torch, cm, burn, tag, x, w, n, reduce_scatter):
+    """One launch of a collective-matmul kernel (none for the
+    reduce-scatter's ring of one) against its plain version. Returns
+    (output, max |err|, bar)."""
+    kern = cm.mm_rs_cuda if reduce_scatter else cm.ag_matmul_cuda
+    plain = cm.mm_rs_plain if reduce_scatter else cm.ag_matmul_plain
+    before = kern.launches
+    got = kern(x, w, n)
+    torch.cuda.synchronize()
+    want_launches = 0 if reduce_scatter and n == 1 else 1
+    check(kern.launches == before + want_launches,
+          f"{tag}: {kern.launches - before} launches")
+    err, bar = cm_compare(torch, burn, tag, got, plain(x, w, n))
+    return got, err, bar
+
+
+def tp_weights(torch, dtype, seed):
+    """x [TP_B, TP_D] ~ N(0, 1), w1 ~ N(0, 1/TP_D), w2 ~ N(0, 1/TP_H):
+    every sum stays O(1). Drawn on the card in f32, cast."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((TP_B, TP_D), generator=gen, device="cuda")
+    w1 = torch.randn((TP_D, TP_H), generator=gen, device="cuda") / math.sqrt(
+        TP_D)
+    w2 = torch.randn((TP_H, TP_D), generator=gen, device="cuda") / math.sqrt(
+        TP_H)
+    return x.to(dtype), w1.to(dtype), w2.to(dtype)
+
+
+def phase_tp_mlp(torch, card):
+    """The collective matmuls: small rings against the plain versions,
+    then the main path (the tensor-parallel MLP pair at full width, counts
+    set to 0 just before), each kernel against its plain version and the
+    pair against the dense product, 20 repeats bitwise equal, and times."""
+    from dpu_operator_tpu_torch.parallel import burn
+    from dpu_operator_tpu_torch.parallel import collective_matmul as cm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(50)
+
+    def rand(rows, cols, dtype):
+        return torch.randn((rows, cols), generator=gen,
+                           device="cuda").to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        cases = ([(n, 2 * n, 16, 8 * n, False) for n in CM_RINGS]
+                 + [(n, 2 * n, 8 * n, 16, True) for n in CM_RINGS]
+                 + [c + (False,) for c in CM_OFF_GRID]
+                 + [c + (True,) for c in CM_RS_OFF_GRID]
+                 + [(8, 16, 64, 16, True)])
+        for n, rows, k, f, reduce_scatter in cases:
+            what = "matmul reduce-scatter" if reduce_scatter else \
+                "all-gather matmul"
+            tag = f"tp-mlp {what} n={n} [{rows}, {k}] @ [{k}, {f}] {name}"
+            _, err, bar = cm_case(torch, cm, burn, tag, rand(rows, k, dtype),
+                                  rand(k, f, dtype), n, reduce_scatter)
+            log(f"{tag}: == plain within the bar, max |err| {err:.3e} "
+                f"({bar})")
+    for fn, x, w in ((cm.ag_matmul_cuda, rand(16, 6, torch.float32),
+                      rand(6, 16, torch.float32)),
+                     (cm.mm_rs_cuda, rand(16, 24, torch.bfloat16),
+                      rand(24, 16, torch.bfloat16))):
+        try:
+            fn(x, w, 4)
+        except ValueError as e:
+            log(f"tp-mlp {fn.__name__} with rows of 24 or 12 bytes raises: "
+                f"{e}")
+        else:
+            raise AssertionError(f"{fn.__name__}: rows that are no whole "
+                                 f"16-byte units did not raise")
+    try:
+        cm.make_allgather_matmul(TP_MESH, "tp", overlap=False, kernel="cuda")
+    except ValueError as e:
+        log(f"tp-mlp overlap=False with kernel='cuda' raises: {e}")
+    else:
+        raise AssertionError("overlap=False with kernel='cuda' did not raise")
+
+    # The main path, counts at 0: one pair call per type.
+    n = TP_MESH["tp"]
+    dtypes = (torch.float32, torch.bfloat16)
+    inputs = {dtype: tp_weights(torch, dtype, seed=0) for dtype in dtypes}
+    ag = cm.make_allgather_matmul(TP_MESH, "tp")
+    rs = cm.make_matmul_reduce_scatter(TP_MESH, "tp")
+
+    def pair(x, w1, w2):
+        return rs(torch.relu(ag(x, w1)), w2)
+
+    cm.ag_matmul_cuda.launches = 0
+    cm.mm_rs_cuda.launches = 0
+    outs = {}
+    t0 = time.monotonic()
+    for dtype in dtypes:
+        outs[dtype] = pair(*inputs[dtype])
+        torch.cuda.synchronize()
+        check(cm.ag_matmul_cuda.launches == cm.mm_rs_cuda.launches
+              == len(outs), f"tp-mlp pair call {len(outs)}: "
+                            f"{cm.ag_matmul_cuda.launches} all-gather, "
+                            f"{cm.mm_rs_cuda.launches} reduce-scatter "
+                            f"launches")
+    wall = time.monotonic() - t0
+    launches = {"ag_matmul": cm.ag_matmul_cuda.launches,
+                "mm_reduce_scatter": cm.mm_rs_cuda.launches}
+    log(f"tp-mlp main path: {len(dtypes)} pair calls (f32, bf16) of "
+        f"make_allgather_matmul -> relu -> make_matmul_reduce_scatter "
+        f"({TP_MESH}, x [{TP_B}, {TP_D}], w1 [{TP_D}, {TP_H}], w2 [{TP_H}, "
+        f"{TP_D}]), launches {launches}: 2 a pair call, {wall:.3f} s wall "
+        f"(the first call builds nothing: phase 2 did) [{card}]")
+
+    records = []
+    flops = 2 * TP_B * TP_D * TP_H
+    for dtype in dtypes:
+        name = str(dtype)[6:]
+        x, w1, w2 = inputs[dtype]
+        item = x.element_size()
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        got = outs.pop(dtype)
+        check(got.shape == (TP_B, TP_D) and got.dtype == dtype,
+              f"tp-mlp pair {name}: {got.dtype} {tuple(got.shape)}")
+        h = ag(x, w1)
+        relu_h = torch.relu(h)
+        err_pair, bar_pair = cm_pair_compare(
+            torch, burn, f"tp-mlp pair {name} vs dense", got, x, w1, w2, h)
+        for i in range(TP_REPEATS):
+            again = pair(x, w1, w2)
+            check(same_bits(torch, again, got),
+                  f"tp-mlp pair {name} repeat {i}: differs from the first "
+                  f"call's bits")
+        del again
+        pair_ms = time_ms(torch, lambda: pair(x, w1, w2), n=5, warm=1,
+                          batch=2)
+        t0 = time.monotonic()
+        pair(x, w1, w2)
+        torch.cuda.synchronize()
+        pair_wall_ms = (time.monotonic() - t0) * 1e3
+        log(f"tp-mlp pair {name}: vs relu(x @ w1) @ w2 (torch.matmul, TF32 "
+            f"off) max |err| {err_pair:.3e} ({bar_pair}); {TP_REPEATS} "
+            f"repeats bitwise equal; {pair_ms:.4f} ms a pair call (CUDA "
+            f"events), {pair_wall_ms:.3f} ms wall for one [{card}]")
+        for key, kern, plain, a, b, line, kname in (
+                ("ag_matmul", cm.ag_matmul_cuda, cm.ag_matmul_plain, x, w1,
+                 115, "ag_matmul_kernel"),
+                ("mm_reduce_scatter", cm.mm_rs_cuda, cm.mm_rs_plain, relu_h,
+                 w2, 283, "mm_rs_kernel")):
+            mine = kern(a, b, n)
+            err, bar = cm_compare(torch, burn, f"tp-mlp {key} {name}", mine,
+                                  plain(a, b, n))
+            if key == "ag_matmul":
+                check(same_bits(torch, mine, h),
+                      f"tp-mlp ag_matmul {name}: differs from the pair's "
+                      f"first half")
+            del mine
+            ms = time_ms(torch, lambda: kern(a, b, n), n=5, warm=1, batch=2)
+            launch_ms, host_ms, seen = device_ms(
+                torch, lambda: kern(a, b, n), kname, calls=5)
+            plain_ms = time_ms(torch, lambda: plain(a, b, n), n=3, warm=1,
+                               batch=1)
+            library_ms = time_ms(torch, lambda: torch.matmul(a, b), n=5,
+                                 warm=1, batch=2)
+            nbytes = (a.numel() + b.numel() + a.shape[0] * b.shape[1]) * item
+            t_ops = flops / peak * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"tp-mlp {key} {name} [{a.shape[0]}, {a.shape[1]}] @ "
+                f"[{b.shape[0]}, {b.shape[1]}] n={n}: == plain within the "
+                f"bar, max |err| {err:.3e} ({bar}); kernel {ms:.4f} ms "
+                f"({launch_ms:.4f} ms a launch on the card, {seen}; "
+                f"{host_ms:.4f} ms of host time to queue a call; "
+                f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"torch.matmul {library_ms:.4f} ms, bound "
+                f"{max(t_ops, t_bytes):.4f} ms ({flops} flop, {nbytes} B; "
+                f"{n} ranks share the card: the relay is a copy within its "
+                f"memory) [{card}]")
+            if dtype == torch.float32:
+                records.append(dict(
+                    name=key, route="cuda",
+                    source="dpu_operator_tpu_torch/csrc/collective_matmul.cu",
+                    replaces=f"dpu_operator_tpu/parallel/collective_matmul.py"
+                             f":{line}",
+                    launches=launches[key], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    library_ms=library_ms))
+        del got, h, relu_h
+        torch.cuda.empty_cache()
+    del inputs
+    torch.cuda.empty_cache()
+    return records
 
 
 def main() -> int:
@@ -1434,9 +1759,10 @@ def main() -> int:
     ring = phase_ring(torch, card)
     collectives = phase_collectives(torch, card)
     a2a = phase_ulysses(torch, card)
+    tp_mlp = phase_tp_mlp(torch, card)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
-                      + [a2a]}))
+                      + [a2a] + tp_mlp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

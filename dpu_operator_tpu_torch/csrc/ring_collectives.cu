@@ -21,9 +21,10 @@
 //
 // Reduce-scatter. Rank r contributes x_r [n * chunk, width] and ends with
 // the sum over ranks of row-block r: `run_rs_ring` with a `produce` that
-// copies a row-block of x_r and a `finish` that stores the last sum. The
-// adds run in the payload's own type (f32, bf16, f16, int32), in the
-// ring's order, rounding at every hop.
+// copies a row-block of x_r and a `finish` that stores the last sum, all
+// on the byte stripes of `ring::ByteStripe`. The adds run in the
+// payload's own type (`ring::SumF32`, `SumBF16`, `SumF16`, `SumI32`), in
+// the ring's order, rounding at every hop.
 //
 // Layout. One cooperative launch (`ring::launch_ring`) holds every rank:
 // n x streams x G CTAs of 256 threads, all resident at once (the
@@ -42,8 +43,6 @@
 // Still to do: bulk (TMA) copies, and one read of a block feeding both
 // the relay and the output store.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,31 +72,6 @@ struct ScatterParams {
   long long block_bytes;
 };
 
-// The rank of ring `g` at position `rank` whose blocks travel to `down`
-// and come from `up`, on the flag words `flags` and the slots `slots`
-// ([n][2][block_bytes]).
-__device__ __forceinline__ ring::Rank make_rank(const Ring& g, int rank,
-                                                int cta, int dir, int down,
-                                                int up, ring::Flags* flags,
-                                                char* slots,
-                                                long long block_bytes) {
-  ring::Rank r;
-  r.my_id = rank;
-  r.dir = dir;
-  r.n = g.n;
-  r.ctas = g.ctas;
-  r.cta = cta;
-  r.epoch = g.epoch;
-  r.block_bytes = block_bytes;
-  r.local = nullptr;
-  r.my_slots = slots + 2 * rank * block_bytes;
-  r.right_slots = slots + 2 * down * block_bytes;
-  r.me = flags + rank;
-  r.left = flags + up;
-  r.right = flags + down;
-  return r;
-}
-
 // The all-gather's consumer: the block in hand goes to this rank's
 // output rows of its owner, at this stream's half.
 struct CopyOut {
@@ -119,7 +93,7 @@ __global__ void __launch_bounds__(kThreads)
   const int cta = blockIdx.x % g.ctas;
   const long long block_bytes = p.chunk_bytes / p.streams;
   const bool up_ring = stream == 0;
-  ring::Rank r = make_rank(
+  ring::Rank r = ring::make_rank(
       g, rank, cta, up_ring ? 1 : -1, up_ring ? g.right[rank] : g.left[rank],
       up_ring ? g.left[rank] : g.right[rank], g.flags + stream * kMaxRanks,
       p.slots + stream * g.n * 2 * block_bytes, block_bytes);
@@ -129,58 +103,23 @@ __global__ void __launch_bounds__(kThreads)
   ring::run_ring_stream(r, consume);
 }
 
-// Sums in the payload's own type, on bit patterns (see ring_stream.cuh).
-struct SumF32 {
-  using Raw = unsigned int;
-  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
-    return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
-  }
-};
-
-struct SumI32 {
-  using Raw = unsigned int;  // two's complement: wraps as int32 does
-  static __device__ __forceinline__ Raw add(Raw a, Raw b) { return a + b; }
-};
-
-// bf16 and f16: the exact operands added in f32 and rounded once to the
-// type, to nearest even, which is PyTorch's own bf16 and f16 add.
-struct SumBF16 {
-  using Raw = unsigned short;
-  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
-    const float fa = __uint_as_float(static_cast<unsigned>(a) << 16);
-    const float fb = __uint_as_float(static_cast<unsigned>(b) << 16);
-    return __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_rn(fa, fb)));
-  }
-};
-
-struct SumF16 {
-  using Raw = unsigned short;
-  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
-    const float fa = __half2float(__ushort_as_half(a));
-    const float fb = __half2float(__ushort_as_half(b));
-    return __half_as_ushort(__float2half_rn(__fadd_rn(fa, fb)));
-  }
-};
-
 template <class Sum>
 __global__ void __launch_bounds__(kThreads)
     ring_reduce_scatter_kernel(ScatterParams p) {
-  using Raw = typename Sum::Raw;
   const Ring& g = p.ring;
   const int rank = blockIdx.x / g.ctas;
   const int cta = blockIdx.x % g.ctas;
   const long long bb = p.block_bytes;
-  const ring::Rank r = make_rank(g, rank, cta, 1, g.right[rank], g.left[rank],
-                                 g.flags, p.recv, bb);
+  const ring::Rank r = ring::make_rank(g, rank, cta, 1, g.right[rank],
+                                       g.left[rank], g.flags, p.recv, bb);
   const char* mine = p.x + rank * g.n * bb;
   char* result = p.out + rank * bb;
-  auto produce = [&](int idx, char* dst) {
-    ring::copy_stripe<Raw>(dst, mine + idx * bb, bb, cta, g.ctas);
-  };
+  const ring::ByteStripe<Sum> stripe{bb, cta, g.ctas};
+  auto produce = [&](int idx, char* dst) { stripe.copy(dst, mine + idx * bb); };
   auto finish = [&](const char* a, const char* b) {
-    ring::add_stripe<Sum>(result, a, b, bb, cta, g.ctas);
+    stripe.add(result, a, b);
   };
-  ring::run_rs_ring<Sum>(r, p.send + 2 * rank * bb, produce, finish);
+  ring::run_rs_ring(r, p.send + 2 * rank * bb, stripe, produce, finish);
 }
 
 template <class Sum>
@@ -255,12 +194,12 @@ extern "C" int ring_reduce_scatter_launch(const void* x, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_scatter<SumF32>(p, st);
+      return launch_scatter<ring::SumF32>(p, st);
     case 1:
-      return launch_scatter<SumBF16>(p, st);
+      return launch_scatter<ring::SumBF16>(p, st);
     case 2:
-      return launch_scatter<SumF16>(p, st);
+      return launch_scatter<ring::SumF16>(p, st);
     default:
-      return launch_scatter<SumI32>(p, st);
+      return launch_scatter<ring::SumI32>(p, st);
   }
 }

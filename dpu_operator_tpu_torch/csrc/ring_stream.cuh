@@ -52,12 +52,15 @@
 // protocol then fails the launch instead of hanging the card.
 //
 // The host side, at the end: `Ring` (what a ring kernel's launch carries),
-// `make_ring` (it from the C arguments) and `launch_ring`, the one
-// cooperative launcher that every kernel built on these primitives uses
-// (the ring collectives, ring attention, the all-to-all).
+// `make_ring` (it from the C arguments), `make_rank` (a CTA's `Rank` from
+// it) and `launch_ring`, the one cooperative launcher that every kernel
+// built on these primitives uses (the ring collectives, ring attention,
+// the all-to-all, the collective matmuls).
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -250,19 +253,72 @@ __device__ void run_ring_stream(const Rank& r, Consumer& consume) {
 // of 2 and 3 grant no credit; a ring of 1 must not come here (the
 // reduction is the identity, and the loop would add an unwritten slot).
 //
-// Within a rank every CTA owns the same stripe of every buffer at every
-// step: `produce`, the fold, the send and `finish` all cut a block into
-// the units of `copy_stripe<Raw>` (16 bytes where pointers and size
-// allow, else one value), so one stripe's produce -> fold -> send runs in
-// one CTA's program order, behind its __syncthreads(). Only the two
+// Within a rank every CTA owns the same part of every buffer at every
+// step: `produce`, the fold, the send and `finish` all cut a block by one
+// ownership map, the `Stripe`, so one part's produce -> fold -> send runs
+// in one CTA's program order, behind its __syncthreads(). Only the two
 // cross-rank events (a block has landed, a slot is free) go through the
-// rank's arrival counters. The caller keeps that promise by giving every
-// buffer a 16-byte-aligned base and blocks of whole values.
+// rank's arrival counters. A `Stripe` has `copy(dst, src)` and
+// `add(dst, a, b)` (dst = a + b) over this CTA's part of a block; the
+// caller's `produce` and `finish` write exactly that part. The ring
+// collectives' map is `ByteStripe`, copy_stripe's units; the matmul
+// reduce-scatter's is a map of output tiles, the tile product's own
+// (`collective_matmul.cu`).
 //
-// `Sum::Raw` is a value's bit pattern (unsigned short or unsigned int)
-// and `Sum::add(a, b)` the sum in the payload's own type, rounded there
-// at every hop as the reference's scratch of the input's type rounds.
-// The adds run in a fixed order, so a result is the same on every call.
+// A `Sum` has `Raw`, a value's bit pattern (unsigned short or unsigned
+// int), and `add(a, b)`, the sum in the payload's own type, rounded there
+// at every hop as the reference's scratch of the input's type rounds. The
+// adds run in a fixed order, so a result is the same on every call.
+
+// Sums in the payload's own type, on bit patterns.
+struct SumF32 {
+  using Raw = unsigned int;
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
+    return __float_as_uint(__fadd_rn(__uint_as_float(a), __uint_as_float(b)));
+  }
+};
+
+struct SumI32 {
+  using Raw = unsigned int;  // two's complement: wraps as int32 does
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) { return a + b; }
+};
+
+// bf16 and f16: the exact operands added in f32 and rounded once to the
+// type, to nearest even, which is PyTorch's own bf16 and f16 add.
+struct SumBF16 {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
+    const float fa = __uint_as_float(static_cast<unsigned>(a) << 16);
+    const float fb = __uint_as_float(static_cast<unsigned>(b) << 16);
+    return __bfloat16_as_ushort(__float2bfloat16_rn(__fadd_rn(fa, fb)));
+  }
+};
+
+struct SumF16 {
+  using Raw = unsigned short;
+  static __device__ __forceinline__ Raw add(Raw a, Raw b) {
+    const float fa = __half2float(__ushort_as_half(a));
+    const float fb = __half2float(__ushort_as_half(b));
+    return __half_as_ushort(__float2half_rn(__fadd_rn(fa, fb)));
+  }
+};
+
+// a + b lane by lane over one 16-byte unit of Sum's values.
+template <class Sum>
+__device__ __forceinline__ uint4 add_unit(uint4 a, uint4 b) {
+  using Raw = typename Sum::Raw;
+  constexpr int kLanes = 16 / static_cast<int>(sizeof(Raw));
+  union Vec {
+    uint4 v;
+    Raw lane[kLanes];
+  };
+  Vec x, y;
+  x.v = a;
+  y.v = b;
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) x.lane[j] = Sum::add(x.lane[j], y.lane[j]);
+  return x.v;
+}
 
 // dst = a + b over this CTA's stripe; the units of copy_stripe<Raw>.
 template <class Sum>
@@ -270,29 +326,17 @@ __device__ __forceinline__ void add_stripe(char* dst, const char* a,
                                            const char* b, long long bytes,
                                            int cta, int ctas) {
   using Raw = typename Sum::Raw;
-  constexpr int kLanes = 16 / static_cast<int>(sizeof(Raw));
   const long long first = static_cast<long long>(cta) * blockDim.x +
                           threadIdx.x;
   const long long stride = static_cast<long long>(ctas) * blockDim.x;
   if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(a) |
         reinterpret_cast<uintptr_t>(b) | static_cast<uintptr_t>(bytes)) &
        15) == 0) {
-    union Vec {
-      uint4 v;
-      Raw lane[kLanes];
-    };
     const uint4* pa = reinterpret_cast<const uint4*>(a);
     const uint4* pb = reinterpret_cast<const uint4*>(b);
     uint4* d = reinterpret_cast<uint4*>(dst);
     for (long long i = first; i < bytes / 16; i += stride) {
-      Vec x, y;
-      x.v = __ldcg(pa + i);
-      y.v = __ldcg(pb + i);
-#pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        x.lane[j] = Sum::add(x.lane[j], y.lane[j]);
-      }
-      __stcg(d + i, x.v);
+      __stcg(d + i, add_unit<Sum>(__ldcg(pa + i), __ldcg(pb + i)));
     }
   } else {
     const Raw* pa = reinterpret_cast<const Raw*>(a);
@@ -305,15 +349,32 @@ __device__ __forceinline__ void add_stripe(char* dst, const char* a,
   }
 }
 
+// The ring collectives' ownership map: copy_stripe's units of a block of
+// `bytes` (16 bytes where pointers and size allow, else one value). The
+// caller keeps its promise by giving every buffer a 16-byte-aligned base
+// and blocks of whole values.
+template <class Sum>
+struct ByteStripe {
+  long long bytes;
+  int cta, ctas;
+  __device__ __forceinline__ void copy(char* dst, const char* src) const {
+    copy_stripe<typename Sum::Raw>(dst, src, bytes, cta, ctas);
+  }
+  __device__ __forceinline__ void add(char* dst, const char* a,
+                                      const char* b) const {
+    add_stripe<Sum>(dst, a, b, bytes, cta, ctas);
+  }
+};
+
 // The protocol, run by every CTA of every rank of a ring of n >= 2.
 // `send` is this rank's [2][block_bytes] of send buffers. All threads of
-// the CTA call `produce(idx, dst)`, which writes this CTA's stripe of
-// the rank's contribution to row-block idx into dst, and
-// `finish(a, b)`, which stores this CTA's stripe of a + b where the
+// the CTA call `produce(idx, dst)`, which writes this CTA's part (by
+// `stripe`) of the rank's contribution to row-block idx into dst, and
+// `finish(a, b)`, which stores this CTA's part of a + b where the
 // completed block goes. `r.local` is not used.
-template <class Sum, class Produce, class Finish>
-__device__ void run_rs_ring(const Rank& r, char* send, Produce& produce,
-                            Finish& finish) {
+template <class Stripe, class Produce, class Finish>
+__device__ void run_rs_ring(const Rank& r, char* send, const Stripe& stripe,
+                            Produce& produce, Finish& finish) {
   const unsigned long long tag = r.epoch * kTagSteps;
   arrive(&r.me->bar_arrive, r.ctas, [&] {
     raise_flag(&r.left->bar_from_right, tag);
@@ -329,15 +390,13 @@ __device__ void run_rs_ring(const Rank& r, char* send, Produce& produce,
     char* next = send + ((k + 1) & 1) * r.block_bytes;
     const char* arrival = r.my_slots + ((k + 1) & 1) * r.block_bytes;
     if (k > 1) wait_flag(&r.me->credit, tag + k - 1);  // the target is free
-    copy_stripe<typename Sum::Raw>(
-        r.right_slots + ((k + 1) & 1) * r.block_bytes, cur, r.block_bytes,
-        r.cta, r.ctas);
+    stripe.copy(r.right_slots + ((k + 1) & 1) * r.block_bytes, cur);
     arrive(&r.me->send_arrive[k & 1], r.ctas,
            [&] { raise_flag(&r.right->recv, tag + k + 1); });
     produce((r.my_id - k - 2 + 2 * r.n) % r.n, next);
     wait_flag(&r.me->recv, tag + k + 1);  // this step's arrival has landed
     if (k < r.n - 2) {
-      add_stripe<Sum>(next, next, arrival, r.block_bytes, r.cta, r.ctas);
+      stripe.add(next, next, arrival);
       __syncthreads();
     }
     if (k < r.n - 3) {
@@ -382,6 +441,30 @@ inline bool make_ring(Ring& g, void* flags, const long long* right,
     }
   }
   return true;
+}
+
+// The Rank of CTA `cta` of ring `g`'s rank `rank`, whose blocks travel to
+// `down` and come from `up` (dir +1: towards higher positions), on the
+// flag words `flags` ([n]) and the slots `slots` ([n][2][block_bytes]).
+__device__ __forceinline__ Rank make_rank(const Ring& g, int rank, int cta,
+                                          int dir, int down, int up,
+                                          Flags* flags, char* slots,
+                                          long long block_bytes) {
+  Rank r;
+  r.my_id = rank;
+  r.dir = dir;
+  r.n = g.n;
+  r.ctas = g.ctas;
+  r.cta = cta;
+  r.epoch = g.epoch;
+  r.block_bytes = block_bytes;
+  r.local = nullptr;
+  r.my_slots = slots + 2 * rank * block_bytes;
+  r.right_slots = slots + 2 * down * block_bytes;
+  r.me = flags + rank;
+  r.left = flags + up;
+  r.right = flags + down;
+  return r;
 }
 
 // The CTAs a rank wants for copies of `block_bytes`.

@@ -6,5 +6,8 @@ kernels share the bf16 tile product of ``tile_mma``, and the
 sequence-parallel ring attention (``ring_attention``), whose kernel runs
 on the ring-stream protocol (``ring_probe``, ``csrc/ring_stream.cuh``),
 the fabric probe's collectives (``ring_probe``: ring all-gather, ring
-reduce-scatter, all-to-all) and Ulysses attention (``ulysses_attention``),
-whose four exchanges are the all-to-all."""
+reduce-scatter, all-to-all), Ulysses attention (``ulysses_attention``),
+whose four exchanges are the all-to-all, and the tensor-parallel
+collective matmuls (``collective_matmul``: ``make_allgather_matmul``,
+``make_matmul_reduce_scatter``), whose kernels run the tile product of
+``csrc/tile_product.cuh`` inside the ring protocols."""

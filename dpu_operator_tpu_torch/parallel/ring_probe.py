@@ -490,10 +490,11 @@ def _ring_setup(mesh: Mapping[str, int], axis: str, kernel: Optional[str],
     return int(mesh[axis]), device, kernel
 
 
-def _on(device: torch.device, x: torch.Tensor, owner: str) -> None:
-    if x.device != device:
-        raise ValueError(f"x is on {x.device}; this {owner} runs on "
-                         f"{device}")
+def _on(device: torch.device, owner: str, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}; this {owner} runs "
+                             f"on {device}")
 
 
 def make_ring_all_gather(mesh: Mapping[str, int], axis: str = "sp", *,
@@ -516,7 +517,7 @@ def make_ring_all_gather(mesh: Mapping[str, int], axis: str = "sp", *,
     impl = ring_all_gather_cuda if kernel == "cuda" else ring_all_gather_plain
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        _on(device, x, "ring all-gather")
+        _on(device, "ring all-gather", x=x)
         return impl(x, n, bidirectional)[0]
 
     return fn
@@ -536,7 +537,7 @@ def make_ring_reduce_scatter(mesh: Mapping[str, int], axis: str = "sp", *,
             else ring_reduce_scatter_plain)
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        _on(device, x, "ring reduce-scatter")
+        _on(device, "ring reduce-scatter", x=x)
         return impl(x, n)
 
     return fn
@@ -556,7 +557,7 @@ def make_all_to_all(mesh: Mapping[str, int], axis: str = "sp", *,
     impl = all_to_all_cuda if kernel == "cuda" else all_to_all_plain
 
     def fn(x: torch.Tensor) -> torch.Tensor:
-        _on(device, x, "all-to-all")
+        _on(device, "all-to-all", x=x)
         return impl(x, n)
 
     return fn

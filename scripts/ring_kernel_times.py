@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Device times of the port's ring kernels in one source tree, on one card.
+"""Device times of the port's ring and tile kernels in one source tree, on
+one card.
 
     python3 scripts/ring_kernel_times.py [TREE]
 
@@ -10,8 +11,11 @@ used, so two trees timed in turns in one command (parent, change, change,
 parent) compare on the same card. Prints one JSON line: ms of the one-way
 and the bidirectional ring all-gather at the probe's 16 MiB, of the ring
 reduce-scatter at 16 MiB a rank, of ring attention at S = 32768 f32 causal
-(8 ranks sharing the card), and of the all-to-all at 16 MiB where the tree
-has it, with the card's name and power limit. Needs a CUDA card.
+(8 ranks sharing the card), of the all-to-all at 16 MiB where the tree
+has it, and of the tile kernels at the health/bench path's shapes (the
+burn chain at 1024^2, the burn tile at 2048^2, the matmul at 4096^3 with
+the full-K route's blocks), with the card's name and power limit. Needs a
+CUDA card.
 """
 
 import json
@@ -25,6 +29,8 @@ sys.path.insert(0, tree)
 import torch  # noqa: E402
 
 import chip_smoke as c  # noqa: E402
+from dpu_operator_tpu_torch.parallel import burn, fabric_probe  # noqa: E402
+from dpu_operator_tpu_torch.parallel import mxu_bench  # noqa: E402
 from dpu_operator_tpu_torch.parallel import ring_attention as ra  # noqa: E402
 from dpu_operator_tpu_torch.parallel import ring_probe as rp  # noqa: E402
 
@@ -51,6 +57,13 @@ def main() -> int:
     if hasattr(rp, "all_to_all_cuda"):
         out["all_to_all_ms"] = c.time_ms(
             torch, lambda: rp.all_to_all_cuda(x, n), n=10, warm=2)
+    hx, hw = fabric_probe.burn_example_args(device="cuda")
+    out["burn_chain_ms"] = c.time_ms(torch, lambda: burn.burn_chain(hx, hw))
+    tx, tw = c.randn_pair(torch, 2048, 2048, seed=1)
+    out["burn_tile_ms"] = c.time_ms(torch, lambda: burn.burn_tile(tx, tw))
+    mx, mw = c.randn_pair(torch, 4096, 4096, seed=3)
+    out["matmul_ms"] = c.time_ms(
+        torch, lambda: mxu_bench.pallas_matmul(mx, mw, 1024, 256, 4096))
     out["card"] = c.card_line()
     print(json.dumps(out), flush=True)
     return 0

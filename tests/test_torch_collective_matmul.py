@@ -1,0 +1,373 @@
+"""The port's collective matmuls against the JAX package's.
+
+The same seeded numpy inputs go through the reference's
+``make_allgather_matmul`` / ``make_matmul_reduce_scatter`` on the 8-device
+virtual CPU mesh (their XLA paths in-process; their Pallas kernels in
+interpret mode in a subprocess, as the reference's own tests run them) and
+through the port's entry points with ``device="cpu"``, whose wrappers run
+the plain versions for tensors on the CPU.
+
+Bars:
+  * f32 port against the reference's XLA paths: ``rtol=1e-5, atol=1e-6``.
+    Both take f32 products of the same blocks and, in the reduce-scatter,
+    sum them in f32; they differ by the order of the sums only (the
+    reference's own bar against numpy is ``1e-4``);
+  * the overlapped form against the naive one: ``rtol=1e-6``, the
+    reference's own bar between the two;
+  * bf16 reduce-scatter against the reference's: at most 1 bf16 ulp. Both
+    keep the whole reduction in f32 and round once;
+  * against the reference's Pallas kernels in interpret mode: the bars of
+    ``tests/test_collective_matmul.py`` between those kernels and its XLA
+    paths, with the f32 ``atol=1e-6`` above beside the all-gather's
+    ``rtol=1e-5``: a product that sums to nearly 0 in another order is
+    off by more than 1e-5 of itself (3e-7 absolute, seen).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from dpu_operator_tpu.parallel import collective_matmul as ref
+from dpu_operator_tpu_torch.parallel import burn
+from dpu_operator_tpu_torch.parallel import collective_matmul as cm
+from dpu_operator_tpu_torch.parallel import ring_probe as rp
+from virtual_mesh import REPO, run_virtual
+
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-5, 1e-6
+AXES = ("dp", "sp", "tp")
+
+
+def _mesh(shape):
+    devices = np.array(jax.devices()[:int(np.prod(shape))])
+    return Mesh(devices.reshape(shape), axis_names=AXES)
+
+
+def _put(mesh, a, spec, dtype=jnp.float32):
+    return jax.device_put(jnp.asarray(a).astype(dtype),
+                          NamedSharding(mesh, spec))
+
+
+def _ag_inputs(n, seed):
+    """The reference test's shapes: x [2n, 16], w [16, 8n]."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(2 * n, 16).astype(np.float32),
+            rng.randn(16, 8 * n).astype(np.float32))
+
+
+def _rs_inputs(n, seed):
+    """The reference test's shapes: x [2n, 8n], w [8n, 16]."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(2 * n, 8 * n).astype(np.float32),
+            rng.randn(8 * n, 16).astype(np.float32))
+
+
+def _ref_ag(shape, x, w, overlap=True):
+    mesh = _mesh(shape)
+    fn = ref.make_allgather_matmul(mesh, "tp", use_pallas=False,
+                                   overlap=overlap)
+    return np.asarray(fn(_put(mesh, x, P("tp", None)),
+                         _put(mesh, w, P(None, "tp"))))
+
+
+def _ref_rs(shape, x, w, dtype=jnp.float32):
+    mesh = _mesh(shape)
+    fn = ref.make_matmul_reduce_scatter(mesh, "tp", use_pallas=False)
+    out = fn(_put(mesh, x, P(None, "tp"), dtype),
+             _put(mesh, w, P("tp", None), dtype))
+    return np.array(out.astype(jnp.float32))
+
+
+def _port(make, shape, x, w, dtype=torch.float32, **kw):
+    fn = make(dict(zip(AXES, shape)), "tp", device="cpu", **kw)
+    return fn(torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype))
+
+
+# -- all-gather matmul ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("shape", [(1, 1, 8), (2, 1, 4), (4, 1, 2)])
+def test_allgather_matmul_matches_reference_xla(shape, overlap):
+    n = shape[2]
+    x, w = _ag_inputs(n, seed=n)
+    got = _port(cm.make_allgather_matmul, shape, x, w, overlap=overlap)
+    assert got.shape == (2 * n, 8 * n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _ref_ag(shape, x, w, overlap),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), x.astype(np.float64) @ w,
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_allgather_matmul_overlapped_matches_naive(n):
+    """The ring's block placement (``(r - k) mod n``) and its rotation are
+    what the naive gather-then-product does not share."""
+    x, w = _ag_inputs(n, seed=10 + n)
+    fused = _port(cm.make_allgather_matmul, (1, 1, n), x, w)
+    naive = _port(cm.make_allgather_matmul, (1, 1, n), x, w, overlap=False)
+    np.testing.assert_allclose(fused.numpy(), naive.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+def test_allgather_matmul_every_ring_size(n, dtype):
+    """Every ring size against the numpy product; in bf16 every block is
+    one f32 product rounded once, as the naive form's."""
+    x, w = _ag_inputs(n, seed=20 + n)
+    xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
+    got = cm.ag_matmul_plain(xt, wt, n)
+    assert got.dtype == dtype and got.shape == (2 * n, 8 * n)
+    exact = xt.double() @ wt.double()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    else:
+        assert burn.bf16_ulps(got, exact.to(dtype)) <= 1.0
+        assert burn.bf16_ulps(got, cm.ag_matmul_naive(xt, wt)) <= 1.0
+
+
+def test_allgather_matmul_places_each_block():
+    """Rank r's columns hold every block's product: a wrong source index
+    or a missed rotation would repeat or drop a block."""
+    n = 4
+    x = torch.arange(2 * n, dtype=torch.float32).repeat_interleave(3).view(
+        2 * n, 3)
+    w = torch.ones((3, 2 * n))
+    got = cm.ag_matmul_plain(x, w, n)
+    want = 3 * torch.arange(2 * n, dtype=torch.float32)[:, None].expand(
+        2 * n, 2 * n)
+    assert torch.equal(got, want)
+
+
+# -- matmul reduce-scatter ------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 8), (2, 1, 4)])
+def test_matmul_reduce_scatter_matches_reference_xla(shape):
+    n = shape[2]
+    x, w = _rs_inputs(n, seed=30 + n)
+    got = _port(cm.make_matmul_reduce_scatter, shape, x, w)
+    assert got.shape == (2 * n, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), _ref_rs(shape, x, w), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), x.astype(np.float64) @ w,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_matmul_reduce_scatter_bf16_matches_reference_within_one_ulp():
+    """The reference test's bf16 case on the widest ring: [16, 64] @
+    [64, 16], n = 8. Both keep the reduction in f32 and round once."""
+    rng = np.random.RandomState(40)
+    x = rng.randn(16, 64).astype(np.float32)
+    w = rng.randn(64, 16).astype(np.float32)
+    got = _port(cm.make_matmul_reduce_scatter, (1, 1, 8), x, w,
+                dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    want = torch.from_numpy(_ref_rs((1, 1, 8), x, w, jnp.bfloat16)).to(
+        torch.bfloat16)
+    assert burn.bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+def test_matmul_reduce_scatter_every_ring_size(n, dtype):
+    x, w = _rs_inputs(n, seed=50 + n)
+    xt, wt = torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(dtype)
+    got = cm.mm_rs_plain(xt, wt, n)
+    assert got.dtype == dtype and got.shape == (2 * n, 16)
+    exact = xt.double() @ wt.double()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    else:
+        assert burn.bf16_ulps(got, exact.to(dtype)) <= 1.0
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_matmul_reduce_scatter_sums_f32_partials_in_the_rings_order(n):
+    """The partials are f32 whatever the input type, summed by the ring's
+    own plain version, and rounded once at the end."""
+    x, w = _rs_inputs(n, seed=60 + n)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    wt = torch.from_numpy(w).to(torch.bfloat16)
+    kn = x.shape[1] // n
+    parts = torch.cat([xt[:, r * kn:(r + 1) * kn].float()
+                       @ wt[r * kn:(r + 1) * kn].float() for r in range(n)])
+    want = rp.ring_reduce_scatter_plain(parts, n).to(torch.bfloat16)
+    assert torch.equal(cm.mm_rs_plain(xt, wt, n), want)
+
+
+# -- the composed tensor-parallel pair ------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 8), (2, 1, 4)])
+def test_tensor_parallel_mlp_pair(shape):
+    """Y = RS(relu(AG(X) @ W1) @ W2): the first one's output sharding is
+    the second one's input sharding. Port against the reference's
+    composition and against the dense numpy product."""
+    n = shape[2]
+    rng = np.random.RandomState(70 + n)
+    X = rng.randn(2 * n, 16).astype(np.float32)
+    W1 = rng.randn(16, 8 * n).astype(np.float32)
+    W2 = rng.randn(8 * n, 16).astype(np.float32)
+    mesh = dict(zip(AXES, shape))
+    ag = cm.make_allgather_matmul(mesh, "tp", device="cpu")
+    rs = cm.make_matmul_reduce_scatter(mesh, "tp", device="cpu")
+    got = rs(torch.relu(ag(torch.from_numpy(X), torch.from_numpy(W1))),
+             torch.from_numpy(W2)).numpy()
+    jm = _mesh(shape)
+    h = ref.make_allgather_matmul(jm, "tp", use_pallas=False)(
+        _put(jm, X, P("tp", None)), _put(jm, W1, P(None, "tp")))
+    want = np.asarray(ref.make_matmul_reduce_scatter(
+        jm, "tp", use_pallas=False)(jax.nn.relu(h),
+                                    _put(jm, W2, P("tp", None))))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-5)
+    dense = np.maximum(X.astype(np.float64) @ W1, 0) @ W2
+    np.testing.assert_allclose(got, dense, rtol=1e-4, atol=1e-4)
+
+
+# -- errors, devices, kernel selection ------------------------------------------
+
+
+def test_cuda_wrappers_on_cpu_run_the_plain_versions():
+    x, w = (torch.from_numpy(a) for a in _ag_inputs(4, seed=80))
+    x2, w2 = (torch.from_numpy(a) for a in _rs_inputs(4, seed=81))
+    before = (cm.ag_matmul_cuda.launches, cm.mm_rs_cuda.launches)
+    assert torch.equal(cm.ag_matmul_cuda(x, w, 4), cm.ag_matmul_plain(x, w, 4))
+    assert torch.equal(cm.mm_rs_cuda(x2, w2, 4), cm.mm_rs_plain(x2, w2, 4))
+    assert torch.equal(cm.mm_rs_cuda(x2, w2, 1), cm.mm_rs_plain(x2, w2, 1))
+    assert before == (cm.ag_matmul_cuda.launches, cm.mm_rs_cuda.launches)
+
+
+def test_shapes_that_do_not_divide_raise():
+    with pytest.raises(ValueError, match="matmul-reduce-scatter rows 6 must "
+                                         "divide by axis size 4"):
+        cm.mm_rs_plain(torch.zeros(6, 8), torch.zeros(8, 2), 4)
+    with pytest.raises(ValueError, match="matmul-reduce-scatter rows 6 must "
+                                         "divide by axis size 4"):
+        cm.make_matmul_reduce_scatter({"tp": 4}, device="cpu")(
+            torch.zeros(6, 8), torch.zeros(8, 2))
+    with pytest.raises(ValueError, match="contraction 6 must divide"):
+        cm.mm_rs_cuda(torch.zeros(8, 6), torch.zeros(6, 2), 4)
+    with pytest.raises(ValueError, match="must divide by axis size 4"):
+        cm.ag_matmul_plain(torch.zeros(6, 8), torch.zeros(8, 4), 4)
+    with pytest.raises(ValueError, match="must divide by axis size 4"):
+        cm.make_allgather_matmul({"tp": 4}, overlap=False, device="cpu")(
+            torch.zeros(8, 8), torch.zeros(8, 6))
+    with pytest.raises(ValueError, match=r"x \[B, K\] @ w \[K, F\]"):
+        cm.ag_matmul_plain(torch.zeros(8, 8), torch.zeros(4, 8), 2)
+
+
+def test_overlap_false_has_no_kernel():
+    """The reference's rule: the kernel is inherently overlapped, so the
+    naive baseline never runs it."""
+    with pytest.raises(ValueError, match="overlap=False has no cuda form "
+                                         r"\(the kernel is inherently "
+                                         r"overlapped\)"):
+        cm.make_allgather_matmul({"tp": 2}, overlap=False, kernel="cuda",
+                                 device="cpu")
+    fn = cm.make_allgather_matmul({"tp": 2}, overlap=False, device="cpu")
+    x, w = (torch.from_numpy(a) for a in _ag_inputs(2, seed=82))
+    assert torch.equal(fn(x, w), cm.ag_matmul_naive(x, w))
+
+
+@pytest.mark.parametrize("make", [cm.make_allgather_matmul,
+                                  cm.make_matmul_reduce_scatter])
+def test_kernel_and_device_selection(make):
+    with pytest.raises(ValueError, match="CUDA"):
+        make({"tp": 2}, kernel="cuda", device="cpu")
+    with pytest.raises(ValueError, match="kernel"):
+        make({"tp": 2}, kernel="xla", device="cpu")
+    with pytest.raises(ValueError, match="axis"):
+        make({"sp": 2}, device="cpu")
+    fn = make({"tp": 2}, device="cpu")
+    with pytest.raises(ValueError, match="w is on meta"):
+        fn(torch.zeros(4, 4), torch.zeros(4, 4, device="meta"))
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make({"tp": 2})
+
+
+# -- against the Pallas kernels in interpret mode -------------------------------
+
+
+def test_plain_versions_match_pallas_kernels_in_interpret_mode(tmp_path):
+    """The reference's two Pallas kernels, executed in interpret mode at
+    the shapes of its own test on the widest ring, (1, 1, 8): the
+    all-gather matmul, the matmul reduce-scatter, and the reduce-scatter
+    in bf16. (Its other meshes, (2, 1, 4) and (1, 4, 2), would double the
+    subprocess's ~25 s; the in-process tests above cover them.)"""
+    meshes = ((1, 1, 8),)
+    rng = np.random.RandomState(90)
+    inputs = {}
+    for shape in meshes:
+        n = shape[2]
+        tag = "x".join(map(str, shape))
+        inputs[f"x_{tag}"] = rng.randn(2 * n, 16).astype(np.float32)
+        inputs[f"w_{tag}"] = rng.randn(16, 8 * n).astype(np.float32)
+        inputs[f"x2_{tag}"] = rng.randn(2 * n, 8 * n).astype(np.float32)
+        inputs[f"w2_{tag}"] = rng.randn(8 * n, 16).astype(np.float32)
+    inputs["xb"] = rng.randn(16, 64).astype(np.float32)
+    inputs["wb"] = rng.randn(64, 16).astype(np.float32)
+    src = tmp_path / "in.npz"
+    dst = tmp_path / "out.npz"
+    np.savez(src, **inputs)
+    r = run_virtual(
+        "import sys; sys.path.insert(0, %r)\n"
+        "import numpy as np, jax, jax.numpy as jnp\n"
+        "from jax.sharding import Mesh, NamedSharding, PartitionSpec as P\n"
+        "from jax.experimental.pallas import tpu as pltpu\n"
+        "from dpu_operator_tpu.parallel.collective_matmul import (\n"
+        "    make_allgather_matmul, make_matmul_reduce_scatter)\n"
+        "a = np.load(%r)\n"
+        "def put(mesh, v, spec, dt=jnp.float32):\n"
+        "    return jax.device_put(jnp.asarray(v).astype(dt),\n"
+        "                          NamedSharding(mesh, spec))\n"
+        "out = {}\n"
+        "with pltpu.force_tpu_interpret_mode():\n"
+        "    for shape in %r:\n"
+        "        tag = 'x'.join(map(str, shape))\n"
+        "        mesh = Mesh(np.array(jax.devices()).reshape(shape),\n"
+        "                    axis_names=('dp', 'sp', 'tp'))\n"
+        "        fn = make_allgather_matmul(mesh, 'tp', use_pallas=True)\n"
+        "        out['ag_' + tag] = np.asarray(fn(\n"
+        "            put(mesh, a['x_' + tag], P('tp', None)),\n"
+        "            put(mesh, a['w_' + tag], P(None, 'tp'))))\n"
+        "        fn = make_matmul_reduce_scatter(mesh, 'tp', use_pallas=True)\n"
+        "        out['rs_' + tag] = np.asarray(fn(\n"
+        "            put(mesh, a['x2_' + tag], P(None, 'tp')),\n"
+        "            put(mesh, a['w2_' + tag], P('tp', None))))\n"
+        "    mesh = Mesh(np.array(jax.devices()).reshape(1, 1, 8),\n"
+        "                axis_names=('dp', 'sp', 'tp'))\n"
+        "    fn = make_matmul_reduce_scatter(mesh, 'tp', use_pallas=True)\n"
+        "    out['rs_bf16'] = np.asarray(fn(\n"
+        "        put(mesh, a['xb'], P(None, 'tp'), jnp.bfloat16),\n"
+        "        put(mesh, a['wb'], P('tp', None), jnp.bfloat16)\n"
+        "        ).astype(jnp.float32))\n"
+        "np.savez(%r, **out)\n" % (REPO, str(src), meshes, str(dst)))
+    assert r.returncode == 0, r.stdout + r.stderr
+    got = np.load(dst)
+    for shape in meshes:
+        n = shape[2]
+        tag = "x".join(map(str, shape))
+        ag = cm.ag_matmul_plain(torch.from_numpy(inputs[f"x_{tag}"]),
+                                torch.from_numpy(inputs[f"w_{tag}"]), n)
+        np.testing.assert_allclose(ag.numpy(), got[f"ag_{tag}"], rtol=RTOL,
+                                   atol=ATOL)
+        rs = cm.mm_rs_plain(torch.from_numpy(inputs[f"x2_{tag}"]),
+                            torch.from_numpy(inputs[f"w2_{tag}"]), n)
+        np.testing.assert_allclose(rs.numpy(), got[f"rs_{tag}"], rtol=1e-4,
+                                   atol=1e-4)
+    rsb = cm.mm_rs_plain(torch.from_numpy(inputs["xb"]).to(torch.bfloat16),
+                         torch.from_numpy(inputs["wb"]).to(torch.bfloat16), 8)
+    want = torch.from_numpy(got["rs_bf16"]).to(torch.bfloat16)
+    assert burn.bf16_ulps(rsb, want) <= 1.0
+    np.testing.assert_allclose(rsb.float().numpy(), got["rs_bf16"],
+                               rtol=1e-2, atol=1e-2)

@@ -37,7 +37,8 @@ def test_library_name_follows_source_headers_and_flags(tmp_path,
     assert cuda_build.library_path("kern") != third
 
 
-RING_SOURCES = ["ring_attn", "ring_collectives", "all_to_all"]
+RING_SOURCES = ["ring_attn", "ring_collectives", "all_to_all",
+                "collective_matmul"]
 
 
 @pytest.mark.parametrize("name", RING_SOURCES)
@@ -68,3 +69,33 @@ def test_ring_sources_share_the_headers_launcher(name):
     assert "ring::launch_ring(" in src
     assert "cudaLaunchCooperativeKernel" not in src
     assert "int launch_ring(" not in src and "struct Ring {" not in src
+
+
+TILE_SOURCES = ["tile_mma", "collective_matmul"]
+
+
+@pytest.mark.parametrize("name", TILE_SOURCES)
+def test_tile_sources_rebuild_when_the_product_header_changes(
+        name, tmp_path, monkeypatch):
+    """Every matmul kernel multiplies with the one tile product of
+    ``tile_product.cuh``: an edit to it must give each a new library."""
+    real = cuda_build.CSRC_DIR
+    assert '#include "tile_product.cuh"' in (real / f"{name}.cu").read_text()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(real, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    first = cuda_build.library_path(name)
+    with open(csrc / "tile_product.cuh", "a") as f:
+        f.write("// edited\n")
+    assert cuda_build.library_path(name) != first
+
+
+@pytest.mark.parametrize("form", ["void tile_product", "struct Smem",
+                                  "void load_stage", "wmma::mma_sync",
+                                  "cp.async.cg.shared.global"])
+def test_only_the_header_defines_the_tile_product(form):
+    """The tile product lives once: no source keeps a copy of its own
+    staging, shared-memory layout or tensor-core loop."""
+    assert form in (cuda_build.CSRC_DIR / "tile_product.cuh").read_text()
+    for src in sorted(cuda_build.CSRC_DIR.glob("*.cu")):
+        assert form not in src.read_text(), src.name

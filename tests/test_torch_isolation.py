@@ -50,7 +50,8 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "parallel.burn", "parallel.mxu_bench", "parallel.bench_gpu",
                 "parallel.fabric_probe", "parallel.tile_mma",
                 "parallel.ring_attention", "parallel.ring_probe",
-                "parallel.ulysses_attention", "parallel.mesh", "device",
+                "parallel.ulysses_attention", "parallel.collective_matmul",
+                "parallel.mesh", "device",
                 "cuda_build"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
