@@ -76,9 +76,12 @@ Phases, each of which raises on failure:
                and of a Ulysses call with
                the exchanges' share of it.
  11. tp-mlp  — the collective matmuls (all-gather matmul, matmul
-               reduce-scatter). Small rings (n 1, 2, 3, 4, 5, 8 at the
-               reference tests' shapes, one shape off every tile edge, f32
-               and bf16) against the plain versions; n = 1 of the
+               reduce-scatter). The bf16 kernels (TMA-fed wgmma) built
+               with no spills (ptxas). Small rings (n 1, 2, 3, 4, 5, 8 at
+               the reference tests' shapes, one shape off every tile edge,
+               f32 and bf16; in bf16 also a contraction a rank that is no
+               multiple of the K step and three or more products a CTA a
+               ring step) against the plain versions; n = 1 of the
                reduce-scatter launches nothing; rows that are no whole
                16-byte units and ``overlap=False`` with the kernel raise.
                Then the tensor-parallel MLP pair of the served model
@@ -94,7 +97,9 @@ Phases, each of which raises on failure:
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
-its path, max error, times, bound); the last line is
+its path, max error, times, bound; the collective matmuls' records give
+f32 under the contract's keys and bf16 under the same keys prefixed
+``bf16_``); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -253,6 +258,19 @@ TP_REPEATS = 20
 CM_RINGS = (1, 2, 3, 4, 5, 8)
 CM_OFF_GRID = ((3, 600, 136, 600), (8, 1600, 136, 1600))
 CM_RS_OFF_GRID = ((3, 600, 216, 200), (8, 1600, 576, 200))
+# Cases aimed at the bf16 wgmma product (K steps of 64; tiles of 128 x
+# 256, one CTA an SM, in the all-gather; 128 x 128, two CTAs an SM, in the
+# reduce-scatter), as (n, rows, k, f, reduce_scatter): the reduce-scatter
+# with 424-row blocks, kn = 200 (no multiple of 64; the next rank's
+# contraction lies past it) and f = 4000 (no multiple of 128), 4 x 32
+# tiles a block over at most 2 * 132 // 8 = 33 CTAs a rank on an H100, so
+# every CTA runs three or four products a ring step, the mbarrier phases
+# carried from one to the next; the all-gather with 1536-row shards, k =
+# 200 and 1000 columns a rank, 12 x 4 tiles a block over at most 16 CTAs.
+CM_WGMMA_CASES = ((8, 8 * 424, 8 * 200, 4000, True),
+                  (8, 8 * 1536, 200, 8 * 1000, False))
+# CTAs an SM of each bf16 kernel (its shared memory), and its tile.
+CM_WGMMA_TILES = {False: (1, 128, 256), True: (2, 128, 128)}
 # Kernel vs plain: in f32 both sum the same exact products in another
 # order (FMA tiles over k vs cuBLAS), so max |a - b| <= 1e-5 * max |b|; in
 # bf16 both round an f32 value that differs by that reordering once: 1
@@ -1541,6 +1559,42 @@ def cm_case(torch, cm, burn, tag, x, w, n, reduce_scatter):
     return got, err, bar
 
 
+def ptxas_entries(text):
+    """{kernel's mangled name: (registers, spill store bytes, spill load
+    bytes)} from an ``nvcc -Xptxas -v`` report."""
+    out, name, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            spills = (int(words[words.index("spill") - 2]),
+                      int(words[words.index("loads") - 3]))
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            out[name] = (int(words[words.index("registers") - 1]),) + spills
+            name, spills = None, (0, 0)
+    return out
+
+
+def check_wgmma_build(cuda_build):
+    """The bf16 collective-matmul kernels as ptxas reported them in this
+    run: no spills. Returns a line for the log."""
+    text = cuda_build.build_logs.get("collective_matmul")
+    if text is None:
+        return ("ptxas report not in this run (the library was built "
+                "earlier in this checkout)")
+    bf16 = {name: regs for name, regs in ptxas_entries(text).items()
+            if "bfloat16" in name}
+    check(len(bf16) == 2, f"tp-mlp: ptxas reported {sorted(bf16)}")
+    for name, (regs, stores, loads) in bf16.items():
+        check(stores == 0 and loads == 0,
+              f"tp-mlp {name}: {stores} B spill stores, {loads} B loads")
+    return ", ".join(
+        f"{'ag_matmul' if 'ag_matmul' in name else 'mm_rs'} bf16 {regs} "
+        f"registers, 0 spills" for name, (regs, _, _) in sorted(bf16.items()))
+
+
 def tp_weights(torch, dtype, seed):
     """x [TP_B, TP_D] ~ N(0, 1), w1 ~ N(0, 1/TP_D), w2 ~ N(0, 1/TP_H):
     every sum stays O(1). Drawn on the card in f32, cast."""
@@ -1559,9 +1613,12 @@ def phase_tp_mlp(torch, card):
     then the main path (the tensor-parallel MLP pair at full width, counts
     set to 0 just before), each kernel against its plain version and the
     pair against the dense product, 20 repeats bitwise equal, and times."""
+    from dpu_operator_tpu_torch import cuda_build
     from dpu_operator_tpu_torch.parallel import burn
     from dpu_operator_tpu_torch.parallel import collective_matmul as cm
 
+    log(f"tp-mlp ptxas: {check_wgmma_build(cuda_build)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda")
     gen.manual_seed(50)
 
@@ -1575,15 +1632,28 @@ def phase_tp_mlp(torch, card):
                  + [(n, 2 * n, 8 * n, 16, True) for n in CM_RINGS]
                  + [c + (False,) for c in CM_OFF_GRID]
                  + [c + (True,) for c in CM_RS_OFF_GRID]
-                 + [(8, 16, 64, 16, True)])
+                 + [(8, 16, 64, 16, True)]
+                 + (list(CM_WGMMA_CASES) if dtype == torch.bfloat16
+                    else []))
         for n, rows, k, f, reduce_scatter in cases:
             what = "matmul reduce-scatter" if reduce_scatter else \
                 "all-gather matmul"
             tag = f"tp-mlp {what} n={n} [{rows}, {k}] @ [{k}, {f}] {name}"
             _, err, bar = cm_case(torch, cm, burn, tag, rand(rows, k, dtype),
                                   rand(k, f, dtype), n, reduce_scatter)
+            extra = ""
+            if (n, rows, k, f, reduce_scatter) in CM_WGMMA_CASES:
+                per_sm, bm, bn = CM_WGMMA_TILES[reduce_scatter]
+                cols = f if reduce_scatter else f // n
+                tiles = math.ceil(rows // n / bm) * math.ceil(cols / bn)
+                ctas = min(tiles, per_sm * sms // n)
+                products = tiles // ctas
+                check(products >= 3, f"{tag}: {products} products a CTA")
+                extra = (f"; {tiles} tiles of {bm} x {bn} a block over "
+                         f"{ctas} CTAs a rank: at least {products} products "
+                         f"a CTA a ring step")
             log(f"{tag}: == plain within the bar, max |err| {err:.3e} "
-                f"({bar})")
+                f"({bar}){extra}")
     for fn, x, w in ((cm.ag_matmul_cuda, rand(16, 6, torch.float32),
                       rand(6, 16, torch.float32)),
                      (cm.mm_rs_cuda, rand(16, 24, torch.bfloat16),
@@ -1697,6 +1767,7 @@ def phase_tp_mlp(torch, card):
                 f"{max(t_ops, t_bytes):.4f} ms ({flops} flop, {nbytes} B; "
                 f"{n} ranks share the card: the relay is a copy within its "
                 f"memory) [{card}]")
+            bound_by = "operations" if t_ops >= t_bytes else "bytes"
             if dtype == torch.float32:
                 records.append(dict(
                     name=key, route="cuda",
@@ -1705,8 +1776,15 @@ def phase_tp_mlp(torch, card):
                              f":{line}",
                     launches=launches[key], max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                    library_ms=library_ms))
+                    bound_by=bound_by, library_ms=library_ms))
+            else:
+                # The record of the f32 instance carries the bf16 one's
+                # numbers beside its own (the launches count both).
+                rec = next(r for r in records if r["name"] == key)
+                rec.update(bf16_max_abs_err=err, bf16_ms=ms,
+                           bf16_plain_ms=plain_ms,
+                           bf16_bound_ms=max(t_ops, t_bytes),
+                           bf16_bound_by=bound_by, bf16_library_ms=library_ms)
         del got, h, relu_h
         torch.cuda.empty_cache()
     del inputs

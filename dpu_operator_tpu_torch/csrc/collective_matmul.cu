@@ -37,23 +37,41 @@
 // fold and `finish` walk that CTA's tiles, the tiles its products wrote.
 // No flag or barrier is added.
 //
-// Products: bf16 operands on the tensor cores (wmma, 128 x 128 tiles, f32
-// accumulate), f32 operands on the FMA pipes in f32 (64 x 64 tiles, a
-// 4 x 4 patch a thread), both with tails, so chunk, k / n, f / n and f need
-// not divide by a tile. The wrapper checks that every row the kernels read
-// or write is whole 16-byte units (cp.async moves 16 bytes).
+// Products: bf16 operands on `tile_product_wgmma` (TMA into a ring of
+// swizzled stages, wgmma.mma_async, f32 accumulate, a 64-row half of the
+// tile per warpgroup), f32 operands on the FMA pipes in f32 (64 x 64
+// tiles, a 4 x 4 patch a thread), both with tails, so chunk, k / n, f / n
+// and f need not divide by a tile. The bf16 tile is each kernel's own,
+// the faster of the two widths for it when both were timed at the MLP's
+// shapes on an H100: the all-gather matmul takes 128 x 256 (four stages,
+// one CTA an SM), the reduce-scatter 128 x 128 (three stages, two CTAs an
+// SM), whose f32 partials are copied and folded by the same CTAs and go
+// faster with twice as many (`PERF.md` §6). The wrapper checks that
+// every row the kernels read or write is whole 16-byte units (cp.async
+// moves 16 bytes; a tensor map's strides are multiples of 16 bytes).
+//
+// bf16 operands are read through tensor maps that the host encodes for
+// each call from `parallel/collective_matmul.py` `tma_views` (3-D views,
+// so that every K extent is a dimension's own and TMA zero-fills past
+// it): kernel 11's x as (k, chunk, n), its slots as (k, chunk, 2n), w as
+// (f / n, n, k); kernel 12's x as (k / n, n, rows) and w as (f, k / n, n),
+// innermost first. They travel in the kernel's parameters, which are
+// __grid_constant__: a by-value parameter whose address is taken would be
+// copied to local memory, where TMA cannot read a map.
 //
 // What bounds them: operations. At the tensor-parallel MLP's shapes
 // (x [4096, 4096] @ w1 [4096, 8192]; relu(h) [4096, 8192] @ w2
 // [8192, 4096]; n = 8) each does 2.7e11 flop against 168 MB (bf16) or
-// 336 MB (f32) of operands and output, 800-1600 flop a byte. This
-// first version multiplies with wmma from two cp.async stages, not wgmma
-// fed by TMA. With every rank on one card, the relay that the product
+// 336 MB (f32) of operands and output, 800-1600 flop a byte: 0.2779 ms at
+// the bf16 peak. With every rank on one card, the relay that the product
 // hides is a copy within that card's memory, never a link.
 //
 // Layout: one cooperative launch (`ring::launch_ring`) of n x G CTAs of
 // 256 threads; G is the output tiles of one block, capped by what the
-// card holds at once with the product's shared memory.
+// card holds at once with the product's shared memory (bf16 all-gather:
+// one CTA an SM, 16 a rank at n = 8 on an H100's 132 SMs, and at the
+// MLP's shapes 4 x 4 tiles a block, one a CTA a step; bf16
+// reduce-scatter: 33 a rank, 4 x 32 tiles a block).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,41 +86,75 @@ using tile::bf16;
 static_assert(tile::kThreads == ring::kThreads,
               "one CTA size for the ring and the tile product");
 
-// The tile product for operands of type T, and its epilogue that stores T.
-template <typename T>
+// The tile product for operands of type T, and its epilogue that stores T;
+// kWide is the bf16 tile's width (f32 has one tile). `State` is what a CTA
+// keeps from one product to the next (its shared memory; for bf16 the
+// mbarrier ring's place too), made once per launch by `begin`; `Operand`
+// is how a product names A or B.
+template <typename T, int kWide>
 struct Product;
 
-template <>
-struct Product<bf16> {
-  static constexpr int BM = 128, BN = 128;
-  using Smem = tile::Smem<BM, BN>;
+template <int kWide>
+struct Product<bf16, kWide> {
+  static constexpr bool kTma = true;
+  static constexpr int BM = tile::kWgBM, BN = kWide;
+  static constexpr int kStages = BN == 256 ? 4 : 3;
+  using Smem = tile::SmemWgmma<BN, kStages>;
   using Store = tile::StoreBf16<false>;
+  using Operand = tile::TmaOperand;
+  struct State {
+    Smem& sm;
+    tile::WgmmaPipe pipe;
+  };
+  // Dynamic shared memory is placed on 16 bytes: room to move up to 1024.
+  static constexpr size_t kSmemBytes = sizeof(Smem) + alignof(Smem);
+  static __device__ State begin(unsigned char* raw) {
+    const uintptr_t at = (reinterpret_cast<uintptr_t>(raw) + alignof(Smem) -
+                          1) & ~static_cast<uintptr_t>(alignof(Smem) - 1);
+    Smem& sm = *reinterpret_cast<Smem*>(at);
+    tile::wgmma_init(sm);
+    return State{sm, {}};
+  }
   template <class E>
-  static __device__ __forceinline__ void run(Smem& sm, const bf16* a,
-                                             long long lda, const bf16* b,
-                                             long long ldb, int m, int n,
+  static __device__ __forceinline__ void run(State& st, const Operand& a,
+                                             const Operand& b, int m, int n,
                                              int k, int row0, int col0,
                                              const E& out) {
-    tile::tile_product<BM, BN, true>(sm, a, lda, b, ldb, m, n, k, row0, col0,
-                                     out);
+    tile::tile_product_wgmma(st.sm, st.pipe, a, b, m, n, k, row0, col0, out);
   }
 };
 
-template <>
-struct Product<float> {
+template <int kWide>
+struct Product<float, kWide> {
+  static constexpr bool kTma = false;
   static constexpr int BM = tile::kF32Tile, BN = tile::kF32Tile;
   using Smem = tile::SmemF32;
   using Store = tile::StoreF32;
+  struct Operand {
+    const float* p;
+    long long ld;  // row stride
+  };
+  struct State {
+    Smem& sm;
+  };
+  static constexpr size_t kSmemBytes = sizeof(Smem);
+  static __device__ State begin(unsigned char* raw) {
+    return State{*reinterpret_cast<Smem*>(raw)};
+  }
   template <class E>
-  static __device__ __forceinline__ void run(Smem& sm, const float* a,
-                                             long long lda, const float* b,
-                                             long long ldb, int m, int n,
+  static __device__ __forceinline__ void run(State& st, const Operand& a,
+                                             const Operand& b, int m, int n,
                                              int k, int row0, int col0,
                                              const E& out) {
-    tile::tile_product_f32<true>(sm, a, lda, b, ldb, m, n, k, row0, col0,
-                                 out);
+    tile::tile_product_f32<true>(st.sm, a.p, a.ld, b.p, b.ld, m, n, k, row0,
+                                 col0, out);
   }
 };
+
+template <typename T>
+using AgProduct = Product<T, 256>;
+template <typename T>
+using RsProduct = Product<T, 128>;
 
 // BM x BN tiles of a [rows, cols] block, tile t owned by CTA t mod ctas.
 // Also `run_rs_ring`'s stripe for an f32 block of rows of whole 16-byte
@@ -177,6 +229,8 @@ struct AgParams {
   void* y;        // [n * chunk, f]: rank r's columns r * f / n ..
   char* slots;    // [n][2][chunk, k] of x's type
   int chunk, k, f;
+  // bf16: x by shard, the slots by slot, w by rank (`tma_views`).
+  tile::TmaView x_view, slot_view, w_view;
 };
 
 // y[idx * chunk .., rank's columns] = T(block @ w[:, rank's columns]) for
@@ -185,27 +239,39 @@ template <typename T>
 struct AgConsumer {
   const AgParams& p;
   int rank, cta;
-  typename Product<T>::Smem& sm;
+  typename AgProduct<T>::State& st;
 
   __device__ void operator()(int, int idx, const char* block) const {
-    using P = Product<T>;
+    using P = AgProduct<T>;
     const int fn = p.f / p.ring.n;
-    const T* a = reinterpret_cast<const T*>(block);
-    const T* b = static_cast<const T*>(p.w) + static_cast<long long>(rank) * fn;
+    typename P::Operand a, b;
+    if constexpr (P::kTma) {
+      // The block in hand is the rank's own shard, read in place, or a
+      // slot of this rank's.
+      const long long bb = static_cast<long long>(p.chunk) * p.k * sizeof(T);
+      const long long off = block - p.slots;
+      a = off >= 0 && off < 2 * p.ring.n * bb
+              ? tile::TmaOperand{&p.slot_view, static_cast<int>(off / bb), 0}
+              : tile::TmaOperand{&p.x_view, idx, 0};
+      b = tile::TmaOperand{&p.w_view, rank, 0};
+    } else {
+      a = {reinterpret_cast<const T*>(block), p.k};
+      b = {static_cast<const T*>(p.w) + static_cast<long long>(rank) * fn, p.f};
+    }
     const typename P::Store out{
         static_cast<T*>(p.y) + static_cast<long long>(idx) * p.chunk * p.f +
             static_cast<long long>(rank) * fn,
         p.f};
     TileMap<P::BM, P::BN>{p.chunk, fn, cta, p.ring.ctas}.each_tile(
         [&](int r0, int c0) {
-          P::run(sm, a, p.k, b, p.f, p.chunk, fn, p.k, r0, c0, out);
+          P::run(st, a, b, p.chunk, fn, p.k, r0, c0, out);
         });
   }
 };
 
 template <typename T>
 __global__ void __launch_bounds__(ring::kThreads)
-    ag_matmul_kernel(AgParams p) {
+    ag_matmul_kernel(const __grid_constant__ AgParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Ring& g = p.ring;
   const int rank = blockIdx.x / g.ctas;
@@ -214,18 +280,18 @@ __global__ void __launch_bounds__(ring::kThreads)
   ring::Rank r = ring::make_rank(g, rank, cta, 1, g.right[rank], g.left[rank],
                                  g.flags, p.slots, bb);
   r.local = static_cast<const char*>(p.x) + rank * bb;
-  AgConsumer<T> consume{
-      p, rank, cta, *reinterpret_cast<typename Product<T>::Smem*>(smem)};
+  typename AgProduct<T>::State st = AgProduct<T>::begin(smem);
+  AgConsumer<T> consume{p, rank, cta, st};
   ring::run_ring_stream(r, consume);
 }
 
 template <typename T>
 int launch_ag(AgParams& p, cudaStream_t stream) {
-  using P = Product<T>;
+  using P = AgProduct<T>;
   return ring::launch_ring(
       ag_matmul_kernel<T>, p, p.ring.ctas, p.ring.n,
-      TileMap<P::BM, P::BN>::count(p.chunk, p.f / p.ring.n),
-      sizeof(typename P::Smem), stream);
+      TileMap<P::BM, P::BN>::count(p.chunk, p.f / p.ring.n), P::kSmemBytes,
+      stream);
 }
 
 // -- matmul reduce-scatter -----------------------------------------------------
@@ -238,13 +304,16 @@ struct RsParams {
   char* send;     // [n][2][chunk, f] f32
   char* recv;     // [n][2][chunk, f] f32, written by the left neighbour
   int chunk, k, f;
+  // bf16: x and w by rank, each K extent k / n (`tma_views`).
+  tile::TmaView x_view, w_view;
 };
 
 template <typename T>
-__global__ void __launch_bounds__(ring::kThreads) mm_rs_kernel(RsParams p) {
-  using P = Product<T>;
+__global__ void __launch_bounds__(ring::kThreads)
+    mm_rs_kernel(const __grid_constant__ RsParams p) {
+  using P = RsProduct<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  typename P::Smem& sm = *reinterpret_cast<typename P::Smem*>(smem);
+  typename P::State st = P::begin(smem);
   const Ring& g = p.ring;
   const int rank = blockIdx.x / g.ctas;
   const int cta = blockIdx.x % g.ctas;
@@ -252,16 +321,25 @@ __global__ void __launch_bounds__(ring::kThreads) mm_rs_kernel(RsParams p) {
   const ring::Rank r = ring::make_rank(g, rank, cta, 1, g.right[rank],
                                        g.left[rank], g.flags, p.recv, bb);
   const int kn = p.k / g.n;
-  const T* x = static_cast<const T*>(p.x) + static_cast<long long>(rank) * kn;
-  const T* w = static_cast<const T*>(p.w) +
-               static_cast<long long>(rank) * kn * p.f;
   const TileMap<P::BM, P::BN> stripe{p.chunk, p.f, cta, g.ctas};
   // This CTA's tiles of the f32 product of row-block idx, into dst.
   auto produce = [&](int idx, char* dst) {
-    const T* a = x + static_cast<long long>(idx) * p.chunk * p.k;
+    typename P::Operand a, b;
+    if constexpr (P::kTma) {
+      a = tile::TmaOperand{&p.x_view, rank, idx * p.chunk};
+      b = tile::TmaOperand{&p.w_view, rank, 0};
+    } else {
+      a = {static_cast<const T*>(p.x) +
+               static_cast<long long>(idx) * p.chunk * p.k +
+               static_cast<long long>(rank) * kn,
+           p.k};
+      b = {static_cast<const T*>(p.w) +
+               static_cast<long long>(rank) * kn * p.f,
+           p.f};
+    }
     const tile::StoreF32 out{reinterpret_cast<float*>(dst), p.f};
     stripe.each_tile([&](int r0, int c0) {
-      P::run(sm, a, p.k, w, p.f, p.chunk, p.f, kn, r0, c0, out);
+      P::run(st, a, b, p.chunk, p.f, kn, r0, c0, out);
     });
   };
   T* result = static_cast<T*>(p.y) + static_cast<long long>(rank) * p.chunk * p.f;
@@ -280,10 +358,10 @@ __global__ void __launch_bounds__(ring::kThreads) mm_rs_kernel(RsParams p) {
 
 template <typename T>
 int launch_rs(RsParams& p, cudaStream_t stream) {
-  using P = Product<T>;
+  using P = RsProduct<T>;
   return ring::launch_ring(mm_rs_kernel<T>, p, p.ring.ctas, p.ring.n,
                            TileMap<P::BM, P::BN>::count(p.chunk, p.f),
-                           sizeof(typename P::Smem), stream);
+                           P::kSmemBytes, stream);
 }
 
 }  // namespace
@@ -297,19 +375,27 @@ int launch_rs(RsParams& p, cudaStream_t stream) {
 // live across calls (zeroed once); epoch grows by at least one from one
 // call to the next on the same flags. right[r] and left[r] are rank r's
 // neighbours on the ring. f is the row length (leading dimension) of w
-// and y.
+// and y. views (bf16 only; f32 passes none) holds tile::kViewValues values
+// for each tensor map the kernel reads, in the order `tma_views` gives.
 
 // y [n * chunk, f] = AllGather(x [n * chunk, k]) @ w [k, f], rank r's
 // columns f / n wide; slots is scratch of 2 * n * chunk * k values of x's
 // type. 1 <= n <= 8.
+// Views: x, slots, w.
 extern "C" int ag_matmul_launch(const void* x, const void* w, void* y,
                                 void* slots, void* flags,
                                 const long long* right, const long long* left,
-                                int n, int chunk, int k, int f, int dtype,
+                                const long long* views, int n, int chunk,
+                                int k, int f, int dtype,
                                 unsigned long long epoch, void* stream) {
   AgParams p;
   if (!ring::make_ring(p.ring, flags, right, left, n, 1, epoch) ||
-      dtype < 0 || dtype > 1 || chunk < 1 || k < 1 || f < n || f % n) {
+      dtype < 0 || dtype > 1 || chunk < 1 || k < 1 || f < n || f % n ||
+      (dtype == 1 &&
+       (views == nullptr ||
+        !tile::encode_view(p.x_view, x, views) ||
+        !tile::encode_view(p.slot_view, slots, views + tile::kViewValues) ||
+        !tile::encode_view(p.w_view, w, views + 2 * tile::kViewValues)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.x = x;
@@ -328,14 +414,18 @@ extern "C" int ag_matmul_launch(const void* x, const void* w, void* y,
 // ring's order and rounded once; send and recv are f32 scratch of
 // 2 * n * chunk * f values each. 2 <= n <= 8: a ring of one is a plain
 // product and the caller's.
+// Views: x, w.
 extern "C" int mm_rs_launch(const void* x, const void* w, void* y, void* send,
                             void* recv, void* flags, const long long* right,
-                            const long long* left, int n, int chunk, int k,
-                            int f, int dtype, unsigned long long epoch,
-                            void* stream) {
+                            const long long* left, const long long* views,
+                            int n, int chunk, int k, int f, int dtype,
+                            unsigned long long epoch, void* stream) {
   RsParams p;
   if (!ring::make_ring(p.ring, flags, right, left, n, 2, epoch) ||
-      dtype < 0 || dtype > 1 || chunk < 1 || k < n || k % n || f < 1) {
+      dtype < 0 || dtype > 1 || chunk < 1 || k < n || k % n || f < 1 ||
+      (dtype == 1 &&
+       (views == nullptr || !tile::encode_view(p.x_view, x, views) ||
+        !tile::encode_view(p.w_view, w, views + tile::kViewValues)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.x = x;

@@ -6,7 +6,7 @@
 // where and as its caller wants: bf16, through tanh for the health burn
 // (`tile_mma.cu`); the operands' own type (the all-gather matmul of
 // `collective_matmul.cu`); f32 partial sums (its matmul reduce-scatter).
-// Two forms, one per operand type:
+// Three forms:
 //
 //   * bf16, `tile_product`: a loop over K in steps of kBK = 32; the A and B
 //     tiles of a step are staged in shared memory by cp.async, two stages
@@ -19,28 +19,33 @@
 //     product on the FMA pipes in f32 (never TF32): 64 x 64 tiles, each
 //     thread a register-blocked 4 x 4 patch (rows ty * 4 .., columns
 //     tx * 4 ..) fed from shared memory as float4, one 16-byte load of A
-//     and one of B feeding 16 FMAs. The epilogue gets 4 neighbours of a row.
+//     and one of B feeding 16 FMAs. The epilogue gets 4 neighbours of a row;
+//   * bf16 on Hopper's own path, `tile_product_wgmma`: operands brought in
+//     by TMA through a ring of mbarrier-guarded stages and multiplied by
+//     wgmma.mma_async; its note is at the form, further down.
 //
-// Tails. With kTails, M, N and K need not be multiples of the tile: a
-// 16-byte unit of an operand that lies outside it is zero-filled (cp.async
-// with a source size of 0) and the epilogue is called only for groups that
-// lie inside C. The caller guarantees that every row of A, B and C that
-// the product reads or writes, and every row stride, is a whole number of
-// 16-byte units, so that a unit (and a group of 8 bf16 or 4 f32 outputs)
-// is wholly inside or wholly outside. Without kTails the loop is
-// unpredicated and the caller guarantees that M and N are multiples of the
-// tile and K of the step.
+// Tails of the cp.async forms. With kTails, M, N and K need not be
+// multiples of the tile: a 16-byte unit of an operand that lies outside it
+// is zero-filled (cp.async with a source size of 0) and the epilogue is
+// called only for groups that lie inside C. The caller guarantees that
+// every row of A, B and C that the product reads or writes, and every row
+// stride, is a whole number of 16-byte units, so that a unit (and a group
+// of 8 bf16 or 4 f32 outputs) is wholly inside or wholly outside. Without
+// kTails the loop is unpredicated and the caller guarantees that M and N
+// are multiples of the tile and K of the step.
 //
-// Operands are read with cp.async.cg, through L2 only: a ring kernel's
-// operand may be a slot that a CTA on another SM has just written, and L1
-// is not coherent across SMs.
+// The cp.async forms read operands with cp.async.cg, through L2 only: a
+// ring kernel's operand may be a slot that a CTA on another SM has just
+// written, and L1 is not coherent across SMs. (TMA reads through L2 too.)
 //
 // Shared memory is the caller's: a `Smem` or an `SmemF32` on a 128-byte
-// boundary, static or dynamic. The product leaves it free for the next call
-// (every stage is read before the loop's last barrier).
+// boundary, static or dynamic, or a `SmemWgmma` on a 1024-byte one. The
+// product leaves it free for the next call (every stage is read before the
+// loop's last barrier).
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its encoder's types; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -338,6 +343,506 @@ __device__ void tile_product_f32(SmemF32& sm, const float* A, long long lda,
       out(row, col, v);
     }
   }
+}
+
+// -- bf16 on wgmma, fed by TMA -----------------------------------------------
+//
+// Serves the bf16 instances of TPU kernels 11 and 12 (parallel/
+// collective_matmul.py of the JAX package: `_pallas_ag_matmul`,
+// `_pallas_mm_rs`), through `collective_matmul.cu`. What bounds them is
+// operations: at the tensor-parallel MLP's shapes each does 2.749e11 flop,
+// 0.2779 ms at the H100's 989 TFLOP/s bf16 peak, against 168 MB of operands
+// and output. The wmma form above reached 124 (all-gather matmul) and 81
+// (reduce-scatter) TFLOP/s there (NVIDIA H100 80GB HBM3, 700 W): mma.sync
+// fed by per-thread cp.async two stages deep cannot keep Hopper's tensor
+// cores busy. So this form uses the two mechanisms that can:
+//
+//   * TMA. One thread asks for a whole A tile (BM x 64, one box) and the B
+//     tile (64 x BN, BN / 64 boxes of 64 columns) of a K step; the copy
+//     lands in shared memory in the 128-byte swizzle that wgmma reads, and
+//     completes on the stage's `full` mbarrier, which carries the bytes.
+//     kStages stages are in flight. A stage is refilled once all eight
+//     warps have arrived on its `empty` mbarrier, after their wgmma reads
+//     of it have retired;
+//   * wgmma.mma_async, bf16 x bf16 -> f32, both operands from shared
+//     memory: A K-major (row-major [M, K]), B MN-major (row-major [K, N],
+//     the descriptor's transpose bit). The CTA's two warpgroups each own 64
+//     rows of the tile and keep their 64 x BN accumulator in registers; one
+//     K step's four k16 products run while the previous step's retire
+//     (wait_group 1).
+//
+// Operands are tensor maps with three coordinates (`TmaView`): a coordinate
+// that runs along K, one along the tile's rows (A) or columns (B), and one
+// that picks a part (a rank's shard, a ring slot, a rank's slice of the
+// contraction). Tails are TMA's: a box reaching past a dimension's extent
+// is zero-filled, so a K extent that ends inside a tensor (kernel 12's
+// contraction of k / n) is its own dimension, and the epilogue masks rows
+// and columns outside C. The views are computed on the host
+// (`parallel/collective_matmul.py` `tma_views`) and encoded per call.
+//
+// The mbarrier ring is the CTA's for the whole launch: a `WgmmaPipe` counts
+// the K steps consumed and each `empty` barrier's phase, so the products a
+// CTA runs one after another (several per ring step) carry the phases on.
+// A wait that is not released after kWaitLimitNs traps: a wrong phase fails
+// the launch instead of hanging the card.
+//
+// Epilogue: after the last wait_group 0 the stages are idle; the
+// accumulators go there as an f32 tile (rows padded to BN + 8 floats), and
+// each thread hands 8 neighbours of a row to `out`, as the other forms do.
+//
+// Generic writes by other CTAs (a ring slot) are read here by TMA, through
+// the async proxy: the thread that issues the loads fences the proxies
+// (fence.proxy.async.global) after the caller's acquire and before its
+// first load; the epilogue's generic use of the stages is fenced likewise
+// (fence.proxy.async.shared::cta) before the next product's loads.
+
+constexpr int kWgBM = 128;      // two warpgroups of 64 rows
+constexpr int kWgBK = 64;       // K of one stage: one 128-byte swizzled row
+constexpr int kWgPanel = 64;    // B columns of one TMA box (128 bytes)
+constexpr unsigned long long kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
+
+// A stage: the A tile (BM rows of 128 bytes), then the B tile as BN / 64
+// panels of 64 K rows of 128 bytes. Every part starts on 1024 bytes, the
+// swizzle's period, so the descriptors need no base offset.
+template <int BN>
+struct WgStage {
+  static constexpr int kABytes = kWgBM * kWgBK * 2;
+  static constexpr int kPanelBytes = kWgBK * kWgPanel * 2;
+  static constexpr int kBytes = kABytes + BN / kWgPanel * kPanelBytes;
+  static constexpr int kLd = BN + 8;  // f32 staging row: 8 banks apart
+};
+
+template <int BN, int kStages>
+struct alignas(1024) SmemWgmma {
+  unsigned char stage[kStages][WgStage<BN>::kBytes];
+  unsigned long long full[kStages];   // the stage's TMA bytes have landed
+  unsigned long long empty[kStages];  // every warp is done reading it
+};
+
+// The mbarrier ring's place, the same in every thread of the CTA.
+struct WgmmaPipe {
+  unsigned used = 0;       // K steps this CTA has consumed, all products
+  unsigned empty_par = 0;  // bit s: parity of empty[s]'s next completion
+};
+
+// One operand's tensor map (`tma_views`' coordinate roles: which of the
+// three runs along K, along the tile, over the parts). In a kernel's
+// parameters, declared __grid_constant__: TMA reads the map where it is.
+struct alignas(64) TmaView {
+  CUtensorMap map;
+  int kdim, tdim, pdim;
+};
+
+// An operand of one product: part `part` of `view`, its tile coordinate
+// starting at `tile0` (the product adds its row0 or col0).
+struct TmaOperand {
+  const TmaView* view;
+  int part, tile0;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(unsigned long long* bar,
+                                              unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long clock_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Returns once the phase of parity `parity` has completed; traps after
+// kWaitLimitNs.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const unsigned long long t0 = clock_ns();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock_ns() - t0 > kWaitLimitNs) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            unsigned long long* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box of `op` at K offset k0 and tile offset t, into dst.
+__device__ __forceinline__ void tma_box(void* dst, const TmaOperand& op,
+                                        unsigned long long* bar, int k0,
+                                        int t) {
+  const TmaView& v = *op.view;
+  int c[3];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    c[d] = (d == v.kdim ? k0 : 0) + (d == v.tdim ? op.tile0 + t : 0) +
+           (d == v.pdim ? op.part : 0);
+  }
+  tma_load_3d(dst, &v.map, bar, c[0], c[1], c[2]);
+}
+
+// A shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, unsigned lbo,
+                                               unsigned sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator registers across a wgmma
+// that is still in flight.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[0..64) += A (64 x 16, K-major) @ B (16 x 128, MN-major), both
+// read from shared memory through their descriptors.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[0..128) += A (64 x 16, K-major) @ B (16 x 256, MN-major), both
+// read from shared memory through their descriptors.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Thread 0: the TMA loads of K step k0 into stage s, on its full barrier.
+template <int BN, int kStages>
+__device__ __forceinline__ void wg_load(SmemWgmma<BN, kStages>& sm, int s,
+                                        const TmaOperand& a,
+                                        const TmaOperand& b, int row0,
+                                        int col0, int k0) {
+  using St = WgStage<BN>;
+  mbar_expect_tx(&sm.full[s], St::kBytes);
+  tma_box(sm.stage[s], a, &sm.full[s], k0, row0);
+#pragma unroll
+  for (int p = 0; p < BN / kWgPanel; ++p) {
+    tma_box(sm.stage[s] + St::kABytes + p * St::kPanelBytes, b, &sm.full[s],
+            k0, col0 + p * kWgPanel);
+  }
+}
+
+// Once per launch, by all threads, before the first product.
+template <int BN, int kStages>
+__device__ void wgmma_init(SmemWgmma<BN, kStages>& sm) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// out(C[row0:row0+kWgBM, col0:col0+BN] = A @ B over K) for the operands
+// `a` (rows along its tile coordinate) and `b` (columns along its). M and
+// N mask the epilogue; K ends the loop, and TMA zero-fills past the views'
+// extents. All threads of the CTA call it, the same products in the same
+// order, with the one `pipe`.
+template <int BN, int kStages, class Epilogue>
+__device__ void tile_product_wgmma(SmemWgmma<BN, kStages>& sm,
+                                   WgmmaPipe& pipe, const TmaOperand& a,
+                                   const TmaOperand& b, int M, int N, int K,
+                                   int row0, int col0, const Epilogue& out) {
+  static_assert(kThreads == 256, "two consumer warpgroups");
+  static_assert(BN == 128 || BN == 256, "a wgmma width");
+  using St = WgStage<BN>;
+  static_assert(kWgBM * St::kLd * 4 <= kStages * St::kBytes,
+                "the f32 tile fits in the stages");
+  const int nk = (K + kWgBK - 1) / kWgBK;
+  const int wg = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  const unsigned base = pipe.used;
+
+  if (threadIdx.x == 0) {
+    // Ring slots were written by other CTAs' generic stores and released
+    // to this thread by the caller's acquire: order them before the
+    // async proxy's reads.
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    for (int j = 0; j < nk && j < kStages; ++j) {
+      wg_load(sm, (base + j) % kStages, a, b, row0, col0, j * kWgBK);
+    }
+  }
+  __syncwarp();
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nk; ++j) {
+    const unsigned u = base + j;
+    const int s = u % kStages;
+    mbar_wait(&sm.full[s], (u / kStages) & 1);
+    const unsigned char* st = sm.stage[s];
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) {
+      // A: this warpgroup's 64 rows, k16 slice kk (32 bytes into each
+      // swizzled row; 8-row groups 1024 bytes apart). B: K rows
+      // 16 kk .. of every panel (panels St::kPanelBytes apart).
+      const uint64_t da =
+          sw128_desc(st + wg * (kWgBM / 2) * 128 + kk * 32, 16, 1024);
+      const uint64_t db = sw128_desc(st + St::kABytes + kk * 16 * 128,
+                                     St::kPanelBytes, 1024);
+      if constexpr (BN == 256) {
+        wgmma_m64n256k16(acc, da, db);
+      } else {
+        wgmma_m64n128k16(acc, da, db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products have retired
+    fence_regs(acc);
+    const int refill = j - 1 + kStages;  // the K step for that stage
+    if (j >= 1 && refill < nk) {
+      const int sp = (u - 1) % kStages;
+      if (lane == 0) mbar_arrive(&sm.empty[sp]);
+      if (threadIdx.x == 0) {
+        mbar_wait(&sm.empty[sp], (pipe.empty_par >> sp) & 1);
+        wg_load(sm, sp, a, b, row0, col0, refill * kWgBK);
+      }
+      __syncwarp();
+      pipe.empty_par ^= 1u << sp;
+    }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  pipe.used = base + nk;
+
+  // Epilogue through the idle stages: acc's fragment order (thread t of
+  // warpgroup wg: warp w = t / 32 within it, rows wg * 64 + w * 16 +
+  // lane / 4 (+ 8), columns 8 g + 2 (lane % 4) (+ 1) of group g).
+  __syncthreads();  // both warpgroups are done with every stage
+  float* tile = reinterpret_cast<float*>(sm.stage[0]);
+  {
+    const int r = wg * 64 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+    const int c = 2 * (lane % 4);
+#pragma unroll
+    for (int g = 0; g < BN / 8; ++g) {
+      *reinterpret_cast<float2*>(tile + r * St::kLd + 8 * g + c) =
+          make_float2(acc[4 * g], acc[4 * g + 1]);
+      *reinterpret_cast<float2*>(tile + (r + 8) * St::kLd + 8 * g + c) =
+          make_float2(acc[4 * g + 2], acc[4 * g + 3]);
+    }
+  }
+  __syncthreads();
+  constexpr int kGroups = BN / 8;  // groups of 8 in a tile row
+  for (int e = threadIdx.x; e < kWgBM * kGroups; e += kThreads) {
+    const int r = e / kGroups, c8 = e % kGroups * 8;
+    const int row = row0 + r, col = col0 + c8;
+    if (row < M && col < N) {
+      const float* at = tile + r * St::kLd + c8;
+      const float4 lo = *reinterpret_cast<const float4*>(at);
+      const float4 hi = *reinterpret_cast<const float4*>(at + 4);
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      out(row, col, v);
+    }
+  }
+  // The stages go back to TMA: order this thread's generic accesses
+  // before the next product's async-proxy writes.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// -- host: a view's tensor map -----------------------------------------------
+
+// cuTensorMapEncodeTiled, resolved through the runtime so that no source
+// links libcuda.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Values of one view, as `tma_views` lays them out: extents (3, innermost
+// first, in elements), strides of dimensions 1 and 2 (bytes), the box (3),
+// the roles of the three coordinates (0 K, 1 tile, 2 part).
+constexpr int kViewValues = 11;
+
+// `out` = the bf16 view `v` of the tensor at `base`, in the 128-byte
+// swizzle, zero-filled out of bounds. False where the view is refused.
+inline bool encode_view(TmaView& out, const void* base, const long long* v) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(v[0]),
+                              static_cast<cuuint64_t>(v[1]),
+                              static_cast<cuuint64_t>(v[2])};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(v[3]),
+                                 static_cast<cuuint64_t>(v[4])};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(v[5]),
+                             static_cast<cuuint32_t>(v[6]),
+                             static_cast<cuuint32_t>(v[7])};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  out.kdim = out.tdim = out.pdim = -1;
+  for (int d = 0; d < 3; ++d) {
+    int& slot = v[8 + d] == 0 ? out.kdim : v[8 + d] == 1 ? out.tdim : out.pdim;
+    if (v[8 + d] < 0 || v[8 + d] > 2 || slot >= 0) return false;
+    slot = d;
+  }
+  return encode(&out.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tile

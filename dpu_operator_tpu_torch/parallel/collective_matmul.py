@@ -31,9 +31,10 @@ Each kernel has its plain versions and a wrapper:
     ``csrc/collective_matmul.cu`` (built for ``sm_90a`` at first use)
     that holds every rank of the ring on the tensors' card: the ring
     protocols of ``csrc/ring_stream.cuh`` with the tile product of
-    ``csrc/tile_product.cuh`` inside. Given tensors on the CPU they run
-    the plain version; on a CUDA tensor they launch the kernel or raise.
-    ``.launches`` counts their launches.
+    ``csrc/tile_product.cuh`` inside (bf16: TMA-fed wgmma, its operands
+    read through the tensor-map views of ``tma_views``; f32: FMA tiles).
+    Given tensors on the CPU they run the plain version; on a CUDA tensor
+    they launch the kernel or raise. ``.launches`` counts their launches.
 
 ``make_allgather_matmul`` and ``make_matmul_reduce_scatter`` are the
 entry points, on whole tensors. **The ranks of a ring share one card**,
@@ -44,7 +45,7 @@ link's.
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,6 +54,74 @@ from .ring_probe import (_kernel_input, _launch, _on, _ring_setup,
 
 #: The kernels' operand types and their codes in ``csrc/collective_matmul.cu``.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The bf16 tile product's TMA boxes (``csrc/tile_product.cuh``,
+#: ``tile_product_wgmma``): A tiles of WG_BM rows, K steps of WG_BK (one
+#: 128-byte swizzled row), B loaded WG_PANEL columns a box.
+WG_BM, WG_BK, WG_PANEL = 128, 64, 64
+#: What each coordinate of a view runs along: the contraction, the tile's
+#: rows (A) or columns (B), the parts (shards, slots, ranks).
+K_AXIS, TILE_AXIS, PART_AXIS = 0, 1, 2
+
+
+class TmaView(NamedTuple):
+    """One bf16 operand as a 3-D tensor map reads it, innermost first:
+    ``dims`` in elements, ``strides`` of dimensions 1 and 2 in bytes,
+    ``box`` the elements one load brings, ``roles`` the axis each
+    coordinate runs along. A box past a dimension's extent is
+    zero-filled."""
+    dims: Tuple[int, int, int]
+    strides: Tuple[int, int]
+    box: Tuple[int, int, int]
+    roles: Tuple[int, int, int]
+
+    def values(self) -> Tuple[int, ...]:
+        """The 11 values ``tile::encode_view`` reads."""
+        return self.dims + self.strides + self.box + self.roles
+
+
+def tma_views(op: str, n: int, chunk: int, k: int, f: int,
+              item: int = 2) -> Dict[str, TmaView]:
+    """The tensor maps of the bf16 kernels, in the order their C entry
+    points take them. ``op`` "ag": x [n * chunk, k] as (k, chunk, n) by
+    shard, the slots [2n][chunk, k] as (k, chunk, 2n) by slot, w [k, f] as
+    (f / n, n, k) by rank. ``op`` "rs": x [n * chunk, k] as (k / n, n,
+    n * chunk) and w [k, f] as (f, k / n, n), both by rank, so that a
+    rank's contraction ends at k / n and TMA zero-fills past it rather
+    than read the next rank's. Pure: shapes in, views out."""
+    a_box = (WG_BK, WG_BM, 1)
+    if op == "ag":
+        fn = f // n
+        return {
+            "x": TmaView((k, chunk, n), (k * item, chunk * k * item), a_box,
+                         (K_AXIS, TILE_AXIS, PART_AXIS)),
+            "slots": TmaView((k, chunk, 2 * n),
+                             (k * item, chunk * k * item), a_box,
+                             (K_AXIS, TILE_AXIS, PART_AXIS)),
+            "w": TmaView((fn, n, k), (fn * item, f * item),
+                         (WG_PANEL, 1, WG_BK),
+                         (TILE_AXIS, PART_AXIS, K_AXIS)),
+        }
+    if op == "rs":
+        kn = k // n
+        return {
+            "x": TmaView((kn, n, n * chunk), (kn * item, k * item),
+                         (WG_BK, 1, WG_BM), (K_AXIS, PART_AXIS, TILE_AXIS)),
+            "w": TmaView((f, kn, n), (f * item, kn * f * item),
+                         (WG_PANEL, WG_BK, 1),
+                         (TILE_AXIS, K_AXIS, PART_AXIS)),
+        }
+    raise ValueError(f"tma_views: op is 'ag' or 'rs', got {op!r}")
+
+
+def _views_arg(x: torch.Tensor, op: str, n: int, chunk: int, k: int, f: int):
+    """``tma_views`` as the C entry points take them for bf16 operands
+    (one flat array of long long); None for f32, which reads no map."""
+    if x.dtype != torch.bfloat16:
+        return None
+    flat = [v for view in tma_views(op, n, chunk, k, f).values()
+            for v in view.values()]
+    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def _operands(x: torch.Tensor, w: torch.Tensor, what: str
@@ -125,7 +194,7 @@ def _library():
         for fn, pointers in ((lib.ag_matmul_launch, 5),
                              (lib.mm_rs_launch, 6)):
             fn.argtypes = ([ctypes.c_void_p] * pointers
-                           + [ids, ids] + [ctypes.c_int] * 5
+                           + [ids, ids, ids] + [ctypes.c_int] * 5
                            + [ctypes.c_ulonglong, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return lib
@@ -137,8 +206,9 @@ def _kernel_operands(x: torch.Tensor, w: torch.Tensor, n: int, what: str,
     """x and w as the kernels read them (``_kernel_input``: on a CUDA card,
     contiguous, on 16-byte boundaries, 1 <= n <= 8), both f32 or both bf16
     on one card, and every row the kernel reads or writes (``rows``: name
-    -> values) whole 16-byte units, since cp.async moves 16 bytes. Raises
-    on anything else."""
+    -> values) whole 16-byte units, since cp.async moves 16 bytes and a
+    tensor map's strides are multiples of 16 bytes. Raises on anything
+    else."""
     x, w = _kernel_input(x, n, what), _kernel_input(w, n, what)
     if w.device != x.device:
         raise ValueError(f"{what}: w is on {w.device}, x on {x.device}")
@@ -165,12 +235,13 @@ def ag_matmul_cuda(x: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
                             {"x": k, "a rank's columns of w and y": fn})
     y = torch.empty((x.shape[0], f), dtype=x.dtype, device=x.device)
     slots = torch.empty(2 * n * chunk * k, dtype=x.dtype, device=x.device)
+    views = _views_arg(x, "ag", n, chunk, k, f)
     lib = _library()
     _launch("ag_matmul", x, n,
             lambda right, left, flags, epoch, stream: lib.ag_matmul_launch(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), slots.data_ptr(),
-                flags, right, left, n, chunk, k, f, KERNEL_DTYPES[x.dtype],
-                epoch, stream))
+                flags, right, left, views, n, chunk, k, f,
+                KERNEL_DTYPES[x.dtype], epoch, stream))
     ag_matmul_cuda.launches += 1
     return y
 
@@ -230,11 +301,12 @@ def mm_rs_cuda(x: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
     y = torch.empty((x.shape[0], f), dtype=x.dtype, device=x.device)
     send, recv = (torch.empty(2 * n * chunk * f, dtype=torch.float32,
                               device=x.device) for _ in range(2))
+    views = _views_arg(x, "rs", n, chunk, k, f)
     lib = _library()
     _launch("mm_rs", x, n,
             lambda right, left, flags, epoch, stream: lib.mm_rs_launch(
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), send.data_ptr(),
-                recv.data_ptr(), flags, right, left, n, chunk, k, f,
+                recv.data_ptr(), flags, right, left, views, n, chunk, k, f,
                 KERNEL_DTYPES[x.dtype], epoch, stream))
     mm_rs_cuda.launches += 1
     return y

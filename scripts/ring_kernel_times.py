@@ -12,10 +12,17 @@ parent) compare on the same card. Prints one JSON line: ms of the one-way
 and the bidirectional ring all-gather at the probe's 16 MiB, of the ring
 reduce-scatter at 16 MiB a rank, of ring attention at S = 32768 f32 causal
 (8 ranks sharing the card), of the all-to-all at 16 MiB where the tree
-has it, and of the tile kernels at the health/bench path's shapes (the
+has it, of the tile kernels at the health/bench path's shapes (the
 burn chain at 1024^2, the burn tile at 2048^2, the matmul at 4096^3 with
-the full-K route's blocks), with the card's name and power limit. Needs a
-CUDA card.
+the full-K route's blocks), and, where the tree has them, of the
+collective matmuls at the tensor-parallel MLP's shapes (x [4096, 4096] @
+w1 [4096, 8192]; relu(h) [4096, 8192] @ w2 [8192, 4096]; 8 ranks sharing
+the card) in f32 and bf16, of the matmul reduce-scatter's f32 partial
+traffic alone (the same [4096, 4096] output and 8 ranks with a
+contraction of 8 a rank, so that the products are negligible and the
+time is the partials' writes, copies and folds), and of the ring
+all-gather of the all-gather matmul's own x (the 4 MiB bf16 blocks its
+relay moves). With the card's name and power limit. Needs a CUDA card.
 """
 
 import json
@@ -64,6 +71,29 @@ def main() -> int:
     mx, mw = c.randn_pair(torch, 4096, 4096, seed=3)
     out["matmul_ms"] = c.time_ms(
         torch, lambda: mxu_bench.pallas_matmul(mx, mw, 1024, 256, 4096))
+    if hasattr(c, "tp_weights"):
+        from dpu_operator_tpu_torch.parallel import collective_matmul as cm
+        n = c.TP_MESH["tp"]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            x, w1, w2 = c.tp_weights(torch, dtype, seed=0)
+            h = torch.relu(cm.ag_matmul_cuda(x, w1, n))
+            out[f"ag_matmul_{name}_ms"] = c.time_ms(
+                torch, lambda: cm.ag_matmul_cuda(x, w1, n), n=5, warm=1,
+                batch=2)
+            out[f"mm_rs_{name}_ms"] = c.time_ms(
+                torch, lambda: cm.mm_rs_cuda(h, w2, n), n=5, warm=1,
+                batch=2)
+            xs, ws = x[:, :8 * n].contiguous(), w2[:8 * n].contiguous()
+            out[f"mm_rs_traffic_{name}_ms"] = c.time_ms(
+                torch, lambda: cm.mm_rs_cuda(xs, ws, n), n=5, warm=1,
+                batch=2)
+            if dtype == torch.bfloat16:
+                out["ag_relay_bfloat16_ms"] = c.time_ms(
+                    torch, lambda: rp.ring_all_gather_cuda(x, n, False),
+                    n=10, warm=2)
+            del x, w1, w2, h, xs, ws
+            torch.cuda.empty_cache()
     out["card"] = c.card_line()
     print(json.dumps(out), flush=True)
     return 0

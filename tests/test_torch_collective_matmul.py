@@ -37,6 +37,8 @@ from dpu_operator_tpu_torch.parallel import collective_matmul as cm
 from dpu_operator_tpu_torch.parallel import ring_probe as rp
 from virtual_mesh import REPO, run_virtual
 
+import chip_smoke
+
 torch.set_num_threads(1)
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -371,3 +373,183 @@ def test_plain_versions_match_pallas_kernels_in_interpret_mode(tmp_path):
     assert burn.bf16_ulps(rsb, want) <= 1.0
     np.testing.assert_allclose(rsb.float().numpy(), got["rs_bf16"],
                                rtol=1e-2, atol=1e-2)
+
+
+# -- the bf16 kernels' tensor-map views -----------------------------------------
+#
+# ``tma_views`` is what the bf16 kernels read through TMA. The card is the
+# only place the maps are encoded and read, so these tests hold the views
+# on the CPU: their extents, strides and boxes, and, by emulating a TMA
+# box read (zero-filled past every extent) and the product's coordinate
+# rule (``tile::tma_box``: K offset on the K axis, tile offset on the tile
+# axis, the part on the part axis), the products they give.
+
+# (n, rows, k, f) of the reduce-scatter: the reference tests' shape at
+# every ring size, chip_smoke's off-grid and wgmma cases, the MLP's.
+RS_SHAPES = ([(n, 2 * n, 8 * n, 16) for n in chip_smoke.CM_RINGS if n > 1]
+             + list(chip_smoke.CM_RS_OFF_GRID)
+             + [c[:4] for c in chip_smoke.CM_WGMMA_CASES if c[4]]
+             + [(8, chip_smoke.TP_B, chip_smoke.TP_H, chip_smoke.TP_D)])
+AG_SHAPES = ([(n, 2 * n, 16, 8 * n) for n in chip_smoke.CM_RINGS]
+             + list(chip_smoke.CM_OFF_GRID)
+             + [c[:4] for c in chip_smoke.CM_WGMMA_CASES if not c[4]]
+             + [(8, chip_smoke.TP_B, chip_smoke.TP_D, chip_smoke.TP_H)])
+
+
+def _views(op, n, rows, k, f):
+    return cm.tma_views(op, n, rows // n, k, f)
+
+
+def _role_dim(view, role):
+    return view.roles.index(role)
+
+
+@pytest.mark.parametrize("n,rows,k,f", RS_SHAPES)
+def test_tma_views_give_the_reduce_scatter_a_k_extent_of_k_over_n(
+        n, rows, k, f):
+    """A rank's contraction ends at k / n in both operands: the next
+    rank's columns of x and rows of w lie past the extent, where TMA
+    reads zeros, not data."""
+    for name, view in _views("rs", n, rows, k, f).items():
+        assert view.dims[_role_dim(view, cm.K_AXIS)] == k // n, name
+        assert view.dims[_role_dim(view, cm.PART_AXIS)] == n, name
+
+
+@pytest.mark.parametrize("n,rows,k,f", AG_SHAPES)
+def test_tma_views_of_the_allgather_matmul(n, rows, k, f):
+    """K is the whole row of x, of a slot and of w; the parts are the n
+    shards, the 2n slots and the n ranks' column blocks."""
+    views = _views("ag", n, rows, k, f)
+    assert list(views) == ["x", "slots", "w"]
+    parts = {"x": n, "slots": 2 * n, "w": n}
+    tiles = {"x": rows // n, "slots": rows // n, "w": f // n}
+    for name, view in views.items():
+        assert view.dims[_role_dim(view, cm.K_AXIS)] == k, name
+        assert view.dims[_role_dim(view, cm.PART_AXIS)] == parts[name], name
+        assert view.dims[_role_dim(view, cm.TILE_AXIS)] == tiles[name], name
+
+
+@pytest.mark.parametrize("op,n,rows,k,f",
+                         [("rs",) + s for s in RS_SHAPES]
+                         + [("ag",) + s for s in AG_SHAPES])
+def test_tma_views_are_maps_the_card_takes(op, n, rows, k, f):
+    """cuTensorMapEncodeTiled's rules for a 128-byte swizzle: global
+    strides multiples of 16 bytes, every box dimension 1..256, the inner
+    box one 128-byte row; the roles name each axis once, the strides grow
+    outwards, and a box is one K step of one part."""
+    for name, view in _views(op, n, rows, k, f).items():
+        assert all(s % 16 == 0 and s > 0 for s in view.strides), name
+        assert view.strides[0] >= view.dims[0] * 2, name
+        assert view.strides[1] >= view.strides[0] * view.dims[1], name
+        assert all(1 <= b <= 256 for b in view.box), name
+        assert view.box[0] * 2 == 128, name
+        assert sorted(view.roles) == [cm.K_AXIS, cm.TILE_AXIS,
+                                      cm.PART_AXIS], name
+        assert view.box[_role_dim(view, cm.K_AXIS)] == cm.WG_BK, name
+        assert view.box[_role_dim(view, cm.PART_AXIS)] == 1, name
+        assert len(view.values()) == 11
+
+
+def _tma_box(flat, view, coords):
+    """A TMA load of ``view``'s box at ``coords`` from the elements
+    ``flat``: [box2, box1, box0], zero past every extent."""
+    out = np.zeros(view.box[::-1], dtype=flat.dtype)
+    strides = (1, view.strides[0] // 2, view.strides[1] // 2)
+    for i2 in range(view.box[2]):
+        for i1 in range(view.box[1]):
+            c2, c1 = coords[2] + i2, coords[1] + i1
+            if not (0 <= c2 < view.dims[2] and 0 <= c1 < view.dims[1]):
+                continue
+            c0 = np.arange(coords[0], coords[0] + view.box[0])
+            ok = (c0 >= 0) & (c0 < view.dims[0])
+            at = c2 * strides[2] + c1 * strides[1] + c0[ok]
+            out[i2, i1, ok] = flat[at]
+    return out
+
+
+def _operand_tile(flat, view, part, tile0, k0, t):
+    """The box ``tile::tma_box`` loads for (part, tile0) at K offset k0 and
+    tile offset t, as [tile, K]."""
+    coords = [0, 0, 0]
+    coords[_role_dim(view, cm.K_AXIS)] = k0
+    coords[_role_dim(view, cm.TILE_AXIS)] = tile0 + t
+    coords[_role_dim(view, cm.PART_AXIS)] = part
+    box = _tma_box(flat, view, coords)
+    # Axes of `box` are dims 2, 1, 0: put the tile axis first, K second.
+    axes = [2 - _role_dim(view, cm.TILE_AXIS), 2 - _role_dim(view, cm.K_AXIS)]
+    part_axis = 2 - _role_dim(view, cm.PART_AXIS)
+    return np.transpose(box, axes + [part_axis])[..., 0]
+
+
+def _emulated_product(a_flat, a_view, a_part, a_tile0, b_flat, b_view,
+                      b_part, m, n_cols, k):
+    """C [m, n_cols] as the wgmma form assembles it from boxes: BM-row
+    tiles of A, 64-column panels of B, K steps of 64 to the end of k."""
+    out = np.zeros((m, n_cols))
+    for r0 in range(0, m, cm.WG_BM):
+        for c0 in range(0, n_cols, cm.WG_PANEL):
+            acc = np.zeros((cm.WG_BM, cm.WG_PANEL))
+            for k0 in range(0, k, cm.WG_BK):
+                a = _operand_tile(a_flat, a_view, a_part, a_tile0, k0, r0)
+                b = _operand_tile(b_flat, b_view, b_part, 0, k0, c0)
+                acc += a.astype(np.float64) @ b.T.astype(np.float64)
+            rows, cols = min(cm.WG_BM, m - r0), min(cm.WG_PANEL, n_cols - c0)
+            out[r0:r0 + rows, c0:c0 + cols] = acc[:rows, :cols]
+    return out
+
+
+@pytest.mark.parametrize("n,rows,k,f", [(3, 600, 216, 200), (2, 4, 16, 16),
+                                        (4, 8, 32, 16)])
+def test_tma_views_emulated_reduce_scatter_products(n, rows, k, f):
+    """Every rank's partial of every row-block, read through the views
+    with the kernel's coordinates (x's part: the rank, its tile origin:
+    the row-block; w's part: the rank), equals x[block, rank's k] @
+    w[rank's k, :]. kn = 72 is no multiple of a K step: the zero fill
+    past it keeps the next rank's contraction out."""
+    rng = np.random.RandomState(100 + n)
+    x = rng.randn(rows, k).astype(np.float32)
+    w = rng.randn(k, f).astype(np.float32)
+    chunk, kn = rows // n, k // n
+    views = _views("rs", n, rows, k, f)
+    for rank in range(n):
+        for idx in range(n):
+            got = _emulated_product(x.ravel(), views["x"], rank, idx * chunk,
+                                    w.ravel(), views["w"], rank, chunk, f,
+                                    kn)
+            want = (x[idx * chunk:(idx + 1) * chunk,
+                      rank * kn:(rank + 1) * kn].astype(np.float64)
+                    @ w[rank * kn:(rank + 1) * kn])
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("n,rows,k,f", [(3, 600, 136, 600), (2, 4, 16, 16),
+                                        (5, 10, 16, 40)])
+def test_tma_views_emulated_allgather_products(n, rows, k, f):
+    """Rank r's product of every block, read from x by shard and from a
+    slot by slot (the slots holding the blocks in transit), with w by
+    rank, equals block @ w[:, rank's columns]."""
+    rng = np.random.RandomState(110 + n)
+    x = rng.randn(rows, k).astype(np.float32)
+    w = rng.randn(k, f).astype(np.float32)
+    chunk, fn = rows // n, f // n
+    views = _views("ag", n, rows, k, f)
+    slots = np.stack([x[(s % n) * chunk:(s % n + 1) * chunk]
+                      for s in range(2 * n)])
+    for rank in range(n):
+        for idx in range(n):
+            want = (x[idx * chunk:(idx + 1) * chunk].astype(np.float64)
+                    @ w[:, rank * fn:(rank + 1) * fn])
+            got = _emulated_product(x.ravel(), views["x"], idx, 0,
+                                    w.ravel(), views["w"], rank, chunk, fn, k)
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+            slot = 2 * ((idx + 1) % n) + idx % 2
+            got = _emulated_product(slots.ravel(), views["slots"], slot, 0,
+                                    w.ravel(), views["w"], rank, chunk, fn, k)
+            want = (slots[slot].astype(np.float64)
+                    @ w[:, rank * fn:(rank + 1) * fn])
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+
+
+def test_tma_views_without_a_known_op_raise():
+    with pytest.raises(ValueError, match="op is 'ag' or 'rs'"):
+        cm.tma_views("mm", 2, 4, 16, 16)

@@ -92,10 +92,67 @@ def test_tile_sources_rebuild_when_the_product_header_changes(
 
 @pytest.mark.parametrize("form", ["void tile_product", "struct Smem",
                                   "void load_stage", "wmma::mma_sync",
-                                  "cp.async.cg.shared.global"])
+                                  "cp.async.cg.shared.global",
+                                  "void tile_product_wgmma",
+                                  "SmemWgmma {", "wgmma.mma_async.sync",
+                                  "cp.async.bulk.tensor",
+                                  "mbarrier.try_wait",
+                                  "cuTensorMapEncodeTiled"])
 def test_only_the_header_defines_the_tile_product(form):
     """The tile product lives once: no source keeps a copy of its own
     staging, shared-memory layout or tensor-core loop."""
     assert form in (cuda_build.CSRC_DIR / "tile_product.cuh").read_text()
     for src in sorted(cuda_build.CSRC_DIR.glob("*.cu")):
         assert form not in src.read_text(), src.name
+
+
+def test_collective_matmuls_multiply_bf16_on_wgmma_and_tile_mma_not_yet():
+    """The bf16 collective matmuls call the TMA-fed wgmma form, and no
+    longer the wmma one; the health/bench matmul keeps wmma for now."""
+    src = (cuda_build.CSRC_DIR / "collective_matmul.cu").read_text()
+    assert "tile::tile_product_wgmma(" in src
+    assert "tile::tile_product<" not in src
+    assert "tile::tile_product_f32<" in src
+    mma = (cuda_build.CSRC_DIR / "tile_mma.cu").read_text()
+    assert "tile_product_wgmma" not in mma
+    assert "tile::tile_product<" in mma
+
+
+def test_collective_matmul_kernels_take_their_maps_as_grid_constants():
+    """A tensor map must stay where the launch put it: a by-value
+    parameter whose address is taken is otherwise copied to local memory,
+    where TMA cannot read it."""
+    src = (cuda_build.CSRC_DIR / "collective_matmul.cu").read_text()
+    for kernel in ("ag_matmul_kernel(", "mm_rs_kernel("):
+        decl = src[src.index(kernel):src.index(")", src.index(kernel))]
+        assert "const __grid_constant__" in decl, decl
+
+
+def test_nvcc_flags_are_unchanged_by_the_tensor_maps():
+    """The tensor-map encoder is found through the CUDA runtime
+    (cudaGetDriverEntryPoint), so the build links nothing new."""
+    assert cuda_build.NVCC_FLAGS == [
+        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v", "-shared",
+        "-Xcompiler", "-fPIC"]
+    header = (cuda_build.CSRC_DIR / "tile_product.cuh").read_text()
+    assert "cudaGetDriverEntryPoint" in header
+
+
+def test_ptxas_report_is_read_per_kernel():
+    """``chip_smoke.ptxas_entries`` pairs each entry function with its
+    registers and spills, as the smoke run's no-spill check needs."""
+    import chip_smoke
+
+    text = (
+        "ptxas info    : Compiling entry function '_Z2k1I13__nv_bfloat16E"
+        "vv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z2k1I13__nv_bfloat16Evv\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 185 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z2k2IfEvv' for "
+        "'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 123 registers, used 1 barriers, 64 bytes smem\n")
+    assert chip_smoke.ptxas_entries(text) == {
+        "_Z2k1I13__nv_bfloat16Evv": (185, 8, 4), "_Z2k2IfEvv": (123, 0, 0)}
