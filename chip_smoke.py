@@ -29,6 +29,12 @@ Phases, each of which raises on failure:
                4096^3 on its full-K and K-blocked routes; max error
                against the stated tolerance, median times of the kernel,
                the plain version and (matmul) ``torch.matmul``, bound.
+               The tile kernel (TMA-fed wgmma) built with no spills
+               (ptxas); at both of its widths (128 x 256 and 128 x 128) a
+               product off the K step and off the wide tile within 1 ulp
+               of plain, and both widths timed at 4096^3 and 2048^2;
+               repeats bitwise equal; a launch's device time and the
+               host's time to queue a call.
   7. health  — the health/bench path: ``best_burn_step()`` on the health
                burn's own inputs (one chain launch, finite signature), the
                2048^2 burn (eight tile launches), the block-config sweep
@@ -57,7 +63,9 @@ Phases, each of which raises on failure:
                ``make_ring_reduce_scatter`` on 16 MiB per rank and the
                all-reduce composition against the plain one; 20 repeats
                of each kernel bitwise equal; times of the kernel, the
-               plain version and one PyTorch call (a yardstick only).
+               plain version and one PyTorch call (a yardstick only), the
+               bytes the reduce-scatter's protocol moves, and the time of
+               the all-reduce.
  10. ulysses — the all-to-all and Ulysses attention. Small all-to-alls
                (n 1, 2, 3, 4, 5, 8; f32, bf16, f16, int32; blocks of 1
                and 3 rows that are no multiple of 16 bytes) equal the
@@ -110,6 +118,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -151,6 +160,11 @@ TILE_SHAPES = ((2048, 2048), (1024, 2048))
 MM_N = 4096
 MM_ROUTES = (("mm_fullk", (1024, 256, 4096), "mxu_bench.py:97"),
              ("mm_kblocked", (512, 512, 1024), "mxu_bench.py:116"))
+# The tile kernel off its grid: k = 32 * 5, whose last 64-wide K box TMA
+# zero-fills past k, and n = 3 * 128, whose second 256-wide tile lies half
+# past n; checked at both widths, with and without tanh.
+TILE_ODD = (384, 160, 384)
+TILE_REPEATS = 5
 # Kernel vs plain, in bf16 (burn.bf16_ulps: ulps at the larger magnitude,
 # at 2**-5 below it). One product or one tanh step: both sum exact f32
 # products in f32, in another order, and round once, so a value at a
@@ -779,8 +793,62 @@ def phase_tiles(torch, card):
             f"{STEP_ULPS}), max |err| {err:.3e}; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
+    first = mxu_bench.pallas_matmul(x, w, *MM_ROUTES[0][1])
+    for i in range(TILE_REPEATS):
+        check(torch.equal(mxu_bench.pallas_matmul(x, w, *MM_ROUTES[0][1]),
+                          first), f"matmul repeat {i}: differs from the "
+                                  f"first call's bits")
+    tile_widths(torch, card, burn, mxu_bench, x, w)
     torch.cuda.empty_cache()
     return records
+
+
+def tile_widths(torch, card, burn, mxu_bench, x, w):
+    """The tile kernel at each width it is built for: off its grid
+    against plain, then timed at the matmul's 4096^3 (x, w) and the burn
+    tile's 2048^2, with a launch's device time and the host's time to
+    queue a call at the width the wrappers launch."""
+    from dpu_operator_tpu_torch import cuda_build
+    from dpu_operator_tpu_torch.parallel import tile_mma
+
+    log(f"tiles ptxas: {check_wgmma_build(cuda_build, 'tile_mma')}")
+    m, k, n = TILE_ODD
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    xo = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    wo = (torch.randn((k, n), generator=gen, device="cuda")
+          / math.sqrt(k)).to(torch.bfloat16)
+    for width in tile_mma.TILE_WIDTHS:
+        for tanh, plain in ((False, mxu_bench.matmul_plain),
+                            (True, burn.burn_tile_plain)):
+            tag = f"tile {m}x{k}x{n} 128x{width} tanh={tanh}"
+            _, dist = compare(torch, burn, tag, tile_mma.product_of_width(
+                tag, xo, wo, tanh, width), plain(xo, wo), ulps=STEP_ULPS)
+            log(f"tiles {tag}: {dist:.2f} ulps (max {STEP_ULPS})")
+    xb, wb = randn_pair(torch, 2048, 2048, seed=1)
+    times = {}
+    for width in tile_mma.TILE_WIDTHS:
+        times[width] = (
+            time_ms(torch, lambda: tile_mma.product_of_width(
+                "width", x, w, False, width)),
+            time_ms(torch, lambda: tile_mma.product_of_width(
+                "width", xb, wb, True, width)))
+    faster = min(times, key=lambda wd: times[wd][0])
+    log("tiles widths: " + "; ".join(
+        f"128x{wd} matmul {times[wd][0]:.4f} ms "
+        f"({2 * x.shape[0] * x.shape[1] * w.shape[1] / times[wd][0] / 1e9:.1f}"
+        f" TFLOP/s), burn tile 2048^2 {times[wd][1]:.4f} ms"
+        for wd in tile_mma.TILE_WIDTHS)
+        + f"; faster at 4096^3: 128x{faster}; the wrappers launch "
+          f"128x{tile_mma.TILE_WIDTH} [{card}]")
+    for tag, fn in (("burn tile 2048^2", lambda: burn.burn_tile(xb, wb)),
+                    ("matmul 4096^3", lambda: mxu_bench.pallas_matmul(
+                        x, w, *MM_ROUTES[0][1]))):
+        launch_ms, host_ms, how = device_ms(torch, fn, "tile_kernel")
+        log(f"tiles {tag}: a launch {launch_ms:.4f} ms ({how}), the host "
+            f"queues a call in {host_ms:.4f} ms: the card "
+            f"{'waits on' if host_ms > launch_ms else 'runs ahead of'} the "
+            f"host [{card}]")
 
 
 # -- phase 7: the health/bench path -------------------------------------------
@@ -1226,14 +1294,17 @@ def phase_collectives(torch, card):
         torch, lambda: X.view(n, n, rows // n, COLL_WIDTH).sum(0), n=10,
         warm=2)
     t_bytes = (n * nbytes + nbytes) / HBM_BYTES_PER_S * 1e3
-    moved = n * chunk_bytes * (2 * n + 2 * (n - 1) + 3 * (n - 2) + 3)
+    moved = rp.reduce_scatter_moved_bytes(n, chunk_bytes)
+    allreduce_ms = time_ms(torch, lambda: ag(rs(X)), n=10, warm=2)
     log(f"collectives ring_reduce_scatter [{n * rows}, {COLL_WIDTH}] f32 "
         f"n={n}: == plain bit for bit, {RING_REPEATS} repeats bitwise "
         f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"view().sum(0) {library_ms:.4f} ms, bound {t_bytes:.4f} ms "
         f"({n * nbytes} B read, {nbytes} B written; the protocol reads "
-        f"and writes {moved} B: each rank produces {n} blocks, sends "
-        f"{n - 1}, folds {n - 2} and finishes one) [{card}]")
+        f"and writes {moved} B, {moved / ms / 1e9:.2f} TB/s: each rank, "
+        f"{n - 1} times, reads two blocks and writes one, the first "
+        f"arrival read in place from its neighbour's x); all-reduce "
+        f"ag(rs(X)) {allreduce_ms:.4f} ms [{card}]")
     records.append(dict(
         name="ring_reduce_scatter", route="cuda",
         source="dpu_operator_tpu_torch/csrc/ring_collectives.cu",
@@ -1577,22 +1648,35 @@ def ptxas_entries(text):
     return out
 
 
-def check_wgmma_build(cuda_build):
-    """The bf16 collective-matmul kernels as ptxas reported them in this
-    run: no spills. Returns a line for the log."""
-    text = cuda_build.build_logs.get("collective_matmul")
+def check_wgmma_build(cuda_build, source):
+    """The bf16 wgmma kernels of ``source`` as ptxas reported them in this
+    run: the collective matmuls' two, the tile kernel's four instances
+    (two widths, with and without tanh); no spills. Returns a line for the
+    log."""
+    text = cuda_build.build_logs.get(source)
     if text is None:
-        return ("ptxas report not in this run (the library was built "
-                "earlier in this checkout)")
-    bf16 = {name: regs for name, regs in ptxas_entries(text).items()
-            if "bfloat16" in name}
-    check(len(bf16) == 2, f"tp-mlp: ptxas reported {sorted(bf16)}")
-    for name, (regs, stores, loads) in bf16.items():
+        return (f"{source}: ptxas report not in this run (the library was "
+                f"built earlier in this checkout)")
+    if source == "collective_matmul":
+        want = 2
+        kernels = {("ag_matmul" if "ag_matmul" in name else "mm_rs")
+                   + " bf16": regs
+                   for name, regs in ptxas_entries(text).items()
+                   if "bfloat16" in name}
+    else:
+        want = 4
+        kernels = {}
+        for name, regs in ptxas_entries(text).items():
+            found = re.search(r"tile_kernelILi(\d+)ELb([01])E", name)
+            if found:
+                kernels[f"tile 128x{found[1]}"
+                        f"{' tanh' if found[2] == '1' else ''}"] = regs
+    check(len(kernels) == want, f"{source}: ptxas reported {sorted(kernels)}")
+    for name, (regs, stores, loads) in kernels.items():
         check(stores == 0 and loads == 0,
-              f"tp-mlp {name}: {stores} B spill stores, {loads} B loads")
-    return ", ".join(
-        f"{'ag_matmul' if 'ag_matmul' in name else 'mm_rs'} bf16 {regs} "
-        f"registers, 0 spills" for name, (regs, _, _) in sorted(bf16.items()))
+              f"{source} {name}: {stores} B spill stores, {loads} B loads")
+    return ", ".join(f"{name} {regs} registers, 0 spills"
+                     for name, (regs, _, _) in sorted(kernels.items()))
 
 
 def tp_weights(torch, dtype, seed):
@@ -1617,7 +1701,7 @@ def phase_tp_mlp(torch, card):
     from dpu_operator_tpu_torch.parallel import burn
     from dpu_operator_tpu_torch.parallel import collective_matmul as cm
 
-    log(f"tp-mlp ptxas: {check_wgmma_build(cuda_build)}")
+    log(f"tp-mlp ptxas: {check_wgmma_build(cuda_build, 'collective_matmul')}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda")
     gen.manual_seed(50)

@@ -20,11 +20,14 @@
 // step 0, so the own chunk reaches the output whole.
 //
 // Reduce-scatter. Rank r contributes x_r [n * chunk, width] and ends with
-// the sum over ranks of row-block r: `run_rs_ring` with a `produce` that
-// copies a row-block of x_r and a `finish` that stores the last sum, all
-// on the byte stripes of `ring::ByteStripe`. The adds run in the
-// payload's own type (`ring::SumF32`, `SumBF16`, `SumF16`, `SumI32`), in
-// the ring's order, rounding at every hop.
+// the sum over ranks of row-block r: `run_rs_fold_send`, whose every step
+// reads the arrival and x_r's row-block once and stores their sum straight
+// into the right neighbour's slot (the first arrival is the left
+// neighbour's row-block, read from its x), on the byte stripes of
+// `ring::ByteStripe`. The adds run in the payload's own type
+// (`ring::SumF32`, `SumBF16`, `SumF16`, `SumI32`), in the ring's order
+// (own + arrival; the last hop arrival + own), rounding at every hop: the
+// order of `run_rs_ring`, so the bits of the plain version.
 //
 // Layout. One cooperative launch (`ring::launch_ring`) holds every rank:
 // n x streams x G CTAs of 256 threads, all resident at once (the
@@ -34,14 +37,20 @@
 // stripe every copy and every add between them.
 //
 // What bounds them: bytes. The function itself reads x once and writes
-// each rank's result once; the protocol moves more, because a rank
-// relays n - 1 blocks through its neighbour's slots and copies n blocks
-// out (all-gather), or produces n blocks, sends n - 1 and folds n - 2
-// (reduce-scatter), each a read and a write of device memory or L2. With
-// all ranks on one card these are copies within that card's memory: the
-// kernels' time measures the protocol and the copies, not a link.
-// Still to do: bulk (TMA) copies, and one read of a block feeding both
-// the relay and the output store.
+// each rank's result once: at the probe's 16 MiB a rank and n = 8, the
+// reduce-scatter reads 128 MiB and writes 16 MiB, 0.0451 ms at the H100's
+// 3.35 TB/s. The protocols move more. The all-gather relays n - 1 blocks
+// through its neighbour's slots and copies n blocks out, a read and a
+// write each. The reduce-scatter reads two blocks and writes one, n - 1
+// times: 3(n - 1) blocks a rank, 336 MiB at 2 MiB blocks and n = 8
+// (`run_rs_ring`, with a send buffer filled by a copy, a separate send and
+// an in-place fold, moved 816 MiB; a first step that copied the own
+// block into the neighbour's slot instead of letting the neighbour read
+// it in place, 368 MiB). With all ranks on one card these are copies
+// within that card's memory: the kernels' time measures the protocol and
+// the copies, not a link. Still to do: bulk (TMA) copies, and in the
+// all-gather one read of a block feeding both the relay and the output
+// store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,8 +76,7 @@ struct ScatterParams {
   Ring ring;
   const char* x;  // [n][n * chunk, width]: rank r's contribution
   char* out;      // [n * chunk, width]: rank r's sum at r * block_bytes
-  char* send;     // [n][2][block_bytes]
-  char* recv;     // [n][2][block_bytes], written by the left neighbour
+  char* slots;    // [n][2][block_bytes], written by the left neighbour
   long long block_bytes;
 };
 
@@ -111,15 +119,10 @@ __global__ void __launch_bounds__(kThreads)
   const int cta = blockIdx.x % g.ctas;
   const long long bb = p.block_bytes;
   const ring::Rank r = ring::make_rank(g, rank, cta, 1, g.right[rank],
-                                       g.left[rank], g.flags, p.recv, bb);
-  const char* mine = p.x + rank * g.n * bb;
-  char* result = p.out + rank * bb;
-  const ring::ByteStripe<Sum> stripe{bb, cta, g.ctas};
-  auto produce = [&](int idx, char* dst) { stripe.copy(dst, mine + idx * bb); };
-  auto finish = [&](const char* a, const char* b) {
-    stripe.add(result, a, b);
-  };
-  ring::run_rs_ring(r, p.send + 2 * rank * bb, stripe, produce, finish);
+                                       g.left[rank], g.flags, p.slots, bb);
+  ring::run_rs_fold_send(r, p.x + rank * g.n * bb,
+                         p.x + g.left[rank] * g.n * bb, p.out + rank * bb,
+                         ring::ByteStripe<Sum>{bb, cta, g.ctas});
 }
 
 template <class Sum>
@@ -169,12 +172,11 @@ extern "C" int ring_all_gather_launch(const void* x, void* out, void* slots,
 
 // x [n][n * chunk, width], rank r's contribution at r * n * block_bytes,
 // block_bytes the bytes of one [chunk, width] row-block; out
-// [n * chunk, width] gets rank r's sum at r * block_bytes; send and recv
-// are scratch of 2 * n * block_bytes each. dtype: 0 f32, 1 bf16, 2 f16,
-// 3 int32. n >= 2: a ring of one is the identity and the caller's.
+// [n * chunk, width] gets rank r's sum at r * block_bytes; slots is
+// scratch of 2 * n * block_bytes. dtype: 0 f32, 1 bf16, 2 f16, 3 int32.
+// n >= 2: a ring of one is the identity and the caller's.
 extern "C" int ring_reduce_scatter_launch(const void* x, void* out,
-                                          void* send, void* recv,
-                                          void* flags,
+                                          void* slots, void* flags,
                                           const long long* right,
                                           const long long* left, int n,
                                           long long block_bytes, int dtype,
@@ -188,8 +190,7 @@ extern "C" int ring_reduce_scatter_launch(const void* x, void* out,
   }
   p.x = static_cast<const char*>(x);
   p.out = static_cast<char*>(out);
-  p.send = static_cast<char*>(send);
-  p.recv = static_cast<char*>(recv);
+  p.slots = static_cast<char*>(slots);
   p.block_bytes = block_bytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

@@ -10,7 +10,10 @@
 // softmax; a fix to the protocol lands in all of them at once.
 // `run_rs_ring`, further down, is the counterpart of `_run_rs_ring`: the
 // reduce-scatter ring, a template over what produces a rank's
-// contribution and where the finished sum goes.
+// contribution and where the finished sum goes; `run_rs_fold_send`, at
+// the end of the device side, is the same ring for contributions that
+// already lie in memory, each step's add stored straight into the
+// neighbour's slot.
 //
 // What the TPU's primitives become:
 //   * a rank is `ctas` CTAs of one cooperative launch (all of them
@@ -407,6 +410,72 @@ __device__ void run_rs_ring(const Rank& r, char* send, const Stripe& stripe,
   }
   finish(r.my_slots + ((r.n - 1) & 1) * r.block_bytes,
          send + ((r.n - 1) & 1) * r.block_bytes);
+}
+
+// -- the fold-and-send reduce-scatter ring ------------------------------------
+//
+// `run_rs_fold_send` is the reduce-scatter of contributions that already
+// lie in device memory (the ring collectives' x), with `run_rs_ring`'s
+// order of adds but no send buffer: a step reads the arrival and the
+// rank's own part of the block once and stores their sum straight into
+// the right neighbour's slot. Chunk j starts at rank (j + 1) mod n and is
+// complete on rank j, as above. The first arrival needs no copy: it is
+// the left neighbour's own part of row-block (r - 2) mod n, which rank r
+// reads where it lies. Rank r:
+//   * step k = 1 .. n-2: wait (k >= 2) for the arrival of step k - 1, in
+//     slot k % 2, and (k >= 3) for one credit; store own part of
+//     row-block (r - k - 1) mod n + arrival into the right neighbour's
+//     slot (k + 1) % 2; raise its receive flag and, while 2 <= k < n - 2,
+//     grant the left neighbour a credit: slot k % 2 has been read;
+//   * last: wait (n > 2) for the arrival of step n - 2, in slot
+//     (n - 1) % 2, and store arrival + own part of row-block r into
+//     `result` (n = 2: the left neighbour's part of row-block r, read in
+//     place, + own).
+// The credit. The store of step k (k >= 3) reuses the right neighbour's
+// slot that this rank filled at step k - 2; the right neighbour read that
+// arrival in its own step k - 1, whose grant (tag + k - 1) this step
+// waits for. Step 2 writes slot 1 for the first time, so grants come from
+// steps 2 .. n-3 and waits from steps 3 .. n-2, and none is left over;
+// rings of 2, 3 and 4 neither grant nor wait. One arrival counter serves
+// both events of a step (the stores have landed; the arrival has been
+// read), and its last arriver raises the right neighbour's receive flag
+// and the left one's credit.
+//
+// Bytes per rank: 3 blocks a step and at the last (two reads, a write),
+// 3(n - 1) blocks, against `run_rs_ring`'s 2n + 2(n - 1) + 3(n - 2) + 3
+// for the same function. Every CTA owns the same stripe of every buffer,
+// by `stripe` (a `ByteStripe`), though no step reads what an earlier step
+// of the same rank wrote: every dependency between steps crosses ranks,
+// behind a flag. `own` and `left_own` are this rank's and the left
+// neighbour's [n][block_bytes] contributions; n >= 2.
+template <class Stripe>
+__device__ void run_rs_fold_send(const Rank& r, const char* own,
+                                 const char* left_own, char* result,
+                                 const Stripe& stripe) {
+  const unsigned long long tag = r.epoch * kTagSteps;
+  const long long bb = r.block_bytes;
+  arrive(&r.me->bar_arrive, r.ctas, [&] {
+    raise_flag(&r.left->bar_from_right, tag);
+    raise_flag(&r.right->bar_from_left, tag);
+  });
+  wait_flag(&r.me->bar_from_left, tag);
+  wait_flag(&r.me->bar_from_right, tag);
+
+  const char* first = left_own + (r.my_id - 2 + 2 * r.n) % r.n * bb;
+  for (int k = 1; k < r.n - 1; ++k) {
+    if (k > 1) wait_flag(&r.me->recv, tag + k);  // the arrival of step k - 1
+    if (k > 2) wait_flag(&r.me->credit, tag + k - 1);  // the target is free
+    stripe.add(r.right_slots + ((k + 1) & 1) * bb,
+               own + (r.my_id - k - 1 + r.n) % r.n * bb,
+               k == 1 ? first : r.my_slots + (k & 1) * bb);
+    arrive(&r.me->send_arrive[k & 1], r.ctas, [&] {
+      raise_flag(&r.right->recv, tag + k + 1);
+      if (k > 1 && k < r.n - 2) raise_flag(&r.left->credit, tag + k);
+    });
+  }
+  if (r.n > 2) wait_flag(&r.me->recv, tag + r.n - 1);
+  stripe.add(result, r.n > 2 ? r.my_slots + ((r.n - 1) & 1) * bb : first,
+             own + r.my_id * bb);
 }
 
 // -- the host side ------------------------------------------------------------

@@ -8,31 +8,34 @@
 // `collective_matmul.cu`); f32 partial sums (its matmul reduce-scatter).
 // Three forms:
 //
-//   * bf16, `tile_product`: a loop over K in steps of kBK = 32; the A and B
-//     tiles of a step are staged in shared memory by cp.async, two stages
-//     deep (the next step's copy is in flight while this one multiplies),
-//     and multiplied on the tensor cores with nvcuda::wmma (bf16 operands,
-//     f32 accumulator in registers). A fragment's element order is opaque,
-//     so the epilogue goes through a per-warp f32 staging tile and hands
-//     over 8 neighbours of one row at a time;
+//   * bf16, `tile_product` (the health burn's chain): a loop over K in
+//     steps of kBK = 32; the A and B tiles of a step are staged in shared
+//     memory by cp.async, two stages deep (the next step's copy is in
+//     flight while this one multiplies), and multiplied on the tensor
+//     cores with nvcuda::wmma (bf16 operands, f32 accumulator in
+//     registers). A fragment's element order is opaque, so the epilogue
+//     goes through a per-warp f32 staging tile and hands over 8
+//     neighbours of one row at a time;
 //   * f32, `tile_product_f32`: the same staging in steps of 16, and the
 //     product on the FMA pipes in f32 (never TF32): 64 x 64 tiles, each
 //     thread a register-blocked 4 x 4 patch (rows ty * 4 .., columns
 //     tx * 4 ..) fed from shared memory as float4, one 16-byte load of A
 //     and one of B feeding 16 FMAs. The epilogue gets 4 neighbours of a row;
-//   * bf16 on Hopper's own path, `tile_product_wgmma`: operands brought in
+//   * bf16 on Hopper's own path, `tile_product_wgmma` (the burn tile, the
+//     benchmark matmul, the bf16 collective matmuls): operands brought in
 //     by TMA through a ring of mbarrier-guarded stages and multiplied by
 //     wgmma.mma_async; its note is at the form, further down.
 //
-// Tails of the cp.async forms. With kTails, M, N and K need not be
-// multiples of the tile: a 16-byte unit of an operand that lies outside it
-// is zero-filled (cp.async with a source size of 0) and the epilogue is
-// called only for groups that lie inside C. The caller guarantees that
-// every row of A, B and C that the product reads or writes, and every row
-// stride, is a whole number of 16-byte units, so that a unit (and a group
-// of 8 bf16 or 4 f32 outputs) is wholly inside or wholly outside. Without
-// kTails the loop is unpredicated and the caller guarantees that M and N
-// are multiples of the tile and K of the step.
+// Tails of the cp.async forms. The wmma form has none: its caller
+// guarantees that M and N are multiples of the tile and K of the step.
+// The f32 form, with kTails, takes M, N and K that are not: a 16-byte unit
+// of an operand that lies outside them is zero-filled (cp.async with a
+// source size of 0) and the epilogue is called only for groups that lie
+// inside C. The caller guarantees that every row of A, B and C that the
+// product reads or writes, and every row stride, is a whole number of
+// 16-byte units, so that a unit (and a group of 4 f32 outputs) is wholly
+// inside or wholly outside. Without kTails its loop is unpredicated, as
+// the wmma form's.
 //
 // The cp.async forms read operands with cp.async.cg, through L2 only: a
 // ring kernel's operand may be a slot that a CTA on another SM has just
@@ -156,35 +159,32 @@ struct StoreF32 {
 
 // -- bf16 on the tensor cores -------------------------------------------------
 
-template <int BM, int BN, bool kTails>
+template <int BM, int BN>
 __device__ __forceinline__ void load_stage(Smem<BM, BN>& sm, int s,
                                            const bf16* A, long long lda,
                                            const bf16* B, long long ldb,
-                                           int M, int N, int K, int row0,
-                                           int col0, int k0) {
+                                           int row0, int col0, int k0) {
   constexpr int kAChunks = kBK / 8;  // 16-byte chunks per A tile row
   for (int c = threadIdx.x; c < BM * kAChunks; c += kThreads) {
     const int r = c / kAChunks, kc = c % kAChunks * 8;
-    cp_unit<kTails>(&sm.a[s][r][kc],
-                    A + static_cast<long long>(row0 + r) * lda + k0 + kc, A,
-                    row0 + r < M && k0 + kc < K);
+    cp_async16(&sm.a[s][r][kc],
+               A + static_cast<long long>(row0 + r) * lda + k0 + kc);
   }
   constexpr int kBChunks = BN / 8;  // per B tile row
   for (int c = threadIdx.x; c < kBK * kBChunks; c += kThreads) {
     const int r = c / kBChunks, nc = c % kBChunks * 8;
-    cp_unit<kTails>(&sm.b[s][r][nc],
-                    B + static_cast<long long>(k0 + r) * ldb + col0 + nc, B,
-                    k0 + r < K && col0 + nc < N);
+    cp_async16(&sm.b[s][r][nc],
+               B + static_cast<long long>(k0 + r) * ldb + col0 + nc);
   }
 }
 
 // out(C[row0:row0+BM, col0:col0+BN] = A[row0:row0+BM, :K] @ B[:K, col0:col0+BN])
-// for row-major A [M, K] with row stride lda and B [K, N] with row stride
-// ldb. All threads of the CTA call it.
-template <int BM, int BN, bool kTails, class Epilogue>
+// for row-major A with row stride lda and B with row stride ldb, K a
+// multiple of kBK. All threads of the CTA call it.
+template <int BM, int BN, class Epilogue>
 __device__ void tile_product(Smem<BM, BN>& sm, const bf16* A, long long lda,
-                             const bf16* B, long long ldb, int M, int N,
-                             int K, int row0, int col0, const Epilogue& out) {
+                             const bf16* B, long long ldb, int K, int row0,
+                             int col0, const Epilogue& out) {
   using namespace nvcuda;
   constexpr int kWarpsN = BN / 32;  // each warp owns a WM x 32 sub-tile
   constexpr int kWarpsM = kWarps / kWarpsN;
@@ -201,16 +201,16 @@ __device__ void tile_product(Smem<BM, BN>& sm, const bf16* A, long long lda,
 #pragma unroll
     for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  const int nk = kTails ? (K + kBK - 1) / kBK : K / kBK;
-  load_stage<BM, BN, kTails>(sm, 0, A, lda, B, ldb, M, N, K, row0, col0, 0);
+  const int nk = K / kBK;
+  load_stage<BM, BN>(sm, 0, A, lda, B, ldb, row0, col0, 0);
   cp_async_commit();
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt & 1;
     // Stage s ^ 1 was last read in step kt - 1, which every warp has
     // left (the barrier at the end of the loop body).
     if (kt + 1 < nk) {
-      load_stage<BM, BN, kTails>(sm, s ^ 1, A, lda, B, ldb, M, N, K, row0,
-                                 col0, (kt + 1) * kBK);
+      load_stage<BM, BN>(sm, s ^ 1, A, lda, B, ldb, row0, col0,
+                         (kt + 1) * kBK);
     }
     cp_async_commit();  // possibly empty: keeps "wait for all but one" right
     cp_async_wait_one();
@@ -249,9 +249,7 @@ __device__ void tile_product(Smem<BM, BN>& sm, const bf16* A, long long lda,
       float v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = st[r * 16 + c8 + e];
-      const int row = row0 + wr + 16 * i + r;
-      const int col = col0 + wc + 16 * j + c8;
-      if (!kTails || (row < M && col < N)) out(row, col, v);
+      out(row0 + wr + 16 * i + r, col0 + wc + 16 * j + c8, v);
       __syncwarp();  // the staging tile is read before the next store
     }
 }
@@ -349,11 +347,15 @@ __device__ void tile_product_f32(SmemF32& sm, const float* A, long long lda,
 //
 // Serves the bf16 instances of TPU kernels 11 and 12 (parallel/
 // collective_matmul.py of the JAX package: `_pallas_ag_matmul`,
-// `_pallas_mm_rs`), through `collective_matmul.cu`. What bounds them is
+// `_pallas_mm_rs`), through `collective_matmul.cu`, and TPU kernels 3-5
+// (the burn tile and the benchmark matmul), through `tile_mma.cu`'s tile
+// kernel, whose operands are plain 2-D tensors read as views with one
+// part. What bounds the collective matmuls is
 // operations: at the tensor-parallel MLP's shapes each does 2.749e11 flop,
 // 0.2779 ms at the H100's 989 TFLOP/s bf16 peak, against 168 MB of operands
 // and output. The wmma form above reached 124 (all-gather matmul) and 81
-// (reduce-scatter) TFLOP/s there (NVIDIA H100 80GB HBM3, 700 W): mma.sync
+// (reduce-scatter) TFLOP/s there, and ~188 on the benchmark matmul at
+// 4096^3 (NVIDIA H100 80GB HBM3, 700 W): mma.sync
 // fed by per-thread cp.async two stages deep cannot keep Hopper's tensor
 // cores busy. So this form uses the two mechanisms that can:
 //
@@ -377,8 +379,9 @@ __device__ void tile_product_f32(SmemF32& sm, const float* A, long long lda,
 // contraction). Tails are TMA's: a box reaching past a dimension's extent
 // is zero-filled, so a K extent that ends inside a tensor (kernel 12's
 // contraction of k / n) is its own dimension, and the epilogue masks rows
-// and columns outside C. The views are computed on the host
-// (`parallel/collective_matmul.py` `tma_views`) and encoded per call.
+// and columns outside C. The views are computed on the host (`tma_views`
+// of `parallel/collective_matmul.py` and of `parallel/tile_mma.py`) and
+// encoded per call.
 //
 // The mbarrier ring is the CTA's for the whole launch: a `WgmmaPipe` counts
 // the K steps consumed and each `empty` barrier's phase, so the products a

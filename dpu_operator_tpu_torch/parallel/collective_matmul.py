@@ -45,39 +45,17 @@ link's.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from .ring_probe import (_kernel_input, _launch, _on, _ring_setup,
                          ring_reduce_scatter_plain)
+from .tile_mma import (K_AXIS, PART_AXIS, TILE_AXIS, WG_BK, WG_BM, WG_PANEL,
+                       TmaView)
 
 #: The kernels' operand types and their codes in ``csrc/collective_matmul.cu``.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-#: The bf16 tile product's TMA boxes (``csrc/tile_product.cuh``,
-#: ``tile_product_wgmma``): A tiles of WG_BM rows, K steps of WG_BK (one
-#: 128-byte swizzled row), B loaded WG_PANEL columns a box.
-WG_BM, WG_BK, WG_PANEL = 128, 64, 64
-#: What each coordinate of a view runs along: the contraction, the tile's
-#: rows (A) or columns (B), the parts (shards, slots, ranks).
-K_AXIS, TILE_AXIS, PART_AXIS = 0, 1, 2
-
-
-class TmaView(NamedTuple):
-    """One bf16 operand as a 3-D tensor map reads it, innermost first:
-    ``dims`` in elements, ``strides`` of dimensions 1 and 2 in bytes,
-    ``box`` the elements one load brings, ``roles`` the axis each
-    coordinate runs along. A box past a dimension's extent is
-    zero-filled."""
-    dims: Tuple[int, int, int]
-    strides: Tuple[int, int]
-    box: Tuple[int, int, int]
-    roles: Tuple[int, int, int]
-
-    def values(self) -> Tuple[int, ...]:
-        """The 11 values ``tile::encode_view`` reads."""
-        return self.dims + self.strides + self.box + self.roles
 
 
 def tma_views(op: str, n: int, chunk: int, k: int, f: int,

@@ -83,8 +83,9 @@ def pallas_matmul(x: torch.Tensor, w: torch.Tensor, bm: int = 512,
     only check shapes (m, n, k must divide by them, ValueError otherwise)
     and choose the route, ``mm_fullk`` where ``bk == k`` and
     ``mm_kblocked`` elsewhere. The kernel picks its own CTA tile (128 x
-    128, K steps of 32): a TPU block of 512 x 512 x 1024 is far over a
-    Hopper SM's 227 KB of shared memory."""
+    ``tile_mma.TILE_WIDTH``, K steps of 64 brought in by TMA): a TPU block
+    of 512 x 512 x 1024 is far over a Hopper SM's 227 KB of shared
+    memory."""
     m, k = x.shape
     k2, n = w.shape
     if not (k == k2 and m % bm == 0 and n % bn == 0 and k % bk == 0):

@@ -60,15 +60,18 @@ each rank grants its left neighbour a credit after each step and waits
 for one before every send after the first. Skew is bounded to one step,
 which the two slots absorb.
 
-The reduce-scatter protocol: chunk j starts at rank ``(j + 1) mod n`` and
-travels right, gathering each rank's contribution, and is complete on
-rank j after n - 1 hops. Step k sends the accumulated block into the
-right neighbour's receive slot ``(k + 1) % 2``, produces the next block's
-contribution, then folds its own arrival into it (k < n - 2). That slot
-also takes the arrival of step k + 2, so sends from step 2 on wait for a
-credit, which the neighbour grants after each fold (k < n - 3: a later
-grant has no send to use it). The last arrival is added to the rank's
-contribution to its own chunk outside the loop.
+The reduce-scatter protocol (``run_rs_fold_send``): chunk j starts at
+rank ``(j + 1) mod n`` and travels right, gathering each rank's
+contribution, and is complete on rank j after n - 1 hops. Step k = 1 ..
+n - 2 reads its arrival (at step 1 the left neighbour's own part of
+row-block ``(my_id - 2) mod n``, read where it lies; later the slot
+``k % 2`` the left neighbour's step k - 1 filled) and stores ``own part
+of row-block (my_id - k - 1) mod n + arrival`` straight into the right
+neighbour's slot ``(k + 1) % 2``; the last step stores ``arrival + own
+part of row-block my_id`` as the rank's result. From step 3 on a store
+reuses the slot the neighbour read in its previous step, so it waits for
+a credit, which the neighbour grants after its steps 2 .. n - 3.
+``reduce_scatter_moved_bytes`` counts what the kernel reads and writes.
 """
 
 from __future__ import annotations
@@ -229,7 +232,7 @@ def _library():
                                      ctypes.c_ulonglong, ctypes.c_void_p])
         lib.ring_all_gather_launch.restype = ctypes.c_int
         lib.ring_reduce_scatter_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ids, ids, ctypes.c_int,
+            [ctypes.c_void_p] * 4 + [ids, ids, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_ulonglong, ctypes.c_void_p])
         lib.ring_reduce_scatter_launch.restype = ctypes.c_int
@@ -343,6 +346,16 @@ def ring_reduce_scatter_plain(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([recv[r] + send[r] for r in range(n)], dim=0)
 
 
+def reduce_scatter_moved_bytes(n: int, block_bytes: int) -> int:
+    """Bytes the reduce-scatter kernel reads and writes, all ranks of a
+    ring of n: per rank n - 1 steps that each read the arrival and the own
+    block and write their sum, 3(n - 1) blocks. A ring of one moves
+    nothing."""
+    if n < 2:
+        return 0
+    return n * 3 * (n - 1) * block_bytes
+
+
 def ring_reduce_scatter_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
     """``ring_reduce_scatter_plain``'s function in one launch of the ring
     kernel, all n ranks on x's card, the same adds in the same order, so
@@ -362,15 +375,15 @@ def ring_reduce_scatter_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
     if block_bytes == 0:
         raise ValueError("ring_reduce_scatter_cuda: empty row-blocks")
     out = torch.empty((rows, x.shape[1]), dtype=x.dtype, device=x.device)
-    send, recv = (torch.empty(2 * n * block_bytes, dtype=torch.uint8,
-                              device=x.device) for _ in range(2))
+    slots = torch.empty(2 * n * block_bytes, dtype=torch.uint8,
+                        device=x.device)
     lib = _library()
     _launch("ring_reduce_scatter", x, n,
             lambda right, left, flags, epoch, stream:
             lib.ring_reduce_scatter_launch(
-                x.data_ptr(), out.data_ptr(), send.data_ptr(),
-                recv.data_ptr(), flags, right, left, n, block_bytes,
-                RS_KERNEL_DTYPES[x.dtype], epoch, stream))
+                x.data_ptr(), out.data_ptr(), slots.data_ptr(), flags,
+                right, left, n, block_bytes, RS_KERNEL_DTYPES[x.dtype],
+                epoch, stream))
     ring_reduce_scatter_cuda.launches += 1
     return out
 

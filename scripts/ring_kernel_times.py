@@ -10,13 +10,15 @@ parent commit unpacked with ``git archive`` into a directory that
 used, so two trees timed in turns in one command (parent, change, change,
 parent) compare on the same card. Prints one JSON line: ms of the one-way
 and the bidirectional ring all-gather at the probe's 16 MiB, of the ring
-reduce-scatter at 16 MiB a rank, of ring attention at S = 32768 f32 causal
-(8 ranks sharing the card), of the all-to-all at 16 MiB where the tree
-has it, of the tile kernels at the health/bench path's shapes (the
-burn chain at 1024^2, the burn tile at 2048^2, the matmul at 4096^3 with
-the full-K route's blocks), and, where the tree has them, of the
-collective matmuls at the tensor-parallel MLP's shapes (x [4096, 4096] @
-w1 [4096, 8192]; relu(h) [4096, 8192] @ w2 [8192, 4096]; 8 ranks sharing
+reduce-scatter at 16 MiB a rank and of the all-reduce composed of the two
+(``make_ring_all_gather`` after ``make_ring_reduce_scatter``), of ring
+attention at S = 32768 f32 causal (8 ranks sharing the card), of the
+all-to-all at 16 MiB where the tree has it, of the tile kernels at the
+health/bench path's shapes (the burn chain at 1024^2, the burn tile at
+2048^2, the matmul at 4096^3 with the full-K route's blocks and with the
+K-blocked route's), and, where the tree has them, of the collective
+matmuls at the tensor-parallel MLP's shapes (x [4096, 4096] @ w1
+[4096, 8192]; relu(h) [4096, 8192] @ w2 [8192, 4096]; 8 ranks sharing
 the card) in f32 and bf16, of the matmul reduce-scatter's f32 partial
 traffic alone (the same [4096, 4096] output and 8 ranks with a
 contraction of 8 a rank, so that the products are negligible and the
@@ -58,6 +60,9 @@ def main() -> int:
         torch, lambda: rp.ring_all_gather_cuda(x, n, True), n=10, warm=2)
     out["reduce_scatter_ms"] = c.time_ms(
         torch, lambda: rp.ring_reduce_scatter_cuda(X, n), n=10, warm=2)
+    rs = rp.make_ring_reduce_scatter(c.RING_MESH, "sp")
+    ag = rp.make_ring_all_gather(c.RING_MESH, "sp")
+    out["all_reduce_ms"] = c.time_ms(torch, lambda: ag(rs(X)), n=10, warm=2)
     out["ring_attn_ms"] = c.time_ms(
         torch, lambda: ra.ring_attention_cuda(q, k, v, n, True), n=5, warm=1,
         batch=2)
@@ -71,6 +76,8 @@ def main() -> int:
     mx, mw = c.randn_pair(torch, 4096, 4096, seed=3)
     out["matmul_ms"] = c.time_ms(
         torch, lambda: mxu_bench.pallas_matmul(mx, mw, 1024, 256, 4096))
+    out["matmul_kblocked_ms"] = c.time_ms(
+        torch, lambda: mxu_bench.pallas_matmul(mx, mw, 512, 512, 1024))
     if hasattr(c, "tp_weights"):
         from dpu_operator_tpu_torch.parallel import collective_matmul as cm
         n = c.TP_MESH["tp"]

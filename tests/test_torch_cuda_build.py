@@ -106,26 +106,42 @@ def test_only_the_header_defines_the_tile_product(form):
         assert form not in src.read_text(), src.name
 
 
-def test_collective_matmuls_multiply_bf16_on_wgmma_and_tile_mma_not_yet():
-    """The bf16 collective matmuls call the TMA-fed wgmma form, and no
-    longer the wmma one; the health/bench matmul keeps wmma for now."""
+def _body(src, signature):
+    """The text of the function whose definition starts with
+    ``signature``, to its closing brace at the start of a line."""
+    start = src.index(signature)
+    return src[start:src.index("\n}\n", start)]
+
+
+def test_bf16_products_multiply_on_wgmma_and_the_chain_on_wmma():
+    """The bf16 collective matmuls and the tile kernel (the burn tile and
+    the benchmark matmul) call the TMA-fed wgmma form, and no longer the
+    wmma one; the burn chain keeps wmma, so the header keeps that form."""
     src = (cuda_build.CSRC_DIR / "collective_matmul.cu").read_text()
     assert "tile::tile_product_wgmma(" in src
     assert "tile::tile_product<" not in src
     assert "tile::tile_product_f32<" in src
     mma = (cuda_build.CSRC_DIR / "tile_mma.cu").read_text()
-    assert "tile_product_wgmma" not in mma
-    assert "tile::tile_product<" in mma
+    tile = _body(mma, "    tile_kernel(")
+    assert "tile::tile_product_wgmma(" in tile
+    assert "tile::tile_product<" not in tile
+    chain = _body(mma, "    chain_kernel(")
+    assert "tile::tile_product<" in chain
+    assert "tile_product_wgmma" not in chain
 
 
 def test_collective_matmul_kernels_take_their_maps_as_grid_constants():
     """A tensor map must stay where the launch put it: a by-value
     parameter whose address is taken is otherwise copied to local memory,
-    where TMA cannot read it."""
-    src = (cuda_build.CSRC_DIR / "collective_matmul.cu").read_text()
-    for kernel in ("ag_matmul_kernel(", "mm_rs_kernel("):
-        decl = src[src.index(kernel):src.index(")", src.index(kernel))]
-        assert "const __grid_constant__" in decl, decl
+    where TMA cannot read it. So in every kernel that reads one: the
+    collective matmuls' and the tile kernel."""
+    for source, kernels in (("collective_matmul.cu",
+                             ("ag_matmul_kernel(", "mm_rs_kernel(")),
+                            ("tile_mma.cu", ("    tile_kernel(",))):
+        src = (cuda_build.CSRC_DIR / source).read_text()
+        for kernel in kernels:
+            decl = src[src.index(kernel):src.index(")", src.index(kernel))]
+            assert "const __grid_constant__" in decl, decl
 
 
 def test_nvcc_flags_are_unchanged_by_the_tensor_maps():
@@ -156,3 +172,32 @@ def test_ptxas_report_is_read_per_kernel():
         "ptxas info    : Used 123 registers, used 1 barriers, 64 bytes smem\n")
     assert chip_smoke.ptxas_entries(text) == {
         "_Z2k1I13__nv_bfloat16Evv": (185, 8, 4), "_Z2k2IfEvv": (123, 0, 0)}
+
+
+def test_wgmma_build_check_reads_the_tile_kernels():
+    """``chip_smoke.check_wgmma_build`` finds the tile kernel's four
+    instances (two widths, with and without tanh) in ``tile_mma``'s ptxas
+    report and fails on a spill."""
+    import chip_smoke
+
+    def entry(width, tanh, spill=0):
+        name = (f"_ZN12_GLOBAL__N_111tile_kernelILi{width}ELb{tanh}EEEvN12"
+                f"_GLOBAL__N_110TileParamsE")
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\n"
+                f"    0 bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads\n"
+                f"ptxas info    : Used 168 registers, used 1 barriers\n")
+
+    class Build:
+        build_logs = {"tile_mma": "".join(
+            entry(w, t) for w in (128, 256) for t in (0, 1))}
+
+    assert chip_smoke.check_wgmma_build(Build, "tile_mma") == (
+        "tile 128x128 168 registers, 0 spills, tile 128x128 tanh 168 "
+        "registers, 0 spills, tile 128x256 168 registers, 0 spills, "
+        "tile 128x256 tanh 168 registers, 0 spills")
+    Build.build_logs = {"tile_mma": entry(256, 1, spill=8) + entry(128, 1)
+                        + entry(256, 0) + entry(128, 0)}
+    with pytest.raises(AssertionError, match="spill"):
+        chip_smoke.check_wgmma_build(Build, "tile_mma")

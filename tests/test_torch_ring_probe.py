@@ -22,8 +22,13 @@ Bars:
     addition is the same IEEE operation on both sides.
 
 The reduce-scatter kernel itself runs only on a card; what guards its
-schedule here is a data-level simulation of it under adversarial and
-random interleavings, with and without the credits.
+schedule here is a step emulation of it on data
+(``_emulate_rs_fold_send``, the kernel's ``run_rs_fold_send``) under
+adversarial and random interleavings, with and without the credits,
+held bit for bit against the plain version and against the reference's
+Pallas kernel in interpret mode, and a data-level simulation of the
+older send-buffer schedule (``run_rs_ring``) that the matmul
+reduce-scatter still runs.
 """
 
 import random
@@ -545,3 +550,190 @@ def test_rs_ring_small_rings_need_no_credit(n):
     and waits for nothing, with or without the credit rule."""
     for credit in (False, True):
         assert _simulate_rs_ring(n, credit=credit, pick=_most_ahead)
+
+
+# -- the fold-and-send reduce-scatter, emulated step by step ------------------
+
+
+def _emulate_rs_fold_send(x, n, pick, credit=True):
+    """Step emulation of the reduce-scatter kernel's protocol
+    (``ring::run_rs_fold_send``) on data. x [n * rows, W], rank r's
+    contribution at rows ``r * rows ..``, cut into n row-blocks. Each rank
+    has two receive slots (tensors) and runs steps k = 1 .. n - 2 (wait,
+    from step 2 on, until its receive flag reaches k and, from step 3 on
+    and with ``credit``, its credit flag k - 1; store own row-block
+    ``r - k - 1`` + the arrival (at step 1 the left neighbour's row-block
+    ``r - 2``, read in place; later slot ``k % 2``) into the right
+    neighbour's slot ``(k + 1) % 2``, raise the right's receive flag to
+    k + 1 and, while 2 <= k < n - 2, the left's credit flag to k) and the
+    last step (wait, for n > 2, until its receive flag reaches n - 1;
+    arrival + own row-block r is its result). Flags only grow, as the
+    kernel's do. ``pick`` chooses among the (step, rank) events whose
+    waits are released; each runs whole. Returns (result [rows, W], bytes
+    read and written, stores into a slot whose content had not been
+    read)."""
+    rows = x.shape[0] // n
+    chunk = rows // n
+    parts = [c.split(chunk) for c in x.split(rows)]  # [rank][row-block]
+    block_bytes = chunk * x.shape[1] * x.element_size()
+    slots = [[None, None] for _ in range(n)]
+    unread = [[False, False] for _ in range(n)]
+    recv, credits = [0] * n, [0] * n
+    step = [1] * n
+    out = [None] * n
+    moved = overwrites = 0
+
+    def store(dst, s, value):
+        nonlocal overwrites
+        overwrites += unread[dst][s]
+        slots[dst][s], unread[dst][s] = value, True
+
+    def arrival(r, k):
+        if k == 1:
+            return parts[(r - 1) % n][(r - 2) % n]
+        unread[r][k % 2] = False
+        return slots[r][k % 2]
+
+    def released(r):
+        k = step[r]
+        if k == n - 1:
+            return n == 2 or recv[r] >= n - 1
+        return ((k < 2 or recv[r] >= k)
+                and (not credit or k < 3 or credits[r] >= k - 1))
+
+    while True:
+        events = [(step[r], r) for r in range(n)
+                  if step[r] < n and released(r)]
+        if not events:
+            break
+        k, r = pick(events)
+        right, left = (r + 1) % n, (r - 1) % n
+        if k < n - 1:
+            store(right, (k + 1) % 2, parts[r][(r - k - 1) % n]
+                  + arrival(r, k))
+            recv[right] = max(recv[right], k + 1)
+            if 2 <= k < n - 2:
+                credits[left] = max(credits[left], k)
+        else:
+            out[r] = arrival(r, k) + parts[r][r]
+        moved += 3 * block_bytes
+        step[r] += 1
+    assert step == [n] * n, f"deadlock at steps {step}"
+    return torch.cat(out), moved, overwrites
+
+
+RS_EMU_RINGS = (2, 3, 4, 5, 8)
+RS_EMU_TYPES = ("float32", "bfloat16", "int32")
+RS_EMU_WIDTH = 3  # one row a block: 12 bytes (6 in bf16), no 16-byte unit
+
+
+def _rs_emu_input(n, tname):
+    """x [n * n, 3] of ``tname`` from a seed: one-row blocks. Floats are
+    bf16-exact, so both frameworks round nothing on the way in; int32
+    values near 2**30, so the ring's sums wrap."""
+    rng = np.random.RandomState(70 + n)
+    if tname == "int32":
+        return rng.randint(-2 ** 30, 2 ** 30, (n * n, RS_EMU_WIDTH),
+                           dtype=np.int64).astype(np.int32) * 3
+    x = rng.randn(n * n, RS_EMU_WIDTH).astype(np.float32) * 100
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _bits(t):
+    """The bit patterns of a 2- or 4-byte tensor, as numpy."""
+    as_int = {2: torch.int16, 4: torch.int32}[t.element_size()]
+    return t.contiguous().view(as_int).numpy()
+
+
+@pytest.fixture(scope="module")
+def pallas_rs_bits(tmp_path_factory):
+    """The reference's Pallas reduce-scatter in interpret mode, one mesh
+    (1, n, 1) per ring size, every type of ``RS_EMU_TYPES``: the output's
+    bit patterns by (n, type). One subprocess (~20 s)."""
+    tmp = tmp_path_factory.mktemp("rs_emu")
+    src, dst = tmp / "in.npz", tmp / "out.npz"
+    np.savez(src, **{f"{n}_{t}": _rs_emu_input(n, t)
+                     for n in RS_EMU_RINGS for t in RS_EMU_TYPES})
+    r = run_virtual(
+        "import sys; sys.path.insert(0, %r)\n"
+        "import numpy as np, jax, jax.numpy as jnp\n"
+        "from jax.sharding import Mesh, NamedSharding, PartitionSpec as P\n"
+        "from jax.experimental.pallas import tpu as pltpu\n"
+        "from dpu_operator_tpu.parallel.ring_probe import (\n"
+        "    make_ring_reduce_scatter)\n"
+        "a = np.load(%r)\n"
+        "bits = {'float32': np.int32, 'bfloat16': np.int16,\n"
+        "        'int32': np.int32}\n"
+        "out = {}\n"
+        "with pltpu.force_tpu_interpret_mode():\n"
+        "    for key in a.files:\n"
+        "        n, t = key.split('_')\n"
+        "        m = Mesh(np.array(jax.devices()[:int(n)]).reshape(\n"
+        "            1, int(n), 1), axis_names=('dp', 'sp', 'tp'))\n"
+        "        x = jax.device_put(jnp.asarray(a[key]).astype(t),\n"
+        "                           NamedSharding(m, P('sp', None)))\n"
+        "        fn = make_ring_reduce_scatter(m, 'sp', use_pallas=True)\n"
+        "        out[key] = np.asarray(fn(x)).view(bits[t])\n"
+        "np.savez(%r, **out)\n" % (REPO, str(src), str(dst)))
+    assert r.returncode == 0, r.stdout + r.stderr
+    return dict(np.load(dst))
+
+
+def _pickers(n):
+    """Adversarial orders (the rank furthest along first; the one least
+    along first) and 20 random ones."""
+    rng = random.Random(4321 + n)
+    return [max, min] + [rng.choice] * 20
+
+
+@pytest.mark.parametrize("tname", RS_EMU_TYPES)
+@pytest.mark.parametrize("n", RS_EMU_RINGS)
+def test_rs_fold_send_emulation_matches_plain_and_pallas(n, tname,
+                                                         pallas_rs_bits):
+    """Under every order of events the emulated kernel gives the plain
+    version's bits and the reference Pallas kernel's, overwrites no slot
+    before it was read, and moves 3(n - 1) blocks a rank."""
+    x = torch.from_numpy(_rs_emu_input(n, tname)).to(getattr(torch, tname))
+    want = rp.ring_reduce_scatter_plain(x, n)
+    np.testing.assert_array_equal(_bits(want),
+                                  pallas_rs_bits[f"{n}_{tname}"])
+    block_bytes = RS_EMU_WIDTH * x.element_size()
+    assert block_bytes % 16
+    for i, pick in enumerate(_pickers(n)):
+        got, moved, overwrites = _emulate_rs_fold_send(x, n, pick)
+        np.testing.assert_array_equal(_bits(got), _bits(want), err_msg=str(i))
+        assert overwrites == 0, i
+        assert moved == n * 3 * (n - 1) * block_bytes
+        assert moved == rp.reduce_scatter_moved_bytes(n, block_bytes)
+
+
+@pytest.mark.parametrize("n", [5, 6, 8])
+def test_rs_fold_send_without_credits_overwrites_a_slot(n):
+    """Without the credits the rank furthest along stores into a slot
+    whose arrival its neighbour has not read yet: the emulation must show
+    the race the credits close, or it no longer models it."""
+    x = torch.from_numpy(_rs_emu_input(n, "float32"))
+    _, _, overwrites = _emulate_rs_fold_send(x, n, max, credit=False)
+    assert overwrites > 0
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_rs_fold_send_small_rings_need_no_credit(n):
+    """Rings of 2, 3 and 4 never reuse a receive slot: without the credit
+    rule, in every order, nothing is overwritten unread."""
+    x = torch.from_numpy(_rs_emu_input(n, "float32"))
+    want = rp.ring_reduce_scatter_plain(x, n)
+    for pick in _pickers(n):
+        got, _, overwrites = _emulate_rs_fold_send(x, n, pick, credit=False)
+        assert overwrites == 0 and torch.equal(got, want)
+
+
+def test_reduce_scatter_moved_bytes():
+    """The probe's 16 MiB a rank at n = 8 (2 MiB blocks): 336 MiB, where
+    the send-buffer schedule moved 2n + 2(n - 1) + 3(n - 2) + 3 = 51
+    blocks a rank, 816 MiB. A ring of one moves nothing."""
+    mib = 2 ** 20
+    assert rp.reduce_scatter_moved_bytes(8, 2 * mib) == 336 * mib
+    assert 8 * (2 * 8 + 2 * 7 + 3 * 6 + 3) * 2 * mib == 816 * mib
+    assert rp.reduce_scatter_moved_bytes(2, 12) == 2 * 3 * 12
+    assert rp.reduce_scatter_moved_bytes(1, 12) == 0
