@@ -40,15 +40,21 @@ Phases, each of which raises on failure:
                2048^2 burn (eight tile launches), the block-config sweep
                of ``mxu_bench``, and one ``bench_gpu`` run in a process
                of its own, whose JSON is logged.
-  8. ring    — ring attention: small rings (n 1, 2, 4, 8; heads up to
-               256 wide; mixed bf16/f32 inputs) against the plain
-               version; the long-context path
-               (``make_ring_attention``, 8 ranks on the one card) at
-               S = 32768, d 128, f32 and bf16, causal and not, and at
+  8. ring    — ring attention: the kernel's eight instances built
+               with no spills (ptxas); small rings (n 1-8; shards off
+               the 128-row tile; heads up to 256 wide and off the mma's
+               8; mixed bf16/f32 inputs) against the plain version; f32
+               with q scaled, where the TF32 split holds the f32 bar and
+               one TF32 pass (emulated) must miss it; the long-context
+               path (``make_ring_attention``, 8 ranks on the one card)
+               at S = 32768, d 128, f32 and bf16, causal and not, and at
                the reference's proof shape S = 1024 bf16, each against
                the plain version; 20 repeats bitwise equal; times of the
                kernel, the plain version and one
-               ``scaled_dot_product_attention`` call (a yardstick only).
+               ``scaled_dot_product_attention`` call (a yardstick only,
+               its kernels named from ``torch.profiler``) beside two
+               bounds, the split's passes at the TF32 peak (the
+               record's) and the flops at the f32 FMA peak.
   9. collectives — the ring collectives of the fabric probe: the one-way
                and the bidirectional ring all-gather and the ring
                reduce-scatter. Small rings (n 1, 2, 3, 4, 8; f32, bf16,
@@ -133,6 +139,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 
 SOURCES = ("paged_attn", "tile_mma", "ring_attn", "ring_collectives",
@@ -190,15 +197,23 @@ RING_MESH = {"dp": 1, "sp": 8, "tp": 1}
 RING_S, RING_D = 32768, 128
 RING_AOT_S = 1024
 # Small rings held against the plain version: (n, S, dk, dv, q, k, v
-# types) -- the reference tests' widths, a shard that is no multiple of
-# the kernel's 64-row tile, the widest heads (dv > 128 takes the
-# kernel's other instance), and the mixed types: bf16 q and k with f32
-# v (K/V then circulate as f32), f32 q with bf16 K/V. Each names the
-# inputs it rounds to bf16.
+# types) -- the reference tests' widths, shards that are no multiple of
+# the kernel's 128-row tile (100, 120, 200 rows), head widths that are
+# no multiple of 8 (20, 12, 100; the kernel pads dk to 16 and dv to 8),
+# the widest heads (dk or dv > 128 takes the kernel's other instance),
+# and the mixed types: bf16 q and k with f32 v (K/V then circulate as
+# f32), f32 q with bf16 K/V, bf16 q with f32 K/V. Each names the inputs
+# it rounds to bf16.
 RING_SMALL = ((1, 256, 16, 8, ""), (2, 256, 16, 8, ""), (4, 256, 16, 8, ""),
               (4, 400, 128, 128, ""), (8, 4096, 16, 8, ""),
               (2, 512, 256, 256, ""), (4, 400, 64, 192, "qk"),
-              (8, 1024, 128, 128, "kv"))
+              (8, 1024, 128, 128, "kv"), (3, 360, 20, 12, ""),
+              (5, 1000, 200, 100, "q"), (3, 360, 20, 12, "qkv"))
+# f32 q scaled by RING_Q_SCALE at d 128 (scores ~N(0, 16)): the kernel's
+# split holds the f32 bar, and one TF32 pass (``ring_attention_split``
+# with ``single``, on the card) must miss it, or the case does not bite.
+RING_SCALED = (4, 1024, 128, 128)
+RING_Q_SCALE = 4.0
 RING_REPEATS = 20
 # Kernel vs plain in f32: both sum f32 products over up to 32 768 keys in
 # another order (64-key tiles vs whole blocks), with expf vs torch.exp:
@@ -950,15 +965,66 @@ def ring_inputs(torch, S, dk, dv, dtype, seed):
 
 
 def ring_cost(S, n, dk, dv, causal, kv_item, q_item):
-    """(bytes, flops) of one ring attention over S rows cut into n
-    shards: q, k, v read once, out written once, and each rank's relay
-    of n - 1 packed K/V shards; 2 (dk + dv) flops per (row, key) pair
-    attended."""
+    """(bytes, flops, TF32 flops) of one ring attention over S rows cut
+    into n shards: q, k, v read once, out written once, and each rank's
+    relay of n - 1 packed K/V shards; 2 (dk + dv) flops per (row, key)
+    pair attended; and those flops times the kernel's split passes (q . k
+    3, less one for each bf16 operand; p . v 3, 2 with bf16 V)."""
     pairs = S * (S + 1) // 2 if causal else S * S
     sk = S // n
     nbytes = (S * dk * q_item + S * (dk + dv) * kv_item + S * dv * q_item
               + n * (n - 1) * sk * (dk + dv) * kv_item)
-    return nbytes, 2 * (dk + dv) * pairs
+    qk_passes = 1 + (q_item == 4) + (kv_item == 4)
+    pv_passes = 2 + (kv_item == 4)
+    return (nbytes, 2 * (dk + dv) * pairs,
+            2 * pairs * (dk * qk_passes + dv * pv_passes))
+
+
+def sdpa_kernels(torch, q4, k4, v4, causal, calls=5):
+    """Names of the CUDA kernels that ``torch.profiler`` records for
+    ``scaled_dot_product_attention`` calls: which of PyTorch's attention
+    kernels the yardstick is. Up to ``PROFILE_WINDOWS`` windows of
+    ``calls`` calls, as ``device_ms`` reads them: the profiler at times
+    drops every launch record of a window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=causal)
+            torch.cuda.synchronize()
+        names = sorted({evt.name for evt in prof.events()
+                        if str(evt.device_type).endswith("CUDA")})
+        if names:
+            return names
+    return [f"(no device event recorded in {PROFILE_WINDOWS} windows)"]
+
+
+def check_ring_attn_build(cuda_build):
+    """The ring attention kernel's eight instances (q f32/bf16 x K/V
+    f32/bf16 x two widths) as ptxas reported them in this run: no spills.
+    Returns a line for the log."""
+    text = cuda_build.build_logs.get("ring_attn")
+    if text is None:
+        return ("ring_attn: ptxas report not in this run (the library was "
+                "built earlier in this checkout)")
+    kernels = {}
+    for name, regs in ptxas_entries(text).items():
+        found = re.search(r"ring_attn_kernelI(.*?)Li(\d+)ELi(\d+)E", name)
+        if found:
+            # bf16 mangles as its name, or as a back-reference once named
+            types = re.sub(r"S\d*_", "b",
+                           found[1].replace("13__nv_bfloat16", "b"))
+            tag = "/".join("bf16" if c == "b" else "f32" for c in types)
+            kernels[f"{tag} {found[2]} keys x dv {8 * int(found[3])}"] = regs
+    check(len(kernels) == 8, f"ring_attn: ptxas reported {sorted(kernels)}")
+    for name, (regs, stores, loads) in kernels.items():
+        check(stores == 0 and loads == 0,
+              f"ring_attn {name}: {stores} B spill stores, {loads} B loads")
+    return ", ".join(f"{name} {regs} registers, 0 spills"
+                     for name, (regs, _, _) in sorted(kernels.items()))
 
 
 def ring_compare(torch, burn, tag, got, want):
@@ -987,9 +1053,11 @@ def phase_ring(torch, card):
     just before), each output against the plain version, 20 repeats
     bitwise equal, and times of the kernel, the plain version and one
     ``scaled_dot_product_attention`` call."""
+    from dpu_operator_tpu_torch import cuda_build
     from dpu_operator_tpu_torch.parallel import burn
     from dpu_operator_tpu_torch.parallel import ring_attention as ra
 
+    log(f"ring: ptxas {check_ring_attn_build(cuda_build)}")
     n = RING_MESH["sp"]
     for i, (ns, S, dk, dv, in_bf16) in enumerate(RING_SMALL):
         q, k, v = (t.to(torch.bfloat16) if name in in_bf16 else t
@@ -1002,6 +1070,22 @@ def phase_ring(torch, card):
                 torch, burn, tag, ra.ring_attention_cuda(q, k, v, ns, causal),
                 ra.ring_attention_plain(q, k, v, ns, causal))
             log(f"{tag}: max |err| {err:.3e} ({bar})")
+    ns, S, dk, dv = RING_SCALED
+    q, k, v = ring_inputs(torch, S, dk, dv, torch.float32, seed=19)
+    q = q * RING_Q_SCALE
+    for causal in (False, True):
+        tag = (f"ring n={ns} S={S} dk={dk} dv={dv} f32, q x {RING_Q_SCALE}, "
+               f"causal={causal}")
+        want = ra.ring_attention_plain(q, k, v, ns, causal)
+        err, bar = ring_compare(torch, burn, tag,
+                                ra.ring_attention_cuda(q, k, v, ns, causal),
+                                want)
+        one = ra.ring_attention_split(q, k, v, ns, causal, single=True)
+        check(not torch.allclose(one, want, rtol=RING_RTOL, atol=RING_ATOL),
+              f"{tag}: one TF32 pass meets the f32 bar; the case does not "
+              f"bite")
+        log(f"{tag}: max |err| {err:.3e} ({bar}); one TF32 pass (emulated) "
+            f"{float((one - want).abs().max()):.3e}, outside the bar")
 
     cases = [(S, dtype, causal)
              for S, dtypes in ((RING_S, (torch.float32, torch.bfloat16)),
@@ -1043,14 +1127,22 @@ def phase_ring(torch, card):
         library_ms = time_ms(
             torch, lambda: torch.nn.functional.scaled_dot_product_attention(
                 q4, k4, v4, is_causal=causal), n=5, warm=1, batch=2)
+        if S == RING_S and causal:
+            log(f"{tag}: scaled_dot_product_attention runs "
+                f"{', '.join(sdpa_kernels(torch, q4, k4, v4, causal))}")
         item = 2 if dtype == torch.bfloat16 else 4
-        nbytes, flops = ring_cost(S, n, RING_D, RING_D, causal, item, item)
+        nbytes, flops, tf32_flops = ring_cost(S, n, RING_D, RING_D, causal,
+                                              item, item)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        t_fma = flops / FP32_FLOP_PER_S * 1e3
+        t_ops = tf32_flops / TF32_FLOP_PER_S * 1e3
         log(f"{tag}: max |err| {err:.3e} ({bar}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, scaled_dot_product_attention "
-            f"{library_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-            f"({nbytes} B, {flops} flop) [{card}]")
+            f"{library_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms on the "
+            f"TF32 split ({tf32_flops} flop of passes at "
+            f"{TF32_FLOP_PER_S:.3g}/s), {max(t_bytes, t_fma):.4f} ms on "
+            f"the f32 FMA pipes ({flops} flop at {FP32_FLOP_PER_S:.3g}/s), "
+            f"{t_bytes:.4f} ms of bytes ({nbytes} B) [{card}]")
         if S == RING_S and dtype == torch.float32 and causal:
             record = dict(
                 name="ring_attn", route="cuda",

@@ -9,52 +9,86 @@
 // and the C entry point.
 //
 // Layout. One cooperative launch (`ring::launch_ring`) holds every rank:
-// n x G CTAs of 256 threads, G per rank, one per 64-row tile up to what
-// the card holds at once (the occupancy query decides). A rank's query rows are cut into 64-row tiles, dealt
-// round-robin to its G CTAs. Where a step brings a block, a CTA folds it
-// into each of its tiles in turn: the tile's Q rows and 64-key tiles of
-// K and V go through shared memory as f32, each thread computes a 4 x 4
-// patch of the scores (rows ty*4.., keys tx + 16j) and keeps a 4-row
-// patch of o in registers (columns tx*4 + 64g ..+3). Between steps a
+// n x G CTAs of 256 threads, G per rank, one per 128-row tile up to what
+// the card holds at once (one CTA an SM: a tile's shared memory is 209
+// KiB at d = 128 with f32 K/V, and o takes 64 registers a thread). A
+// rank's query rows are cut into 128-row tiles, dealt round-robin to its
+// G CTAs, and each of the eight warps owns 16 rows. Where a step brings
+// a block, a CTA folds it into each of its tiles in turn, one key tile
+// at a time (64 keys; 16 where dk or dv exceeds 128, the second
+// instance, whose o takes 128 registers). The tile's Q rows sit in
+// shared memory as f32; each key tile's K and V are split once, as they
+// are loaded, into TF32 hi and lo planes (bf16 K/V: hi only), so the
+// eight warps that read them do not split them again. Each warp
+// multiplies on the tensor cores with mma.sync m16n8k8. Between steps a
 // tile's running max m, denominator l and accumulator o live in an f32
-// scratch in device memory (the TPU kept them in VMEM; 2 MiB of o per
-// rank at sq = 4096, dv = 128), written and read back by the same CTA.
+// scratch in device memory (the TPU kept them in VMEM), written and read
+// back by the same CTA; after the last step the CTA divides from there.
 //
-// Arithmetic is the reference's: every product in f32, bf16 inputs
-// included (the reference casts q and the block to f32 before its dots),
-// s = (q . k) * (1 / sqrt(dk)), masked to -1e30 where a key's global
-// position idx * sk + c exceeds the row's my_id * sq + r, the online
-// update m' = max(m, max s), p = exp(s - m'), alpha = exp(m - m'),
+// Arithmetic. The recurrence is the reference's: s = (q . k) *
+// (1 / sqrt(dk)), masked to -1e30 where a key's global position
+// idx * sk + c exceeds the row's my_id * sq + r, the online update
+// m' = max(m, max s), p = exp(s - m'), alpha = exp(m - m'),
 // l' = l * alpha + sum p, o' = o * alpha + p v with the accurate expf,
-// and out = o / (l == 0 ? 1 : l), rounded once to q's type. The sums run
-// in a fixed order, so a result is the same bit for bit on every call.
+// and out = o / (l == 0 ? 1 : l), rounded once to q's type. Both
+// products keep f32 accuracy on the TF32 tensor cores by a split: hi =
+// x rounded as cvt.rna.tf32.f32 rounds it, lo = x - hi rounded the same
+// way, and a . b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms
+// first (the dropped lo_a lo_b and the residuals are ~2^-22 of a
+// product). A pass is dropped only where its lo is zero by type: a bf16
+// value is exact in TF32 (8 mantissa bits within 10). So q . k takes 3
+// passes, 2 where q or K is bf16, 1 where both are; p . v takes 3, 2
+// where V is bf16 (p, from expf, is always f32). The tensor cores'
+// sums truncate, so a long run of them into one accumulator drifts (o
+// over a 32 768-key ring missed the bf16 bar by an ulp): a key tile's
+// p . v goes into fresh accumulators, folded into o by one fmaf,
+// o * alpha + acc. The scores' 3 x dk / 8 passes run into one
+// accumulator. The sums run in a fixed order, so a result is the same
+// bit for bit on every call.
+//
+// Fragments. The m16n8k8 accumulator holds (row g, cols 2t, 2t+1) and
+// (row g + 8, the same cols) of an 8-key group, g = lane / 4, t = lane %
+// 4; its A operand wants (g, t) and (g, t + 4). The contraction index
+// may be permuted as long as A and B agree, so p . v takes A's k = t as
+// key 2t and k = t + 4 as key 2t + 1: the score fragment is p's A
+// fragment as it stands, with no pass through shared memory, and B reads
+// V's rows 2t and 2t + 1 at once from a tile stored in row pairs (hi,
+// hi, lo, lo: one 16-byte read). Likewise q . k takes, in a 16-wide
+// slice of dk, k = t as column 4t (4t + 2 in the slice's second mma)
+// and k = t + 4 as 4t + 1 (4t + 3), so a Q fragment, a K hi fragment and
+// a K lo fragment are one float4 each. Strides: Q and K rows are dk
+// zero-padded to 16, plus 16 mod 32 words, so a quarter-warp's 16-byte
+// reads hit 8 distinct 16-byte bank groups; V's pair rows are dv
+// zero-padded to 8, plus 2 mod 8 16-byte units (bf16 V, 8-byte units: 4
+// mod 16), likewise.
 //
 // Causal skipping. A key tile that lies wholly above a row tile's last
-// row is skipped, and the tiles after it too. That is exact: every row
-// has seen a valid key before any fully masked tile reaches it (the
-// first block folded is the rank's own, whose first key tile holds a key
-// at or below every row), and a fully masked tile then adds
-// exp(-1e30 - m) = 0 and rescales by exp(0) = 1. A skipped block is
-// still relayed. Keys past sk in the last tile are padding, not masked
-// keys: their score is -inf, so they weigh 0 even in a row that has not
-// yet seen a valid key.
+// row is not loaded, and the tiles after it neither; a warp skips the
+// tiles wholly above its own last row, and masks only the tiles that
+// cross its rows or hold padding. That is exact: every row has seen a
+// valid key before any fully masked tile reaches it (the first block
+// folded is the rank's own, whose first key tile holds a key at or below
+// every row), and a fully masked tile then adds exp(-1e30 - m) = 0 and
+// rescales by exp(0) = 1. A skipped block is still relayed. Keys past sk
+// in the last tile are padding, not masked keys: their score is -inf, so
+// they weigh 0 even in a row that has not yet seen a valid key.
 //
 // What bounds it: operations, 2 (dk + dv) flops per (row, key) pair
-// attended, in f32 outside the tensor cores (67 TFLOP/s on the H100);
-// the bytes (q, k, v, out and the relay) are two orders below. So the
-// design keeps the FMA pipes fed from shared memory: operands are read
-// as float4 (one 16-byte load feeds 16 FMAs of the score patch and 16 of
-// the o patch), row strides rotate by 16 bytes so the 16 key rows of a
-// load fall in distinct banks, and the probability tile reuses the K
-// tile's space, which lets two CTAs share an SM at d = 128. Still to do:
-// tensor cores, overlapping the relay and the next tile's loads with the
-// fold, and the causal imbalance (rank n - 1 attends nearly n blocks,
-// rank 0 one, and every rank has G CTAs).
+// attended, times the passes, at the TF32 tensor-core peak (495 TFLOP/s
+// dense on the H100; mma.sync m16n8k8 alone reaches about 315 there; the
+// FMA form this replaced was held to the f32 peak, 67 TFLOP/s); the
+// bytes (q, k, v, out and the relay) are two orders below. Still to do:
+// the causal imbalance (rank n - 1 attends nearly n blocks, rank 0 one,
+// and every rank has G CTAs), overlapping the relay and the next key
+// tile's loads with the fold (with one CTA an SM, the loads stall the
+// tensor cores), and a wgmma/TMA form.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ring_stream.cuh"
 
@@ -62,12 +96,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// 256 = 16 x 16: ty picks 4 rows, tx columns.
 constexpr int kThreads = ring::kThreads;
-static_assert(kThreads == 256, "the 16 x 16 thread layout");
-constexpr int kBM = 64;        // query rows of a tile
-constexpr int kBN = 64;        // keys of a tile
-constexpr int kLdp = kBN + 4;  // row stride of the probability tile
+static_assert(kThreads == 256, "eight warps of 16 query rows");
+constexpr int kBM = 16 * kThreads / 32;  // query rows of a tile: 128
 constexpr int kMaxRanks = ring::kMaxRanks;
 constexpr int kMaxDim = 256;
 constexpr float kNegInf = -1e30f;  // not -inf: (-inf) - (-inf) is NaN
@@ -88,13 +119,23 @@ struct Params {
   unsigned long long epoch;
 };
 
-__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
 
-// Row stride (floats) of the Q and K tiles: 16-byte rows whose starts
-// rotate through the eight 16-byte bank groups.
-__host__ __device__ inline int q_stride(int dk) {
-  const int d4 = round4(dk);
-  return (d4 / 4) % 2 ? d4 : d4 + 4;
+// Row stride (words) of the Q and K tiles: dk padded to 16, then to 16
+// mod 32.
+__host__ __device__ inline int qk_stride(int dk) {
+  const int w = round_up(dk, 16);
+  return w + ((16 - w) & 31);
+}
+
+// Pair-row stride of the V tile, in float2s (bf16 V: one value of each
+// row) or in uint4s (f32 V: hi and lo of each row): dv padded to 8, then
+// to 4 mod 16 or 2 mod 8.
+__host__ __device__ inline int v_stride(int dv, bool exact) {
+  const int w = round_up(dv, 8);
+  return exact ? w + ((4 - w) & 15) : w + ((2 - w) & 7);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -104,14 +145,16 @@ __device__ __forceinline__ float to_f32(unsigned short bits) {
 }
 
 template <typename T>
-struct Raw;  // how a value of T is loaded bit for bit
+struct Raw;  // how four values of T are loaded bit for bit
 template <>
 struct Raw<float> {
   using type = float;
+  using vec = uint4;
 };
 template <>
 struct Raw<bf16> {
   using type = unsigned short;
+  using vec = uint2;
 };
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
@@ -120,56 +163,127 @@ __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// dst[r * ld + c] = f32(src[r * src_ld + c]) for r < kBN rows and
-// c < cols_pad (a multiple of 4), 0 where r >= rows or c >= cols. Read
-// through L2 only (ld.global.cg), 16 bytes at a time where the rows
-// allow it. All threads of the CTA call it.
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero, the low 13 bits of the f32 pattern cleared), in two integer
+// ops: ptxas expands the cvt into four, with a guard for NaN and inf
+// that finite attention inputs never need (a NaN still propagates: its
+// lo is NaN).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x's TF32 lo: x - hi rounded the same way.
+__device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
+  return tf32(x - __uint_as_float(hi));
+}
+
+// Columns c .. c + 3 of a row as f32, 0 past `cols`. Read through L2
+// only (ld.global.cg), as one 8- or 16-byte load where `vec` allows it.
 template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          long long src_ld, int rows,
-                                          int cols, int cols_pad) {
+__device__ __forceinline__ float4 load4(const T* row, int c, int cols,
+                                        bool vec) {
   using R = typename Raw<T>::type;
-  constexpr int kVec = 16 / sizeof(T);
-  const R* s = reinterpret_cast<const R*>(src);
-  if (cols % kVec == 0 && src_ld % kVec == 0 &&
-      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int chunks = cols / kVec;
-    for (int e = threadIdx.x; e < kBN * chunks; e += kThreads) {
-      const int r = e / chunks, c = e % chunks * kVec;
-      float* d = dst + r * ld + c;
-      if (r >= rows) {
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) d[i] = 0.f;
-        continue;
-      }
-      const uint4 raw = __ldcg(reinterpret_cast<const uint4*>(
-          s + static_cast<long long>(r) * src_ld + c));
-      const R* v = reinterpret_cast<const R*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kVec; i += 4) {
-        *reinterpret_cast<float4*>(d + i) =
-            make_float4(to_f32(v[i]), to_f32(v[i + 1]), to_f32(v[i + 2]),
-                        to_f32(v[i + 3]));
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < kBN * cols; e += kThreads) {
-      const int r = e / cols, c = e % cols;
-      dst[r * ld + c] =
-          r < rows ? to_f32(__ldcg(s + static_cast<long long>(r) * src_ld + c))
-                   : 0.f;
-    }
+  using V = typename Raw<T>::vec;
+  const R* s = reinterpret_cast<const R*>(row) + c;
+  if (vec && c + 4 <= cols) {
+    const V raw = __ldcg(reinterpret_cast<const V*>(s));
+    const R* v = reinterpret_cast<const R*>(&raw);
+    return make_float4(to_f32(v[0]), to_f32(v[1]), to_f32(v[2]),
+                       to_f32(v[3]));
   }
-  for (int e = threadIdx.x; e < kBN * (cols_pad - cols); e += kThreads) {
-    const int w = cols_pad - cols;
-    dst[e / w * ld + cols + e % w] = 0.f;
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = c + i < cols ? to_f32(__ldcg(s + i)) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Calls put(r, c, a, b) with a = columns c .. c + 3 of row r and b those
+// of row r + 1 (kPairs; r even) or zero, as f32, for every r < nrows and
+// c < cols_pad (a multiple of 4); rows from `rows` on and columns from
+// `cols` on read as 0. All threads of the CTA call it; each issues its
+// next kBatch loads before it stores any.
+template <bool kPairs, int kBatch, typename T, typename Put>
+__device__ __forceinline__ void load_tile(const T* src, long long src_ld,
+                                          int rows, int nrows, int cols,
+                                          int cols_pad, Put put) {
+  const bool vec = cols % 4 == 0 && src_ld % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(src) & (4 * sizeof(T) - 1)) ==
+                       0;
+  const int chunks = cols_pad / 4;
+  const int total = (kPairs ? nrows / 2 : nrows) * chunks;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * kThreads) {
+    float4 a[kBatch], b[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      const int r = e / chunks * (kPairs ? 2 : 1), c = e % chunks * 4;
+      a[u] = e < total && r < rows ? load4(src + r * src_ld, c, cols, vec)
+                                   : zero;
+      if (kPairs) {
+        b[u] = e < total && r + 1 < rows
+                   ? load4(src + (r + 1) * src_ld, c, cols, vec)
+                   : zero;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int e = e0 + u * kThreads;
+      if (e < total) {
+        put(e / chunks * (kPairs ? 2 : 1), e % chunks * 4, a[u], b[u]);
+      }
+    }
   }
 }
 
-// Folds each block into every row tile this CTA owns. NG groups of four
-// o columns per thread: dv <= 64 * NG.
-template <typename QT, typename KT, int NG>
+// c += a . b on the tensor cores, one m16n8k8 TF32 product.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment split into TF32 hi and lo (lo left unset where exact).
+template <bool kExact>
+struct SplitA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ SplitA() {}
+  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
+    const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[i] = tf32(a[i]);
+      if (!kExact) lo[i] = tf32_lo(a[i], hi[i]);
+    }
+  }
+};
+
+// c += a . b with f32 accuracy, b given split (h, l): lo_a h + hi_a l +
+// hi_a h, a pass dropped where its operand is exact in TF32.
+template <bool kAExact, bool kBExact>
+__device__ __forceinline__ void split_mma(float (&c)[4],
+                                          const SplitA<kAExact>& a,
+                                          uint32_t h0, uint32_t h1,
+                                          uint32_t l0, uint32_t l1) {
+  if (!kAExact) mma(c, a.lo, h0, h1);
+  if (!kBExact) mma(c, a.hi, l0, l1);
+  mma(c, a.hi, h0, h1);
+}
+
+// Folds each block into every row tile this CTA owns. kBN keys a tile;
+// NT 8-column groups of o a warp: dv <= 8 * NT.
+template <typename QT, typename KT, int kBN, int NT>
 struct AttnConsumer {
+  static constexpr bool kQExact = std::is_same<QT, bf16>::value;
+  static constexpr bool kKExact = std::is_same<KT, bf16>::value;
+  static constexpr int kJ = kBN / 8;  // 8-key groups of a tile
+  static constexpr int kC = 4;        // o column groups a p . v pass
+  // Loads a thread issues before it stores: fewer where o takes 128
+  // registers.
+  static constexpr int kBatch = NT > 16 ? 2 : 8;
+
   const Params& p;
   int rank;
   int cta;
@@ -180,187 +294,248 @@ struct AttnConsumer {
     const QT* q = static_cast<const QT*>(p.q);
     const int dk = p.dk, dv = p.dv, sq = p.sq, sk = p.sk;
     const int width = dk + dv;
-    const int dkp = round4(dk), ldq = q_stride(dk);
-    constexpr int kLdv = 64 * NG;
-    float* qs = smem;                 // [kBM][ldq]
-    float* ks = qs + kBM * ldq;       // [kBN][ldq], then the p tile
-    float* ps = ks;                   // [kBM][kLdp]
-    float* vs = ks + max(kBN * ldq, kBM * kLdp);  // [kBN][kLdv]
-    const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+    const int dkp = round_up(dk, 16), dvp = round_up(dv, 8);
+    const int ldq = qk_stride(dk), ldv = v_stride(dv, kKExact);
+    // [kBM][ldq] f32 q; [kBN][ldq] K hi, then (f32 K) lo; V pair rows
+    float* qs = smem;
+    uint32_t* kh = reinterpret_cast<uint32_t*>(qs + kBM * ldq);
+    uint32_t* kl = kh + kBN * ldq;
+    uint32_t* vs = kh + (kKExact ? 1 : 2) * kBN * ldq;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
     const int tiles = (sq + kBM - 1) / kBM;
     const long long k_base = static_cast<long long>(idx) * sk;
     const long long q_base = static_cast<long long>(rank) * sq;
+    const float* qa = qs + (16 * warp + g) * ldq + 4 * t;
+    const int kb = g * ldq + 4 * t;
+    const int vb = (t * ldv + g) * (kKExact ? 2 : 4);
+    const int cols[2] = {(dv - 2 * t + 7) / 8, (dv - 2 * t + 6) / 8};
 
-    for (int t = cta; t < tiles; t += p.ctas) {
-      const int r0 = t * kBM;
+    for (int tile = cta; tile < tiles; tile += p.ctas) {
+      const int r0 = tile * kBM;
+      const int w0 = r0 + 16 * warp;  // this warp's first row
       __syncthreads();  // the previous tile is done with shared memory
-      load_tile(qs, ldq, q + (q_base + r0) * dk, dk, min(kBM, sq - r0), dk,
-                dkp);
+      load_tile<false, kBatch>(
+          q + (q_base + r0) * dk, dk, min(kBM, sq - r0), kBM, dk, dkp,
+          [&](int r, int c, float4 a, float4) {
+            *reinterpret_cast<float4*>(qs + r * ldq + c) = a;
+          });
 
-      float m[4], l[4], o[4][4 * NG];
+      // Rows w0 + g (i = 0) and w0 + g + 8 (i = 1); o[j][2i + e] holds
+      // column 8j + 2t + e, which is below dv where j < cols[e].
+      float m[2], l[2], o[NT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = r0 + ty * 4 + i;
+      for (int i = 0; i < 2; ++i) {
+        const int row = w0 + g + 8 * i;
         const bool live = k > 0 && row < sq;
         const long long at = q_base + row;
+        const float* src = p.o + at * dv + 2 * t;
         m[i] = live ? p.m[at] : kNegInf;
         l[i] = live ? p.l[at] : 0.f;
 #pragma unroll
-        for (int jj = 0; jj < 4 * NG; ++jj) {
-          const int col = tx * 4 + 64 * (jj / 4) + jj % 4;
-          o[i][jj] = live && col < dv ? p.o[at * dv + col] : 0.f;
-        }
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            o[j][2 * i + e] = live && j < cols[e] ? src[8 * j + e] : 0.f;
+          }
       }
 
       int key_tiles = (sk + kBN - 1) / kBN;
-      if (p.causal) {  // tiles that start at or below the tile's last row
+      int warp_tiles = w0 < sq ? key_tiles : 0;
+      if (p.causal) {  // tiles that start at or below the last row
         const long long last = q_base + min(r0 + kBM, sq) - 1 - k_base;
         key_tiles = last < 0 ? 0 : min(key_tiles,
                                        static_cast<int>(last / kBN) + 1);
+        const long long mine = q_base + min(w0 + 16, sq) - 1 - k_base;
+        warp_tiles = mine < 0 ? 0 : min(warp_tiles,
+                                        static_cast<int>(mine / kBN) + 1);
       }
       for (int kt = 0; kt < key_tiles; ++kt) {
         const int c0 = kt * kBN;
-        const int keys = min(kBN, sk - c0);
-        __syncthreads();  // q in place; the last tile's p and v read
+        __syncthreads();  // q in place; the last tile's K and V read
         const KT* rows = block + static_cast<long long>(c0) * width;
-        load_tile(ks, ldq, rows, width, keys, dk, dkp);
-        load_tile(vs, kLdv, rows + dk, width, keys, dv, kLdv);
+        const int keys = min(kBN, sk - c0);
+        load_tile<false, kBatch>(rows, width, keys, kBN, dk, dkp,
+                            [&](int r, int c, float4 a, float4) {
+          const float x[4] = {a.x, a.y, a.z, a.w};
+          uint32_t h[4], lo[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            h[i] = tf32(x[i]);
+            if (!kKExact) lo[i] = tf32_lo(x[i], h[i]);
+          }
+          *reinterpret_cast<uint4*>(kh + r * ldq + c) =
+              make_uint4(h[0], h[1], h[2], h[3]);
+          if (!kKExact) {
+            *reinterpret_cast<uint4*>(kl + r * ldq + c) =
+                make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          }
+        });
+        load_tile<true, kBatch / 2>(rows + dk, width, keys, kBN, dv, dvp,
+                           [&](int r, int c, float4 a, float4 b) {
+          const float x[4] = {a.x, a.y, a.z, a.w};
+          const float y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int at = r / 2 * ldv + c + i;
+            const uint32_t hx = tf32(x[i]), hy = tf32(y[i]);
+            if (kKExact) {
+              *reinterpret_cast<uint2*>(vs + 2 * at) = make_uint2(hx, hy);
+            } else {
+              *reinterpret_cast<uint4*>(vs + 4 * at) = make_uint4(
+                  hx, hy, tf32_lo(x[i], hx), tf32_lo(y[i], hy));
+            }
+          }
+        });
         __syncthreads();
+        if (kt >= warp_tiles) continue;  // wholly masked for this warp
 
-        float s[4][4];
+        float s[kJ][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < kJ; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-        for (int d = 0; d < dkp; d += 4) {
-          float4 a[4], b[4];
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+        for (int d = 0; d < dkp; d += 16) {
+          const float4 x0 = *reinterpret_cast<const float4*>(qa + d);
+          const float4 x1 = *reinterpret_cast<const float4*>(qa + 8 * ldq + d);
+          const SplitA<kQExact> a0(x0.x, x1.x, x0.y, x1.y);
+          const SplitA<kQExact> a1(x0.z, x1.z, x0.w, x1.w);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            a[i] = *reinterpret_cast<const float4*>(
-                qs + (ty * 4 + i) * ldq + d);
+          for (int j = 0; j < kJ; ++j) {
+            const int at = kb + 8 * j * ldq + d;
+            const uint4 h = *reinterpret_cast<const uint4*>(kh + at);
+            uint4 lo = h;
+            if (!kKExact) lo = *reinterpret_cast<const uint4*>(kl + at);
+            split_mma<kQExact, kKExact>(s[j], a0, h.x, h.y, lo.x, lo.y);
+            split_mma<kQExact, kKExact>(s[j], a1, h.z, h.w, lo.z, lo.w);
           }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            b[j] = *reinterpret_cast<const float4*>(
-                ks + (tx + 16 * j) * ldq + d);
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-              s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-              s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-              s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-            }
         }
-        __syncthreads();  // every thread is done with the K tile
 
+        const long long q_pos = q_base + w0 + g;
+        const bool masked = c0 + kBN > sk ||
+                            (p.causal && k_base + c0 + kBN - 1 > q_pos - g);
+        float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const long long q_pos = q_base + r0 + ty * 4 + i;
-          float mt = -INFINITY;
+        for (int j = 0; j < kJ; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int key = c0 + tx + 16 * j;
-            float v = s[i][j] * p.scale;
-            if (key >= sk) {
-              v = -INFINITY;
-            } else if (p.causal && k_base + key > q_pos) {
-              v = kNegInf;
-            }
-            s[i][j] = v;
-            mt = fmaxf(mt, v);
-          }
-#pragma unroll
-          for (int off = 8; off > 0; off >>= 1) {
-            mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off, 16));
-          }
-          const float m_new = fmaxf(m[i], mt);
-          const float alpha = expf(m[i] - m_new);
-          float sum = 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float e = expf(s[i][j] - m_new);
-            ps[(ty * 4 + i) * kLdp + tx + 16 * j] = e;
-            sum += e;
-          }
-#pragma unroll
-          for (int off = 8; off > 0; off >>= 1) {
-            sum += __shfl_xor_sync(0xffffffffu, sum, off, 16);
-          }
-          l[i] = l[i] * alpha + sum;
-          m[i] = m_new;
-#pragma unroll
-          for (int jj = 0; jj < 4 * NG; ++jj) o[i][jj] *= alpha;
-        }
-        __syncthreads();  // the probability tile is complete
-
-        // Padding keys have p = 0 and zero V rows, so whole groups of
-        // four keys may be folded.
-        const int keys4 = round4(keys);
-        for (int c = 0; c < keys4; c += 4) {
-          float4 pr[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            pr[i] = *reinterpret_cast<const float4*>(
-                ps + (ty * 4 + i) * kLdp + c);
-          }
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-            for (int g = 0; g < NG; ++g) {
-              const float4 v = *reinterpret_cast<const float4*>(
-                  vs + (c + cc) * kLdv + tx * 4 + 64 * g);
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const float w = cc == 0   ? pr[i].x
-                                : cc == 1 ? pr[i].y
-                                : cc == 2 ? pr[i].z
-                                          : pr[i].w;
-                o[i][4 * g] = fmaf(w, v.x, o[i][4 * g]);
-                o[i][4 * g + 1] = fmaf(w, v.y, o[i][4 * g + 1]);
-                o[i][4 * g + 2] = fmaf(w, v.z, o[i][4 * g + 2]);
-                o[i][4 * g + 3] = fmaf(w, v.w, o[i][4 * g + 3]);
+          for (int e = 0; e < 4; ++e) {
+            float v = s[j][e] * p.scale;
+            if (masked) {
+              const int key = c0 + 8 * j + 2 * t + (e & 1);
+              if (key >= sk) {
+                v = -INFINITY;
+              } else if (p.causal && k_base + key > q_pos + 8 * (e >> 1)) {
+                v = kNegInf;
               }
             }
+            s[j][e] = v;
+            mt[e >> 1] = fmaxf(mt[e >> 1], v);
+          }
+        float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], off));
+          }
+          const float m_new = fmaxf(m[i], mt[i]);
+          alpha[i] = expf(m[i] - m_new);
+          m[i] = m_new;
+        }
+        // p's A fragments: group j's scores as they stand (keys 8j + 2t
+        // and 8j + 2t + 1 at k = t and t + 4).
+        SplitA<false> pa[kJ];
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          float e4[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            e4[e] = expf(s[j][e] - m[e >> 1]);
+            sum[e >> 1] += e4[e];
+          }
+          pa[j] = SplitA<false>(e4[0], e4[2], e4[1], e4[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], off);
+          }
+          l[i] = l[i] * alpha[i] + sum[i];
+        }
+
+        // o = o * alpha + p . v, kC column groups at a time: the tile's
+        // product in fresh accumulators (the tensor cores' sums truncate,
+        // so a long run of them into o would drift), folded into o with
+        // one rounding.
+#pragma unroll
+        for (int jc = 0; jc < NT; jc += kC) {
+          if (8 * jc < dvp) {
+            float acc[kC][4];
+#pragma unroll
+            for (int jj = 0; jj < kC; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[jj][e] = 0.f;
+#pragma unroll
+            for (int j = 0; j < kJ; ++j)
+#pragma unroll
+              for (int jj = 0; jj < kC; ++jj) {
+                if (8 * (jc + jj) >= dvp) continue;
+                const int at = vb + (4 * j * ldv + 8 * (jc + jj)) *
+                                        (kKExact ? 2 : 4);
+                if (kKExact) {
+                  const uint2 h = *reinterpret_cast<const uint2*>(vs + at);
+                  split_mma<false, true>(acc[jj], pa[j], h.x, h.y, 0, 0);
+                } else {
+                  const uint4 h = *reinterpret_cast<const uint4*>(vs + at);
+                  split_mma<false, false>(acc[jj], pa[j], h.x, h.y, h.z, h.w);
+                }
+              }
+#pragma unroll
+            for (int jj = 0; jj < kC; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                o[jc + jj][e] = fmaf(o[jc + jj][e], alpha[e >> 1], acc[jj][e]);
+              }
           }
         }
       }
 
-      const bool last_step = k == p.n - 1;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = r0 + ty * 4 + i;
+      for (int i = 0; i < 2; ++i) {
+        const int row = w0 + g + 8 * i;
         if (row >= sq) continue;
         const long long at = q_base + row;
-        if (last_step) {
-          const float denom = l[i] == 0.f ? 1.f : l[i];
-          QT* out = static_cast<QT*>(p.out);
+        if (t == 0) {
+          p.m[at] = m[i];
+          p.l[at] = l[i];
+        }
+        float* dst = p.o + at * dv + 2 * t;
 #pragma unroll
-          for (int jj = 0; jj < 4 * NG; ++jj) {
-            const int col = tx * 4 + 64 * (jj / 4) + jj % 4;
-            if (col < dv) store(out + at * dv + col, o[i][jj] / denom);
-          }
-        } else {
-          if (tx == 0) {
-            p.m[at] = m[i];
-            p.l[at] = l[i];
-          }
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int jj = 0; jj < 4 * NG; ++jj) {
-            const int col = tx * 4 + 64 * (jj / 4) + jj % 4;
-            if (col < dv) p.o[at * dv + col] = o[i][jj];
+          for (int e = 0; e < 2; ++e) {
+            if (j < cols[e]) dst[8 * j + e] = o[j][2 * i + e];
           }
+      }
+      if (k == p.n - 1) {
+        // The one divide, from the scratch: out of the registers that
+        // hold o, where the division's slow path would spill them.
+        __syncthreads();
+        const long long at0 = q_base + r0;
+        const int n_out = min(kBM, sq - r0) * dv;
+        QT* out = static_cast<QT*>(p.out) + at0 * dv;
+        for (int e = threadIdx.x; e < n_out; e += kThreads) {
+          const float l_row = p.l[at0 + e / dv];
+          store(out + e, p.o[at0 * dv + e] / (l_row == 0.f ? 1.f : l_row));
         }
       }
     }
   }
 };
 
-template <typename QT, typename KT, int NG>
-__global__ void __launch_bounds__(kThreads, NG == 2 ? 2 : 1)
-    ring_attn_kernel(Params p) {
+template <typename QT, typename KT, int kBN, int NT>
+__global__ void __launch_bounds__(kThreads, 1) ring_attn_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   const int rank = blockIdx.x / p.ctas;
   const int cta = blockIdx.x % p.ctas;
@@ -379,26 +554,30 @@ __global__ void __launch_bounds__(kThreads, NG == 2 ? 2 : 1)
   r.me = p.flags + rank;
   r.left = p.flags + p.left[rank];
   r.right = p.flags + p.right[rank];
-  AttnConsumer<QT, KT, NG> consume{p, rank, cta, smem};
+  AttnConsumer<QT, KT, kBN, NT> consume{p, rank, cta, smem};
   ring::run_ring_stream(r, consume);
 }
 
-template <typename QT, typename KT, int NG>
+template <typename QT, typename KT, int kBN, int NT>
 int launch_typed(Params& p, cudaStream_t stream) {
-  void (*fn)(Params) = ring_attn_kernel<QT, KT, NG>;
-  const int ldq = q_stride(p.dk);
-  const int kp = kBN * ldq > kBM * kLdp ? kBN * ldq : kBM * kLdp;
+  void (*fn)(Params) = ring_attn_kernel<QT, KT, kBN, NT>;
+  constexpr bool exact = std::is_same<KT, bf16>::value;
   const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kBM) * ldq + kp + kBN * 64 * NG);
-  // At most one CTA per 64-row tile: a second would idle.
+      sizeof(float) *
+      (static_cast<size_t>(kBM + (exact ? 1 : 2) * kBN) * qk_stride(p.dk) +
+       static_cast<size_t>(kBN) * (exact ? 1 : 2) * v_stride(p.dv, exact));
+  // At most one CTA per 128-row tile: a second would idle.
   return ring::launch_ring(fn, p, p.ctas, p.n, (p.sq + kBM - 1) / kBM, smem,
                            stream);
 }
 
+// Two instances: 64-key tiles and o in 16 column groups where dk and dv
+// are at most 128 (209 KiB of shared memory at 128 with f32 K/V), else
+// 16-key tiles and 32 groups (202 KiB at 256).
 template <typename QT, typename KT>
-int launch_dv(Params& p, cudaStream_t stream) {
-  return p.dv <= 128 ? launch_typed<QT, KT, 2>(p, stream)
-                     : launch_typed<QT, KT, 4>(p, stream);
+int launch_width(Params& p, cudaStream_t stream) {
+  return p.dk <= 128 && p.dv <= 128 ? launch_typed<QT, KT, 64, 16>(p, stream)
+                                    : launch_typed<QT, KT, 16, 32>(p, stream);
 }
 
 }  // namespace
@@ -453,7 +632,9 @@ extern "C" int ring_attn_launch(const void* q, const void* kv, void* out,
   p.epoch = epoch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16) {
-    return kv_bf16 ? launch_dv<bf16, bf16>(p, st) : launch_dv<bf16, float>(p, st);
+    return kv_bf16 ? launch_width<bf16, bf16>(p, st)
+                   : launch_width<bf16, float>(p, st);
   }
-  return kv_bf16 ? launch_dv<float, bf16>(p, st) : launch_dv<float, float>(p, st);
+  return kv_bf16 ? launch_width<float, bf16>(p, st)
+                 : launch_width<float, float>(p, st);
 }

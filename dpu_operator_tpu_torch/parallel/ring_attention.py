@@ -20,10 +20,16 @@ Two versions of the same function:
     ``_pallas_ring_attention``: one cooperative launch of
     ``csrc/ring_attn.cu`` (built for ``sm_90a`` at first use) that holds
     every rank of the ring on one card, the ring protocol of
-    ``csrc/ring_stream.cuh`` carrying the blocks from rank to rank. Given
+    ``csrc/ring_stream.cuh`` carrying the blocks from rank to rank, both
+    products on the TF32 tensor cores with an f32-accurate split. Given
     tensors on the CPU it runs the plain version; on a CUDA tensor it
     launches the kernel or raises. It counts its launches in
     ``.launches``.
+
+``tf32_split``, ``split_matmul`` and ``ring_attention_split`` write the
+kernel's arithmetic out in plain PyTorch (its TF32 rounding, its pass
+rule, its key tiles), so that tests can hold the scheme against the
+reference where there is no card.
 
 ``make_ring_attention`` is the entry point: ``fn(q, k, v)`` on whole
 ``[S, D*]`` tensors, cut into ``mesh[axis]`` shards, giving ``[S, dv]``.
@@ -46,26 +52,28 @@ MAX_DIM = 256
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _online_update(s, m, l, o, v_blk):
+def _online_update(s, m, l, o, v_blk, mm=torch.matmul):
     """One flash-attention fold: scores s [sq, sk] join running
     (max m [sq, 1], denom l [sq, 1], accum o [sq, dv]); all f32."""
     m_new = torch.maximum(m, torch.amax(s, dim=1, keepdim=True))
     p = torch.exp(s - m_new)
     alpha = torch.exp(m - m_new)
     l_new = l * alpha + torch.sum(p, dim=1, keepdim=True)
-    o_new = o * alpha + p @ v_blk
+    o_new = o * alpha + mm(p, v_blk)
     return m_new, l_new, o_new
 
 
-def _scores(q, k_blk, scale, causal, my_id, idx, sq, sk):
+def _scores(q, k_blk, scale, causal, my_id, idx, sq, sk, first=0,
+            mm=torch.matmul):
     """Scaled q @ k^T with the cross-shard causal mask by GLOBAL
-    position: query row r is global my_id*sq + r, key column c is
-    idx*sk + c."""
-    s = (q @ k_blk.T) * scale
+    position: query row r is global my_id*sq + r, key column c of a
+    block's keys ``first ..`` is idx*sk + first + c."""
+    s = mm(q, k_blk.T) * scale
     if causal:
         dev = q.device
         q_pos = my_id * sq + torch.arange(sq, device=dev)[:, None]
-        k_pos = idx * sk + torch.arange(sk, device=dev)[None, :]
+        k_pos = (idx * sk + first
+                 + torch.arange(k_blk.shape[0], device=dev)[None, :])
         s = torch.where(k_pos <= q_pos, s,
                         torch.full((), _NEG_INF, dtype=s.dtype, device=dev))
     return s
@@ -106,12 +114,11 @@ def _shards(q, k, v, n: int) -> Tuple[int, int]:
     return q.shape[0] // n, k.shape[0] // n
 
 
-def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         n: int, causal: bool = False) -> torch.Tensor:
-    """Exact attention of q [S, dk] over k [S', dk], v [S', dv], each cut
-    into n row shards, as the ring computes it: rank r folds the block of
-    rank ``(r - step) mod n`` at each step, then divides once. Returns
-    [S, dv] in q's dtype."""
+def _ring_fold(q, k, v, n, causal, key_tile, q_mm, v_mm):
+    """The ring's fold: rank r folds the block of rank ``(r - step) mod
+    n`` at each step, ``key_tile`` keys at a time (the scores by ``q_mm``,
+    p . v by ``v_mm``), then divides once. Returns [S, dv] in q's
+    dtype."""
     sq, sk = _shards(q, k, v, n)
     d_k = q.shape[1]
     d_v = v.shape[1]
@@ -127,16 +134,97 @@ def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for my_id in range(n):
             idx = (my_id - step + n) % n
             q_r = qf[my_id * sq:(my_id + 1) * sq]
-            k_blk = kv[my_id][:, :d_k].float()
-            v_blk = kv[my_id][:, d_k:].float()
-            s = _scores(q_r, k_blk, scale, causal, my_id, idx, sq, sk)
-            state[my_id] = _online_update(s, *state[my_id], v_blk)
+            for first in range(0, sk, key_tile):
+                tile = kv[my_id][first:first + key_tile]
+                s = _scores(q_r, tile[:, :d_k].float(), scale, causal, my_id,
+                            idx, sq, sk, first, q_mm)
+                state[my_id] = _online_update(s, *state[my_id],
+                                              tile[:, d_k:].float(), v_mm)
         if step < n - 1:  # ppermute i -> i + 1
             kv = kv[-1:] + kv[:-1]
     out = []
     for m, l, o in state:
         out.append((o / torch.where(l == 0.0, 1.0, l)).to(q.dtype))
     return torch.cat(out, dim=0)
+
+
+def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n: int, causal: bool = False) -> torch.Tensor:
+    """Exact attention of q [S, dk] over k [S', dk], v [S', dv], each cut
+    into n row shards, as the ring computes it: rank r folds the block of
+    rank ``(r - step) mod n`` at each step, then divides once. Returns
+    [S, dv] in q's dtype."""
+    sk = _shards(q, k, v, n)[1]
+    return _ring_fold(q, k, v, n, causal, sk, torch.matmul, torch.matmul)
+
+
+# -- the kernel's arithmetic, written out --------------------------------------
+
+
+def key_tile(d_k: int, d_v: int) -> int:
+    """Keys of the kernel's key tile: 64, or 16 where dk or dv exceeds 128
+    (its two instances)."""
+    return 64 if max(d_k, d_v) <= 128 else 16
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)`` of f32 x as the kernel's ``cvt.rna.tf32.f32`` cuts it:
+    hi is x rounded to 10 mantissa bits, to nearest with ties away from
+    zero (on the f32 bit pattern: add half of the 13 dropped bits, clear
+    them), lo is ``x - hi`` (exact in f32) rounded the same way. hi + lo
+    is x within 2**-22 of |x|, and within 2**-137 where x - hi is
+    subnormal; lo is 0 where x is exact in TF32, as every bf16 value is.
+    Defined for finite x below 2**128 * (1 - 2**-12), where hi would
+    round to inf."""
+    def rna(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def split_matmul(a: torch.Tensor, b: torch.Tensor, a_exact: bool,
+                 b_exact: bool, single: bool = False) -> torch.Tensor:
+    """a @ b in f32 as the kernel's tensor-core passes compute it: each
+    operand split by ``tf32_split``, ``lo_a hi_b + hi_a lo_b + hi_a hi_b``
+    with the small terms first, each pass a product of TF32 values (exact
+    in f32) summed in f32. The pass of an operand whose type is exact in
+    TF32 (``a_exact``/``b_exact``: bf16) is dropped: its lo is 0.
+    ``single`` keeps only ``hi_a hi_b``, plain TF32's one pass."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if single:
+        return a_hi @ b_hi
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    if not a_exact:
+        out += a_lo @ b_hi
+    if not b_exact:
+        out += a_hi @ b_lo
+    return out + a_hi @ b_hi
+
+
+def ring_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         n: int, causal: bool = False,
+                         single: bool = False) -> torch.Tensor:
+    """``ring_attention_plain``'s function with the kernel's arithmetic:
+    each block folded one key tile (``key_tile``) at a time, both products
+    by ``split_matmul`` under the kernel's pass rule (q . k drops the pass
+    of a bf16 q or K, p . v that of a bf16 V; p is f32). ``single``: one
+    TF32 pass each, which the f32 bars do not admit."""
+    q_exact = q.dtype == torch.bfloat16
+    kv_exact = torch.promote_types(k.dtype, v.dtype) == torch.bfloat16
+
+    def q_mm(a, b):
+        return split_matmul(a, b, q_exact, kv_exact, single)
+
+    def v_mm(a, b):
+        return split_matmul(a, b, False, kv_exact, single)
+
+    return _ring_fold(q, k, v, n, causal,
+                      key_tile(q.shape[1], v.shape[1]), q_mm, v_mm)
 
 
 # -- the kernel ---------------------------------------------------------------

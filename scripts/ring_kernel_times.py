@@ -12,7 +12,8 @@ parent) compare on the same card. Prints one JSON line: ms of the one-way
 and the bidirectional ring all-gather at the probe's 16 MiB, of the ring
 reduce-scatter at 16 MiB a rank and of the all-reduce composed of the two
 (``make_ring_all_gather`` after ``make_ring_reduce_scatter``), of ring
-attention at S = 32768 f32 causal (8 ranks sharing the card), of the
+attention at S = 32768, d 128 (8 ranks sharing the card) f32 causal, f32
+non-causal and bf16 causal, of the
 all-to-all at 16 MiB where the tree has it, of the tile kernels at the
 health/bench path's shapes (the burn chain at 1024^2, the burn tile at
 2048^2, the matmul at 4096^3 with the full-K route's blocks and with the
@@ -66,6 +67,14 @@ def main() -> int:
     out["ring_attn_ms"] = c.time_ms(
         torch, lambda: ra.ring_attention_cuda(q, k, v, n, True), n=5, warm=1,
         batch=2)
+    out["ring_attn_noncausal_ms"] = c.time_ms(
+        torch, lambda: ra.ring_attention_cuda(q, k, v, n, False), n=5,
+        warm=1, batch=2)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    out["ring_attn_bf16_ms"] = c.time_ms(
+        torch, lambda: ra.ring_attention_cuda(qb, kb, vb, n, True), n=5,
+        warm=1, batch=2)
+    del q, k, v, qb, kb, vb
     if hasattr(rp, "all_to_all_cuda"):
         out["all_to_all_ms"] = c.time_ms(
             torch, lambda: rp.all_to_all_cuda(x, n), n=10, warm=2)

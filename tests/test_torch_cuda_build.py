@@ -201,3 +201,54 @@ def test_wgmma_build_check_reads_the_tile_kernels():
                         + entry(256, 0) + entry(128, 0)}
     with pytest.raises(AssertionError, match="spill"):
         chip_smoke.check_wgmma_build(Build, "tile_mma")
+
+
+def test_ring_attn_build_check_reads_every_instance():
+    """``chip_smoke.check_ring_attn_build`` finds the ring attention
+    kernel's eight instances (q and K/V each f32 or bf16, two widths) in
+    ``ring_attn``'s ptxas report, bf16 spelled out or back-referenced as
+    the mangler writes it, and fails on a spill."""
+    import chip_smoke
+
+    types = {("f32", "f32"): "ff", ("f32", "bf16"): "f13__nv_bfloat16",
+             ("bf16", "f32"): "13__nv_bfloat16f",
+             ("bf16", "bf16"): "13__nv_bfloat16S1_"}
+
+    def entry(qt, kt, keys, groups, spill=0):
+        name = (f"_ZN45_GLOBAL__N__ee6be6c6_12_ring_attn_cu_e1266f3316ring_"
+                f"attn_kernelI{types[qt, kt]}Li{keys}ELi{groups}EEEvNS_6"
+                f"ParamsE")
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\n"
+                f"    0 bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads\n"
+                f"ptxas info    : Used 240 registers, used 1 barriers\n")
+
+    instances = [(qt, kt, keys, groups) for qt, kt in types
+                 for keys, groups in ((64, 16), (16, 32))]
+
+    class Build:
+        build_logs = {"ring_attn": "".join(entry(*i) for i in instances)}
+
+    line = chip_smoke.check_ring_attn_build(Build)
+    for qt, kt, keys, groups in instances:
+        assert (f"{qt}/{kt} {keys} keys x dv {8 * groups} 240 registers, "
+                f"0 spills") in line
+    Build.build_logs = {"ring_attn": "".join(
+        entry(*i, spill=8 if i == ("bf16", "bf16", 16, 32) else 0)
+        for i in instances)}
+    with pytest.raises(AssertionError, match="bf16/bf16 16 keys.*spill"):
+        chip_smoke.check_ring_attn_build(Build)
+    Build.build_logs = {"ring_attn": "".join(entry(*i)
+                                             for i in instances[1:])}
+    with pytest.raises(AssertionError, match="ptxas reported"):
+        chip_smoke.check_ring_attn_build(Build)
+
+
+def test_ring_attn_folds_on_the_tensor_cores():
+    """Both products of the ring attention kernel are TF32 mma.sync
+    passes; no scalar FMA fold is left."""
+    src = (cuda_build.CSRC_DIR / "ring_attn.cu").read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "fmaf(a" not in src and "AttnConsumer" in src
+    assert src.count("split_mma<") >= 4

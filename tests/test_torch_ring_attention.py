@@ -15,11 +15,18 @@ Bars:
     ``rtol=0.1, atol=0.06`` (q and k rounded to bf16 move the scores);
   * bf16 port against bf16 reference: at most 1 bf16 ulp, both rounding
     the same f32 value, up to reassociation, once.
+
+The kernel's own arithmetic (products on TF32 tensor cores, each operand
+split into hi + lo) is written out in ``tf32_split`` /
+``split_matmul`` / ``ring_attention_split``; those are held here to the
+same bars, and to the card's smoke run's f32 bar (``RING_RTOL`` /
+``RING_ATOL``), which one TF32 pass must miss.
 """
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +37,7 @@ from dpu_operator_tpu.parallel.ring_attention import (
 from dpu_operator_tpu_torch.parallel import burn
 from dpu_operator_tpu_torch.parallel import ring_attention as ra
 from dpu_operator_tpu_torch.parallel.ring_probe import _ring_ids
+from chip_smoke import RING_ATOL, RING_Q_SCALE, RING_RTOL
 from virtual_mesh import REPO, run_virtual
 
 torch.set_num_threads(1)
@@ -229,3 +237,187 @@ def test_ring_ids(n):
         assert left == (1, (rank - 1) % n, 3)
     with pytest.raises(ValueError):
         _ring_ids("sp", n, names, (0, n, 0))
+
+
+# -- the kernel's arithmetic: TF32 split products ------------------------------
+
+# Finite f32 values below the point where hi would round up to inf,
+# subnormals included, and exact ties of the 13 bits that hi drops.
+_F32_MAX = float(np.nextafter(np.float32(2.0 ** 128 - 2.0 ** 116),
+                              np.float32(0)))
+_F32 = st.floats(min_value=-_F32_MAX, max_value=_F32_MAX, width=32,
+                 allow_nan=False, allow_infinity=False)
+_TIES = st.tuples(st.integers(0, 1), st.integers(0, 253),
+                  st.integers(0, 1023)).map(
+    lambda t: np.array([(t[0] << 31) | (t[1] << 23) | (t[2] << 13) | 0x1000],
+                       dtype=np.uint32).view(np.float32)[0].item())
+_VALUES = st.lists(st.one_of(_F32, _TIES), min_size=1, max_size=64)
+
+
+def _f32(values):
+    return torch.tensor(values, dtype=torch.float32)
+
+
+@settings(max_examples=200, deadline=None)
+@given(_VALUES)
+def test_tf32_split_hi_has_ten_mantissa_bits(values):
+    hi, lo = ra.tf32_split(_f32(values))
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+
+
+@settings(max_examples=200, deadline=None)
+@given(_VALUES)
+def test_tf32_split_reconstructs_x(values):
+    """hi + lo is x within 2**-22 of |x|; where x - hi is subnormal, lo
+    rounds on the subnormal grid, so within 2**-137."""
+    x = _f32(values)
+    hi, lo = ra.tf32_split(x)
+    assert torch.isfinite(hi).all() and torch.isfinite(lo).all()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= x.double().abs() * 2.0 ** -22 + 2.0 ** -137).all()
+
+
+@settings(max_examples=200, deadline=None)
+@given(_TIES)
+def test_tf32_split_rounds_ties_away_from_zero(tie):
+    x = _f32([tie])
+    hi, _ = ra.tf32_split(x)
+    assert hi.abs().item() > x.abs().item()
+    assert (hi.abs() - x.abs()).item() == (x.abs() - (x.abs().view(
+        torch.int32) & ~0x1FFF).view(torch.float32)).item()
+
+
+@settings(max_examples=200, deadline=None)
+@given(_VALUES)
+def test_tf32_split_of_bf16_has_no_lo(values):
+    x = _f32(values).to(torch.bfloat16).float()
+    x = x[torch.isfinite(x)]
+    hi, lo = ra.tf32_split(x)
+    assert torch.equal(hi, x) and not lo.any()
+
+
+def _split_bound(a, b):
+    """The split product's error bound: the dropped lo.lo and the two
+    residuals, < 2**-20 of each |a_i b_i|, and f32 sums over the d terms
+    of three passes and two adds, (d + 2) 2**-24."""
+    d = a.shape[1]
+    return (2.0 ** -20 + (d + 2) * 2.0 ** -24) * (a.abs().double()
+                                                  @ b.abs().double())
+
+
+@pytest.mark.parametrize("S,d", [(4 * n, 16) for n in (1, 2, 4, 8)]
+                         + [(256, 32), (256, 128)])
+def test_split_matmul_within_f32_error(S, d):
+    """Three passes hold q . k and p . v at the tier-1 shapes to f32's
+    error bound against float64; one pass does not."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(S, d, d, seed=S + d))
+    p = torch.softmax(q @ k.T / np.sqrt(d), dim=1)
+    for a, b in ((q, k.T), (p, v)):
+        exact = a.double() @ b.double()
+        bound = _split_bound(a, b)
+        got = ra.split_matmul(a, b, False, False)
+        assert got.dtype == torch.float32
+        assert ((got.double() - exact).abs() <= bound).all()
+        one = ra.split_matmul(a, b, False, False, single=True)
+        assert ((one.double() - exact).abs() > bound).any()
+
+
+def test_split_matmul_drops_only_zero_passes_for_bf16():
+    """The pass the rule drops for a bf16 operand is its lo times the
+    other's hi, which is exactly zero: dropping it changes no bit."""
+    q, k, _ = _inputs(64, 32, 8, seed=21)
+    a = torch.from_numpy(q).to(torch.bfloat16).float()
+    b = torch.from_numpy(k).T.contiguous()
+    a_hi, a_lo = ra.tf32_split(a)
+    b_hi, _ = ra.tf32_split(b)
+    assert not (a_lo @ b_hi).any()
+    assert torch.equal(ra.split_matmul(a, b, True, False),
+                       ra.split_matmul(a, b, False, False))
+    assert torch.equal(ra.split_matmul(b.T, a.T, False, True),
+                       ra.split_matmul(b.T, a.T, False, False))
+    b16 = b.to(torch.bfloat16).float()
+    assert torch.equal(ra.split_matmul(a, b16, True, True),
+                       ra.split_matmul(a, b16, False, False))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", MESHES)
+def test_split_ring_matches_reference_xla_ring(shape, causal):
+    n = shape[1]
+    q, k, v = _inputs(4 * n, 16, 8, seed=n)
+    got = ra.ring_attention_split(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  n, causal)
+    assert got.dtype == torch.float32 and got.shape == (4 * n, 8)
+    np.testing.assert_allclose(got.numpy(), _reference(shape, q, k, v, causal),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S,d", [(256, 32), (512, 144)])
+def test_split_ring_wide_shards_match_reference(S, d, causal):
+    """32- and 64-row shards cut into the kernel's key tiles (64 keys, 16
+    where d exceeds 128), folded in turn."""
+    q, k, v = _inputs(S, d, d, seed=7)
+    got = ra.ring_attention_split(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  8, causal).numpy()
+    np.testing.assert_allclose(got, _reference((1, 8, 1), q, k, v, causal),
+                               rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_ring_bf16_matches_reference(causal):
+    q, k, v = _inputs(32, 16, 8, seed=3)
+    got = ra.ring_attention_split(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), 8,
+        causal)
+    assert got.dtype == torch.bfloat16
+    want = torch.from_numpy(_reference((1, 8, 1), q, k, v, causal,
+                                       dtype=jnp.bfloat16))
+    assert burn.bf16_ulps(got, want.to(torch.bfloat16)) <= 1.0
+
+
+def test_split_ring_mixed_types_match_reference():
+    """bf16 q and k with f32 v (K/V circulate as f32, 3 passes) and f32 q
+    with bf16 K/V (2 passes each)."""
+    q, k, v = _inputs(16, 16, 8, seed=4)
+    mesh = Mesh(np.array(jax.devices()).reshape(1, 4, 2), axis_names=AXES)
+    sh = NamedSharding(mesh, P("sp", None))
+    for types in ((jnp.bfloat16, jnp.bfloat16, jnp.float32),
+                  (jnp.float32, jnp.bfloat16, jnp.bfloat16)):
+        args = [jax.device_put(jnp.asarray(a).astype(t), sh)
+                for a, t in zip((q, k, v), types)]
+        want = np.asarray(ref_make_ring_attention(
+            mesh, "sp", causal=True, use_pallas=False)(*args).astype(
+                jnp.float32))
+        torch_types = [torch.bfloat16 if t == jnp.bfloat16 else torch.float32
+                       for t in types]
+        got = ra.ring_attention_split(
+            *(torch.from_numpy(a).to(t) for a, t in zip((q, k, v),
+                                                         torch_types)),
+            4, True)
+        if got.dtype == torch.bfloat16:
+            assert burn.bf16_ulps(got, torch.tensor(want).to(
+                torch.bfloat16)) <= 1.0
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_pass_misses_the_f32_bar(causal):
+    """The smoke run's scaled-q case at d = 128: the split holds
+    ``RING_RTOL`` / ``RING_ATOL`` against the plain version, one TF32
+    pass does not, so the bar bites."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(256, 128, 128, seed=19))
+    q = q * RING_Q_SCALE
+    want = ra.ring_attention_plain(q, k, v, 4, causal)
+    three = ra.ring_attention_split(q, k, v, 4, causal)
+    one = ra.ring_attention_split(q, k, v, 4, causal, single=True)
+    assert torch.allclose(three, want, rtol=RING_RTOL, atol=RING_ATOL)
+    assert not torch.allclose(one, want, rtol=RING_RTOL, atol=RING_ATOL)
+
+
+@pytest.mark.parametrize("d_k,d_v,tile", [(16, 8, 64), (128, 128, 64),
+                                          (129, 8, 16), (64, 256, 16)])
+def test_key_tile_follows_the_kernel_instances(d_k, d_v, tile):
+    assert ra.key_tile(d_k, d_v) == tile
