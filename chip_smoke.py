@@ -70,7 +70,7 @@ Phases, each of which raises on failure:
                all-reduce composition against the plain one; 20 repeats
                of each kernel bitwise equal; times of the kernel, the
                plain version and one PyTorch call (a yardstick only), the
-               bytes the reduce-scatter's protocol moves, and the time of
+               bytes each protocol moves and their rate, and the time of
                the all-reduce.
  10. ulysses — the all-to-all and Ulysses attention. Small all-to-alls
                (n 1, 2, 3, 4, 5, 8; f32, bf16, f16, int32; blocks of 1
@@ -1337,15 +1337,17 @@ def phase_collectives(torch, card):
         plain_ms = time_ms(torch, lambda: rp.ring_all_gather_plain(
             x, n, bidirectional), n=5, warm=1, batch=2)
         t_bytes = (nbytes + n * nbytes) / HBM_BYTES_PER_S * 1e3
-        moved = n * 2 * (2 * n - 1) * chunk_bytes
+        moved = rp.all_gather_moved_bytes(n, chunk_bytes)
         log(f"collectives {name} [{rows}, {COLL_WIDTH}] f32 n={n}: every "
             f"rank's copy == x bit for bit, {RING_REPEATS} repeats bitwise "
             f"equal; kernel {ms:.4f} ms ({ms / (n - 1) * 1e3:.1f} us per "
             f"ring step), plain {plain_ms:.4f} ms, expand().contiguous() "
             f"{library_ms:.4f} ms, bound {t_bytes:.4f} ms ({nbytes} B read, "
             f"{n * nbytes} B written; the protocol reads and writes {moved} "
-            f"B: each rank relays {n - 1} blocks and copies {n} out) "
-            f"[{card}]")
+            f"B, {moved / ms / 1e9:.2f} TB/s: each rank reads its shard "
+            f"once and writes it into its own and its neighbour's output, "
+            f"then relays {n - 2} blocks from its output into the "
+            f"neighbour's) [{card}]")
         records.append(dict(
             name=name, route="cuda",
             source="dpu_operator_tpu_torch/csrc/ring_collectives.cu",
@@ -1363,11 +1365,13 @@ def phase_collectives(torch, card):
             ms = time_ms(torch, lambda: rp.ring_all_gather_cuda(
                 big, n, bidirectional), n=5, warm=1, batch=2)
             t_bytes = (1 + n) * mbytes * 2 ** 20 / HBM_BYTES_PER_S * 1e3
+            moved = rp.all_gather_moved_bytes(n, mbytes * 2 ** 20 // n)
             log(f"collectives all-gather {mbytes} MiB f32 n={n} "
                 f"bidirectional={bidirectional}: every rank's copy == x; "
                 f"kernel {ms:.4f} ms ({ms / (n - 1) * 1e3:.1f} us per ring "
-                f"step of {mbytes // n} MiB blocks), bound {t_bytes:.4f} ms "
-                f"[{card}]")
+                f"step of {mbytes // n} MiB blocks), bound {t_bytes:.4f} ms; "
+                f"the protocol reads and writes {moved} B, "
+                f"{moved / ms / 1e9:.2f} TB/s [{card}]")
         del big
         torch.cuda.empty_cache()
 

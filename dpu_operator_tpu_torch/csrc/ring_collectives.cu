@@ -4,20 +4,20 @@
 // Replaces, in parallel/ring_probe.py of the JAX package, `_ring_kernel`
 // (`_pallas_all_gather`), `_ring_kernel_bidir`
 // (`_pallas_all_gather_bidir`) and `_rs_kernel`
-// (`_pallas_reduce_scatter`). The protocols are `ring_stream.cuh`'s, the
-// same bodies ring attention runs on; this file holds their consumers,
-// the kernels' entry code and the C entry points.
+// (`_pallas_reduce_scatter`). The protocols are `ring_stream.cuh`'s; this
+// file holds the kernels' entry code and the C entry points.
 //
 // All-gather. Rank r owns rows r * chunk .. of x [n * chunk, width] and
-// ends with a copy of all of x: `run_ring_stream` with a consumer that
-// copies the block in hand to the rank's output rows idx * chunk. The
-// bidirectional form is two such streams in one launch, each with its
-// own slots, flag words and credit chain: half of a rank's CTAs carry the
-// top half of every chunk towards higher positions, the other half carry
-// the bottom half the other way (`Rank::dir = -1`, the neighbours
-// swapped), so a block arrives after at most n - 1 hops of half the
-// bytes each way. Each stream copies its half of the rank's own chunk at
-// step 0, so the own chunk reaches the output whole.
+// ends with a copy of all of x: `run_gather_relay`, which writes every
+// row of every rank's output once, in place, and relays each block from
+// where it landed in the rank's own output. No slots and no credits: the
+// wrapper allocates nothing but the output. The bidirectional form is two
+// such streams in one launch, each with its own flag words: half of a
+// rank's CTAs carry the top half of every chunk towards higher positions,
+// the other half carry the bottom half the other way (`Rank::dir = -1`,
+// the neighbours swapped), so a block arrives after at most n - 1 hops of
+// half the bytes each way. Each stream writes its half of the rank's own
+// chunk at step 0, so the own chunk reaches the output whole.
 //
 // Reduce-scatter. Rank r contributes x_r [n * chunk, width] and ends with
 // the sum over ranks of row-block r: `run_rs_fold_send`, whose every step
@@ -37,20 +37,24 @@
 // stripe every copy and every add between them.
 //
 // What bounds them: bytes. The function itself reads x once and writes
-// each rank's result once: at the probe's 16 MiB a rank and n = 8, the
-// reduce-scatter reads 128 MiB and writes 16 MiB, 0.0451 ms at the H100's
-// 3.35 TB/s. The protocols move more. The all-gather relays n - 1 blocks
-// through its neighbour's slots and copies n blocks out, a read and a
-// write each. The reduce-scatter reads two blocks and writes one, n - 1
-// times: 3(n - 1) blocks a rank, 336 MiB at 2 MiB blocks and n = 8
-// (`run_rs_ring`, with a send buffer filled by a copy, a separate send and
-// an in-place fold, moved 816 MiB; a first step that copied the own
-// block into the neighbour's slot instead of letting the neighbour read
-// it in place, 368 MiB). With all ranks on one card these are copies
-// within that card's memory: the kernels' time measures the protocol and
-// the copies, not a link. Still to do: bulk (TMA) copies, and in the
-// all-gather one read of a block feeding both the relay and the output
-// store.
+// each rank's result once: at the probe's 16 MiB and n = 8, the
+// all-gather reads 16 MiB and writes 128 MiB, the reduce-scatter reads
+// 128 MiB and writes 16 MiB, 0.0451 ms each at the H100's 3.35 TB/s. The
+// protocols move more. The all-gather reads a block once and writes it
+// twice at step 0, then relays n - 2 blocks, a read and a write each:
+// 2n - 1 blocks a rank, 240 MiB at 2 MiB blocks and n = 8
+// (`run_ring_stream` with a consumer that copied each block out, both
+// through the neighbour's slots and into the output, moved 2(2n - 1),
+// 480 MiB). The reduce-scatter reads two blocks and writes one, n - 1
+// times: 3(n - 1) blocks a rank, 336 MiB (`run_rs_ring`, with a send
+// buffer filled by a copy, a separate send and an in-place fold, moved
+// 816 MiB; a first step that copied the own block into the neighbour's
+// slot instead of letting the neighbour read it in place, 368 MiB). With
+// all ranks on one card these are copies within that card's memory: the
+// kernels' time measures the protocol and the copies, not a link. Still
+// to do: bulk (TMA) copies; flags per CTA, so that CTA c waits only for
+// the stripe it relays and not for the neighbour's whole block; fewer
+// hops for the reduce-scatter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,7 +71,6 @@ struct GatherParams {
   Ring ring;
   const char* x;  // [n * chunk, width]: rank r's shard at r * chunk_bytes
   char* out;      // [n][n * chunk, width]: every rank's gathered copy
-  char* slots;    // [streams][n][2][chunk_bytes / streams]
   int streams;    // 1: one way; 2: the halves of every chunk, one each way
   long long chunk_bytes;
 };
@@ -80,18 +83,6 @@ struct ScatterParams {
   long long block_bytes;
 };
 
-// The all-gather's consumer: the block in hand goes to this rank's
-// output rows of its owner, at this stream's half.
-struct CopyOut {
-  char* out;
-  long long chunk_bytes, block_bytes;
-  int cta, ctas;
-  __device__ __forceinline__ void operator()(int, int idx,
-                                             const char* block) const {
-    ring::copy_stripe(out + idx * chunk_bytes, block, block_bytes, cta, ctas);
-  }
-};
-
 __global__ void __launch_bounds__(kThreads)
     ring_all_gather_kernel(GatherParams p) {
   const Ring& g = p.ring;
@@ -100,15 +91,18 @@ __global__ void __launch_bounds__(kThreads)
   const int stream = blockIdx.x % per_rank / g.ctas;
   const int cta = blockIdx.x % g.ctas;
   const long long block_bytes = p.chunk_bytes / p.streams;
+  const long long half = stream * block_bytes;
   const bool up_ring = stream == 0;
+  const int down = up_ring ? g.right[rank] : g.left[rank];
   ring::Rank r = ring::make_rank(
-      g, rank, cta, up_ring ? 1 : -1, up_ring ? g.right[rank] : g.left[rank],
+      g, rank, cta, up_ring ? 1 : -1, down,
       up_ring ? g.left[rank] : g.right[rank], g.flags + stream * kMaxRanks,
-      p.slots + stream * g.n * 2 * block_bytes, block_bytes);
-  r.local = p.x + rank * p.chunk_bytes + stream * block_bytes;
-  CopyOut consume{p.out + rank * g.n * p.chunk_bytes + stream * block_bytes,
-                  p.chunk_bytes, block_bytes, cta, g.ctas};
-  ring::run_ring_stream(r, consume);
+      p.out, block_bytes);
+  r.my_slots = r.right_slots = nullptr;  // the relay has no slots
+  const long long rank_bytes = g.n * p.chunk_bytes;
+  ring::run_gather_relay(r, p.x + rank * p.chunk_bytes + half,
+                         p.out + rank * rank_bytes + half,
+                         p.out + down * rank_bytes + half, p.chunk_bytes);
 }
 
 template <class Sum>
@@ -144,10 +138,9 @@ int launch_scatter(ScatterParams& p, cudaStream_t stream) {
 
 // x [n * chunk, width] of any type, chunk_bytes the bytes of one rank's
 // shard (even; a multiple of 4 when bidirectional, so that each half is
-// even too); out [n][n * chunk, width] gets every rank's gathered copy;
-// slots is scratch of 2 * n * chunk_bytes.
-extern "C" int ring_all_gather_launch(const void* x, void* out, void* slots,
-                                      void* flags, const long long* right,
+// even too); out [n][n * chunk, width] gets every rank's gathered copy.
+extern "C" int ring_all_gather_launch(const void* x, void* out, void* flags,
+                                      const long long* right,
                                       const long long* left, int n,
                                       long long chunk_bytes,
                                       int bidirectional,
@@ -161,7 +154,6 @@ extern "C" int ring_all_gather_launch(const void* x, void* out, void* slots,
   }
   p.x = static_cast<const char*>(x);
   p.out = static_cast<char*>(out);
-  p.slots = static_cast<char*>(slots);
   p.streams = streams;
   p.chunk_bytes = chunk_bytes;
   return ring::launch_ring(ring_all_gather_kernel, p, p.ring.ctas,

@@ -1,19 +1,20 @@
-// The two ring protocols, device side, for Hopper (sm_90a).
+// The ring protocols, device side, for Hopper (sm_90a).
 //
 // `run_ring_stream` is the counterpart of parallel/ring_probe.py
 // `_run_ring_stream` in the JAX package: the one protocol body that the
 // streaming ring kernels share, here a template over a consumer,
 // `consume(k, idx, block)`, called with each block as it passes through
-// this rank (k the ring step, idx the rank that owns the block). The ring
-// all-gather's consumer copies the block out, the fused all-gather
-// matmul's multiplies it, ring attention's folds it into an online
-// softmax; a fix to the protocol lands in all of them at once.
+// this rank (k the ring step, idx the rank that owns the block). The
+// fused all-gather matmul's consumer multiplies it, ring attention's
+// folds it into an online softmax; a fix to the protocol lands in both at
+// once.
 // `run_rs_ring`, further down, is the counterpart of `_run_rs_ring`: the
 // reduce-scatter ring, a template over what produces a rank's
-// contribution and where the finished sum goes; `run_rs_fold_send`, at
-// the end of the device side, is the same ring for contributions that
-// already lie in memory, each step's add stored straight into the
-// neighbour's slot.
+// contribution and where the finished sum goes; `run_rs_fold_send` is the
+// same ring for contributions that already lie in memory, each step's add
+// stored straight into the neighbour's slot; `run_gather_relay`, at the
+// end of the device side, is the ring all-gather with no slots, each
+// block relayed from where it landed in the rank's own output.
 //
 // What the TPU's primitives become:
 //   * a rank is `ctas` CTAs of one cooperative launch (all of them
@@ -476,6 +477,107 @@ __device__ void run_rs_fold_send(const Rank& r, const char* own,
   if (r.n > 2) wait_flag(&r.me->recv, tag + r.n - 1);
   stripe.add(result, r.n > 2 ? r.my_slots + ((r.n - 1) & 1) * bb : first,
              own + r.my_id * bb);
+}
+
+// -- the relay-from-output all-gather ring ------------------------------------
+
+// This CTA's stripe of `bytes` from src into both dst_a and dst_b, each
+// unit loaded once: copy_stripe's units and ownership.
+template <class Unit = unsigned short>
+__device__ __forceinline__ void copy_stripe_twice(char* dst_a, char* dst_b,
+                                                  const char* src,
+                                                  long long bytes, int cta,
+                                                  int ctas) {
+  const long long first = static_cast<long long>(cta) * blockDim.x +
+                          threadIdx.x;
+  const long long stride = static_cast<long long>(ctas) * blockDim.x;
+  if (((reinterpret_cast<uintptr_t>(dst_a) |
+        reinterpret_cast<uintptr_t>(dst_b) |
+        reinterpret_cast<uintptr_t>(src) | static_cast<uintptr_t>(bytes)) &
+       15) == 0) {
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* a = reinterpret_cast<uint4*>(dst_a);
+    uint4* b = reinterpret_cast<uint4*>(dst_b);
+    for (long long i = first; i < bytes / 16; i += stride) {
+      const uint4 v = __ldcg(s + i);
+      __stcg(a + i, v);
+      __stcg(b + i, v);
+    }
+  } else {
+    const Unit* s = reinterpret_cast<const Unit*>(src);
+    Unit* a = reinterpret_cast<Unit*>(dst_a);
+    Unit* b = reinterpret_cast<Unit*>(dst_b);
+    const long long units = bytes / static_cast<long long>(sizeof(Unit));
+    for (long long i = first; i < units; i += stride) {
+      const Unit v = __ldcg(s + i);
+      __stcg(a + i, v);
+      __stcg(b + i, v);
+    }
+  }
+}
+
+// `run_gather_relay` is the ring all-gather of blocks that end in every
+// rank's output: no slots, each block relayed from where it landed, the
+// rank's own output. Every output row of every rank is written exactly
+// once a call and nothing is overwritten. Rank r, whose blocks travel
+// towards `r.dir` (the block of step k is row idx = (r - dir * k) mod n):
+//   * step 0: read the own block once and store it twice, into the rank's
+//     own row r and into the right neighbour's row r (n = 1: the own row
+//     only, and nothing else happens); raise the right neighbour's receive
+//     flag to tag + 1;
+//   * step k = 1 .. n-2: wait for the receive flag tag + k (row idx has
+//     landed), read row idx from the rank's own output and store it into
+//     the right neighbour's row idx; raise its receive flag to tag + k + 1;
+//   * step n - 1: wait for tag + n - 1, so that the kernel ends with the
+//     rank's output complete. Nothing is copied.
+// The barrier. Within one card the launch already makes every output
+// valid; across cards, where a peer's output may still be in use by that
+// peer's earlier work, it is what makes the first remote store safe.
+// No credit: no row is written twice, so no store waits for a reader.
+// The arrival counters are by step parity, though, and with no credit
+// nothing keeps one CTA from running two steps ahead of a slow CTA of its
+// own rank (a receive flag is raised by the left neighbour's chain, which
+// does not wait for this rank), so that its step-k arrival would count
+// towards step k - 2's event. From step 2 on a CTA therefore waits, before
+// its stores, until its own rank's step k - 2 has been signalled: the
+// right neighbour's receive flag at tag + k - 1, which only this rank
+// raises, after the counter's reset. It is released at once unless a CTA
+// has fallen two steps behind.
+//
+// Bytes per rank: 2n - 1 blocks (step 0 a read and two writes, each relay
+// a read and a write). `own` is the rank's block; `mine` and `right` are
+// row 0 of this rank's and the right neighbour's output at the stream's
+// offset, rows `row_bytes` apart, blocks of `r.block_bytes`. `r.local`
+// and the slot pointers are not used.
+__device__ void run_gather_relay(const Rank& r, const char* own, char* mine,
+                                 char* right, long long row_bytes) {
+  const unsigned long long tag = r.epoch * kTagSteps;
+  const long long bb = r.block_bytes;
+  arrive(&r.me->bar_arrive, r.ctas, [&] {
+    raise_flag(&r.left->bar_from_right, tag);
+    raise_flag(&r.right->bar_from_left, tag);
+  });
+  wait_flag(&r.me->bar_from_left, tag);
+  wait_flag(&r.me->bar_from_right, tag);
+
+  const long long at = r.my_id * row_bytes;
+  if (r.n == 1) {
+    copy_stripe(mine + at, own, bb, r.cta, r.ctas);
+    return;
+  }
+  copy_stripe_twice(mine + at, right + at, own, bb, r.cta, r.ctas);
+  arrive(&r.me->send_arrive[0], r.ctas,
+         [&] { raise_flag(&r.right->recv, tag + 1); });
+  for (int k = 1; k < r.n - 1; ++k) {
+    wait_flag(&r.me->recv, tag + k);  // row idx has landed
+    // This rank's step k - 2 has been signalled: its counter is free.
+    if (k > 1) wait_flag(&r.right->recv, tag + k - 1);
+    const long long row = (r.my_id - r.dir * k + r.n) % r.n * row_bytes;
+    copy_stripe(right + row, mine + row, bb, r.cta, r.ctas);
+    arrive(&r.me->send_arrive[k & 1], r.ctas,
+           [&] { raise_flag(&r.right->recv, tag + k + 1); });
+  }
+  wait_flag(&r.me->recv, tag + r.n - 1);  // the output is complete
 }
 
 // -- the host side ------------------------------------------------------------

@@ -14,10 +14,11 @@ all-to-all's, whose all-rank barrier needs no ring.
 Each collective has two versions of the same function:
 
   * ``ring_all_gather_plain`` / ``ring_reduce_scatter_plain`` -- the ring
-    written out in PyTorch, step by step and rank by rank (a rotation of
-    the per-rank list of blocks stands for the neighbour copy), in the
-    kernels' order, so that a wrong step index or a wrong operand order
-    shows;
+    written out in PyTorch, step by step and rank by rank (the
+    all-gather copies between the ranks' outputs; in the reduce-scatter a
+    rotation of the per-rank list of blocks stands for the neighbour
+    copy), in the kernels' order, so that a wrong step index or a wrong
+    operand order shows;
   * ``ring_all_gather_cuda`` / ``ring_reduce_scatter_cuda`` -- one
     cooperative launch that holds every rank of the ring on the tensor's
     card (built for ``sm_90a`` at first use). Given a tensor on the CPU
@@ -35,30 +36,39 @@ rank, in the kernel's order of stores) and ``all_to_all_cuda``.
 times is then the protocol and the copies within that card's memory, not
 any link between cards.
 
-The stream protocol, per rank of an n-rank one-way ring (block in hand at
-step k is the one whose owner is ``(my_id - k) mod n``):
+The all-gather protocol (``run_gather_relay``), per rank r of an n-rank
+one-way ring, the block of step k being row ``idx = (r - k) mod n``:
 
-  * a neighbour barrier: both neighbours have entered before any block
-    lands in this rank's slots;
-  * two comm slots; the rank's own shard is the first block in hand;
-  * at step k < n - 1: wait for the block of step k (k > 0) and for one
-    credit (k > 0), copy the block in hand into the right neighbour's
-    slot ``(k + 1) % 2`` and raise its receive flag, consume the block,
-    then grant one credit to the left neighbour (k < n - 2);
-  * the final arrival, block ``(my_id + 1) mod n``, is consumed from
-    slot ``(n - 1) % 2``.
+  * a neighbour barrier: both neighbours have entered;
+  * step 0: the own shard is read once and stored twice, into the rank's
+    own output row r and the right neighbour's row r, and the right
+    neighbour's receive flag is raised;
+  * step k = 1 .. n - 2: wait for the block of step k, read row idx from
+    the rank's own output and store it into the right neighbour's row
+    idx, raise its receive flag;
+  * step n - 1: wait for the last block, so that the rank's output is
+    complete when the kernel ends.
 
-Why the credit. Waiting on one's own receive flag bounds nothing about
-the neighbours' progress: a rank's step-k completion depends only on its
-left chain, so around an n-ring a neighbour can run up to n - 1 steps
+Every output row of every rank is written exactly once, so no slot and
+no credit is needed: no store waits for a reader. A rank's CTAs count
+their arrivals on two counters by step parity, so from step 2 on a CTA
+also waits until its own rank's step k - 2 has been signalled: with no
+credit, nothing else keeps it from running two steps ahead of a slow CTA
+of its rank and counting towards the wrong step.
+``all_gather_moved_bytes`` counts what the kernel reads and writes. The
+bidirectional form runs the same protocol twice, each stream on half of
+every shard, one towards higher positions and one the other way.
+
+The stream protocol with its two slots and credits
+(``run_ring_stream``) remains for ring attention and the all-gather
+matmul, which consume each block as it passes. Why it needs the credit:
+waiting on one's own receive flag bounds nothing about the neighbours'
+progress, so around an n-ring a neighbour can run up to n - 1 steps
 ahead, and its step-(k + 2) copy would land in a slot whose step-k
 contents this rank has not yet forwarded (seen as chunk corruption on
-the reference's 8-wide ring; 2-wide rings never skew enough to expose
-it). The step-k copy targets the right neighbour's slot (k + 1) % 2,
-which is free once that neighbour finished its step k - 1 with it; so
-each rank grants its left neighbour a credit after each step and waits
-for one before every send after the first. Skew is bounded to one step,
-which the two slots absorb.
+the reference's 8-wide ring). Each rank grants its left neighbour a
+credit after each step and waits for one before every send after the
+first; skew is bounded to one step, which the two slots absorb.
 
 The reduce-scatter protocol (``run_rs_fold_send``): chunk j starts at
 rank ``(j + 1) mod n`` and travels right, gathering each rank's
@@ -188,36 +198,42 @@ def _chunk_rows(x: torch.Tensor, n: int, what: str) -> int:
 def ring_all_gather_plain(x: torch.Tensor, n: int,
                           bidirectional: bool = False) -> torch.Tensor:
     """The ring all-gather of x [N, W], cut into n row shards, one per
-    rank: every rank's gathered copy, [n, N, W], each equal to x. One
-    way, rank r receives at step k the block of rank ``(r - k) mod n``.
-    Bidirectional (and an even shard; an odd one runs the one-way ring),
-    the top half of every shard travels right and the bottom half left:
-    at step k rank r stores the top half of rank ``(r - k - 1) mod n``
-    and the bottom half of rank ``(r + k + 1) mod n``."""
+    rank: every rank's gathered copy, [n, N, W], each equal to x. Written
+    out step by step and rank by rank in the kernel's protocol: at step 0
+    rank r stores its shard into its own row r and its right neighbour's
+    row r; at step k = 1 .. n - 2 it copies its own row ``(r - k) mod n``
+    into the right neighbour's same row. Bidirectional (and an even
+    shard; an odd one runs the one-way ring), the top half of every shard
+    travels right and the bottom half left, the left-going stream's rows
+    ``(r + k) mod n``."""
     chunk = _chunk_rows(x, n, "ring_all_gather")
     out = x.new_empty((n,) + tuple(x.shape))
-    blocks = list(x.split(chunk))
     if bidirectional and chunk % 2 == 0:
-        half = chunk // 2
-        cw = [b[:half] for b in blocks]
-        ccw = [b[half:] for b in blocks]
+        streams = ((1, 0, chunk // 2), (-1, chunk // 2, chunk))
+    else:
+        streams = ((1, 0, chunk),)
+    for direction, lo, hi in streams:
         for r in range(n):
-            out[r, r * chunk:(r + 1) * chunk] = blocks[r]
-        for step in range(n - 1):
-            cw = cw[-1:] + cw[:-1]   # i -> i + 1
-            ccw = ccw[1:] + ccw[:1]  # i -> i - 1
+            own = slice(r * chunk + lo, r * chunk + hi)
+            out[r, own] = x[own]
+            if n > 1:
+                out[(r + direction) % n, own] = x[own]
+        for step in range(1, n - 1):
             for r in range(n):
-                src_cw = (r - step - 1 + 2 * n) % n
-                src_ccw = (r + step + 1) % n
-                out[r, src_cw * chunk:src_cw * chunk + half] = cw[r]
-                out[r, src_ccw * chunk + half:(src_ccw + 1) * chunk] = ccw[r]
-        return out
-    for step in range(n):
-        for r in range(n):
-            idx = (r - step + n) % n
-            out[r, idx * chunk:(idx + 1) * chunk] = blocks[r]
-        blocks = blocks[-1:] + blocks[:-1]  # i -> i + 1
+                idx = (r - direction * step) % n
+                rows = slice(idx * chunk + lo, idx * chunk + hi)
+                out[(r + direction) % n, rows] = out[r, rows]
     return out
+
+
+def all_gather_moved_bytes(n: int, chunk_bytes: int) -> int:
+    """Bytes the all-gather kernel reads and writes, all ranks of a ring
+    of n, one way or both: per rank the own shard read once and written
+    twice, then n - 2 relays of a read and a write, 2n - 1 blocks. A ring
+    of one reads its shard and writes it once."""
+    if n < 2:
+        return 2 * chunk_bytes
+    return n * (2 * n - 1) * chunk_bytes
 
 
 def _library():
@@ -227,7 +243,7 @@ def _library():
     if lib.ring_all_gather_launch.argtypes is None:
         ids = ctypes.POINTER(ctypes.c_longlong)
         lib.ring_all_gather_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ids, ids, ctypes.c_int,
+            [ctypes.c_void_p] * 3 + [ids, ids, ctypes.c_int,
                                      ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_ulonglong, ctypes.c_void_p])
         lib.ring_all_gather_launch.restype = ctypes.c_int
@@ -285,14 +301,12 @@ def ring_all_gather_cuda(x: torch.Tensor, n: int,
                          f"({'halved' if bidirectional else 'whole'}) is "
                          f"none")
     out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
-    slots = torch.empty(2 * n * chunk_bytes, dtype=torch.uint8,
-                        device=x.device)
     lib = _library()
     _launch("ring_all_gather", x, n,
             lambda right, left, flags, epoch, stream:
             lib.ring_all_gather_launch(
-                x.data_ptr(), out.data_ptr(), slots.data_ptr(), flags, right,
-                left, n, chunk_bytes, int(bidirectional), epoch, stream))
+                x.data_ptr(), out.data_ptr(), flags, right, left, n,
+                chunk_bytes, int(bidirectional), epoch, stream))
     if bidirectional:
         ring_all_gather_cuda.launches_bidir += 1
     else:

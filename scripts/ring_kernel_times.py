@@ -9,7 +9,8 @@ parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists. Its own ``chip_smoke.py`` helpers and kernels are
 used, so two trees timed in turns in one command (parent, change, change,
 parent) compare on the same card. Prints one JSON line: ms of the one-way
-and the bidirectional ring all-gather at the probe's 16 MiB, of the ring
+and the bidirectional ring all-gather at the probe's 16 MiB and at 256
+MiB (beyond the 50 MB L2), of the ring
 reduce-scatter at 16 MiB a rank and of the all-reduce composed of the two
 (``make_ring_all_gather`` after ``make_ring_reduce_scatter``), of ring
 attention at S = 32768, d 128 (8 ranks sharing the card) f32 causal, f32
@@ -23,9 +24,10 @@ matmuls at the tensor-parallel MLP's shapes (x [4096, 4096] @ w1
 the card) in f32 and bf16, of the matmul reduce-scatter's f32 partial
 traffic alone (the same [4096, 4096] output and 8 ranks with a
 contraction of 8 a rank, so that the products are negligible and the
-time is the partials' writes, copies and folds), and of the ring
-all-gather of the all-gather matmul's own x (the 4 MiB bf16 blocks its
-relay moves). With the card's name and power limit. Needs a CUDA card.
+time is the partials' writes, copies and folds), and of the one-way ring
+all-gather of the all-gather matmul's own x (bf16, 4 MiB shards; the
+all-gather's own protocol, not the matmul's relay). With the card's name
+and power limit. Needs a CUDA card.
 """
 
 import json
@@ -59,6 +61,15 @@ def main() -> int:
         torch, lambda: rp.ring_all_gather_cuda(x, n, False), n=10, warm=2)
     out["all_gather_bidir_ms"] = c.time_ms(
         torch, lambda: rp.ring_all_gather_cuda(x, n, True), n=10, warm=2)
+    big = c.coll_payload(torch, 256 * 2 ** 20 // (4 * 512), 512,
+                         torch.float32, seed=32)
+    for key, bidirectional in (("all_gather_256mib_ms", False),
+                               ("all_gather_bidir_256mib_ms", True)):
+        out[key] = c.time_ms(
+            torch, lambda: rp.ring_all_gather_cuda(big, n, bidirectional),
+            n=5, warm=1, batch=2)
+    del big
+    torch.cuda.empty_cache()
     out["reduce_scatter_ms"] = c.time_ms(
         torch, lambda: rp.ring_reduce_scatter_cuda(X, n), n=10, warm=2)
     rs = rp.make_ring_reduce_scatter(c.RING_MESH, "sp")
@@ -105,7 +116,7 @@ def main() -> int:
                 torch, lambda: cm.mm_rs_cuda(xs, ws, n), n=5, warm=1,
                 batch=2)
             if dtype == torch.bfloat16:
-                out["ag_relay_bfloat16_ms"] = c.time_ms(
+                out["all_gather_bf16_4mib_ms"] = c.time_ms(
                     torch, lambda: rp.ring_all_gather_cuda(x, n, False),
                     n=10, warm=2)
             del x, w1, w2, h, xs, ws

@@ -252,3 +252,29 @@ def test_ring_attn_folds_on_the_tensor_cores():
     assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
     assert "fmaf(a" not in src and "AttnConsumer" in src
     assert src.count("split_mma<") >= 4
+
+
+def test_all_gather_relays_from_the_output():
+    """The ring all-gather runs the relay-from-output protocol: its kernel
+    calls ``run_gather_relay``, which touches no slot and no credit, its C
+    entry takes no slots and its wrapper allocates none; the stream
+    protocol stays for ring attention and the all-gather matmul."""
+    import inspect
+
+    from dpu_operator_tpu_torch.parallel import ring_probe
+
+    csrc = cuda_build.CSRC_DIR
+    src = (csrc / "ring_collectives.cu").read_text()
+    kernel = _body(src, "    ring_all_gather_kernel(")
+    assert "ring::run_gather_relay(" in kernel
+    assert "run_ring_stream(" not in src and "CopyOut" not in src
+    entry = 'extern "C" int ring_all_gather_launch('
+    start = src.index(entry)
+    assert "slots" not in src[start:src.index(")", start)]
+    relay = _body((csrc / "ring_stream.cuh").read_text(),
+                  "__device__ void run_gather_relay(")
+    assert "credit" not in relay and "slots" not in relay
+    assert "copy_stripe_twice(" in relay
+    for user in ("ring_attn.cu", "collective_matmul.cu"):
+        assert "ring::run_ring_stream(" in (csrc / user).read_text()
+    assert "slots" not in inspect.getsource(ring_probe.ring_all_gather_cuda)

@@ -21,14 +21,16 @@ Bars:
     arrival at every hop, arrival plus own part at the last), and f32
     addition is the same IEEE operation on both sides.
 
-The reduce-scatter kernel itself runs only on a card; what guards its
-schedule here is a step emulation of it on data
-(``_emulate_rs_fold_send``, the kernel's ``run_rs_fold_send``) under
-adversarial and random interleavings, with and without the credits,
-held bit for bit against the plain version and against the reference's
-Pallas kernel in interpret mode, and a data-level simulation of the
-older send-buffer schedule (``run_rs_ring``) that the matmul
-reduce-scatter still runs.
+The ring kernels themselves run only on a card; what guards their
+schedules here are step emulations of them on data under adversarial
+and random interleavings: the all-gather's (``_emulate_gather_relay``,
+the kernel's ``run_gather_relay``) a CTA at a time, with and without
+its waits, every rank's copy held bit for bit against x; the
+reduce-scatter's (``_emulate_rs_fold_send``, the kernel's
+``run_rs_fold_send``), with and without the credits, held bit for bit
+against the plain version and against the reference's Pallas kernel in
+interpret mode; and a data-level simulation of the older send-buffer
+schedule (``run_rs_ring``) that the matmul reduce-scatter still runs.
 """
 
 import random
@@ -105,6 +107,216 @@ def test_all_gather_every_rank_gets_x(n, dtype):
             assert every.dtype == dtype
             for r in range(n):
                 assert torch.equal(every[r], x), (n, rows, bidirectional, r)
+
+
+# -- the relay-from-output all-gather, emulated step by step ------------------
+
+
+def _emulate_gather_relay(x, n, bidirectional, pick, ctas=1, recv_wait=True,
+                          own_step_wait=True):
+    """Step emulation of the all-gather kernel's protocol
+    (``ring::run_gather_relay``) on data, a CTA at a time. x [n * chunk,
+    W], rank r's shard at rows ``r * chunk ..``; bidirectional with an
+    even shard, two streams of half a shard each, the second running the
+    other way. Each rank's output starts unwritten; each (rank, row,
+    stream) block is cut into ``ctas`` stripes, one a CTA. A CTA of rank r
+    on a stream of direction d runs steps k = 0 .. n - 1, each one event:
+    it waits (k >= 1, with ``recv_wait``) until its rank's receive flag
+    reaches k and (2 <= k <= n - 2, with ``own_step_wait``) until the
+    right neighbour's receive flag reaches k - 1, its own rank's step
+    k - 2 signalled; step 0 reads its stripe of the own shard from x and
+    stores it into the rank's row r and the right neighbour's row r (n =
+    1: the own row only, and nothing else); step k = 1 .. n - 2 reads its
+    stripe of row ``(r - d * k) mod n`` from the rank's output and stores
+    it into the right neighbour's same row; each of those then arrives on
+    the rank's counter of parity k % 2, and the arrival that fills it
+    resets it and raises the right neighbour's receive flag to k + 1;
+    step n - 1 does nothing. Flags only grow, as the kernel's do.
+    ``pick`` chooses among the (step, stream, rank, cta) events whose
+    waits are released; a read of an unwritten stripe relays zeros.
+    Returns (every rank's copy [n, N, W]; bytes read and written; reads of
+    an unwritten stripe; stores into a written one; filled counters that
+    counted arrivals of more than one step)."""
+    chunk = x.shape[0] // n
+    if bidirectional and chunk % 2 == 0:
+        halves = ((1, 0, chunk // 2), (-1, chunk // 2, chunk))
+    else:
+        halves = ((1, 0, chunk),)
+    S = len(halves)
+    item = x.element_size()
+    out = {}  # (rank, row, stream, cta) -> stripe, once written
+    recv = [[0] * n for _ in range(S)]
+    count = [[[0, 0] for _ in range(n)] for _ in range(S)]
+    counted = [[[set(), set()] for _ in range(n)] for _ in range(S)]
+    step = [[[0] * ctas for _ in range(n)] for _ in range(S)]
+    last = max(n - 1, 0)
+    moved = early = rewrites = mixed = 0
+
+    def own_stripe(s, r, c):
+        _, lo, hi = halves[s]
+        block = x[r * chunk + lo:r * chunk + hi].reshape(-1)
+        return torch.tensor_split(block, ctas)[c]
+
+    def store(key, value):
+        nonlocal moved, rewrites
+        rewrites += key in out
+        out[key] = value
+        moved += value.numel() * item
+
+    def released(s, r, c):
+        k = step[s][r][c]
+        if k > last:
+            return False
+        d = halves[s][0]
+        if recv_wait and k >= 1 and recv[s][r] < k:
+            return False
+        return not (own_step_wait and 2 <= k <= n - 2
+                    and recv[s][(r + d) % n] < k - 1)
+
+    while True:
+        events = [(step[s][r][c], s, r, c) for s in range(S)
+                  for r in range(n) for c in range(ctas)
+                  if released(s, r, c)]
+        if not events:
+            break
+        k, s, r, c = pick(events)
+        d = halves[s][0]
+        right = (r + d) % n
+        step[s][r][c] += 1
+        if k == n - 1 and n > 1:
+            continue
+        if k == 0:
+            value = own_stripe(s, r, c)
+            moved += value.numel() * item
+            store((r, r, s, c), value)
+            if n == 1:
+                continue
+            store((right, r, s, c), value)
+        else:
+            idx = (r - d * k) % n
+            value = out.get((r, idx, s, c))
+            if value is None:
+                early += 1
+                value = torch.zeros_like(own_stripe(s, idx, c))
+            moved += value.numel() * item
+            store((right, idx, s, c), value)
+        count[s][r][k % 2] += 1
+        counted[s][r][k % 2].add(k)
+        if count[s][r][k % 2] == ctas:
+            mixed += len(counted[s][r][k % 2]) > 1
+            count[s][r][k % 2] = 0
+            counted[s][r][k % 2] = set()
+            recv[s][right] = max(recv[s][right], k + 1)
+    assert all(k == last + 1 for st in step for rank in st for k in rank), (
+        f"deadlock at steps {step}")
+    every = x.new_empty((n,) + tuple(x.shape))
+    for rank in range(n):
+        for row in range(n):
+            for s, (_, lo, hi) in enumerate(halves):
+                every[rank, row * chunk + lo:row * chunk + hi] = torch.cat(
+                    [out[rank, row, s, c] for c in range(ctas)]).view(
+                        hi - lo, -1)
+    return every, moved, early, rewrites, mixed
+
+
+def _starve(events):
+    """Adversarial: hold CTA 0 of rank 0 back while anything else can run,
+    and otherwise run the CTA furthest along."""
+    others = [e for e in events if e[2:] != (0, 0)]
+    return max(others or events)
+
+
+AG_EMU_TYPES = ("float32", "bfloat16", "int32")
+AG_EMU_WIDTH = 3  # 12-byte rows (6 in bf16): no 16-byte unit
+
+
+def _ag_emu_input(n, rows, tname, seed):
+    """x [n * rows, 3] of ``tname`` from a seed."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-2 ** 20, 2 ** 20, (n * rows, AG_EMU_WIDTH))
+    return torch.from_numpy(x.astype(np.float32)).to(getattr(torch, tname))
+
+
+@pytest.mark.parametrize("bidirectional", [False, True])
+@pytest.mark.parametrize("tname", AG_EMU_TYPES)
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8])
+def test_gather_relay_emulation_gives_every_rank_x(n, tname, bidirectional):
+    """Under every order of events, with one CTA a rank and with three,
+    the emulated kernel gives every rank a copy of x bit for bit, reads no
+    stripe before it was written, writes none twice, counts no arrival
+    towards another step, and moves 2n - 1 blocks a rank."""
+    for rows in (2, 3):  # an even shard and an odd one (one way only)
+        x = _ag_emu_input(n, rows, tname, seed=90 + 10 * n + rows)
+        chunk_bytes = rows * AG_EMU_WIDTH * x.element_size()
+        for ctas in (1, 3):
+            for i, pick in enumerate(_pickers(n) + [_starve]):
+                every, moved, early, rewrites, mixed = _emulate_gather_relay(
+                    x, n, bidirectional, pick, ctas=ctas)
+                tag = (rows, ctas, i)
+                assert (early, rewrites, mixed) == (0, 0, 0), tag
+                for r in range(n):
+                    np.testing.assert_array_equal(_bits(every[r]), _bits(x),
+                                                  err_msg=str(tag))
+                assert moved == rp.all_gather_moved_bytes(n, chunk_bytes)
+
+
+@pytest.mark.parametrize("n", [3, 4, 5, 8])
+def test_gather_relay_without_the_recv_wait_reads_an_unwritten_row(n):
+    """With the receive wait taken out, the rank furthest along relays a
+    row that has not landed yet: the emulation must show the race the
+    flag closes, or it no longer models it. A ring of 2 relays nothing."""
+    x = _ag_emu_input(n, 2, "float32", seed=7)
+    _, _, early, _, _ = _emulate_gather_relay(x, n, False, max,
+                                              recv_wait=False)
+    assert early > 0
+    two = _ag_emu_input(2, 2, "float32", seed=7)
+    every, _, early, _, _ = _emulate_gather_relay(two, 2, True, max,
+                                                  recv_wait=False)
+    assert early == 0 and all(torch.equal(every[r], two) for r in range(2))
+
+
+@pytest.mark.parametrize("n", [4, 5, 8])
+def test_gather_relay_without_the_own_step_wait_miscounts(n):
+    """With two CTAs a rank and the wait for the rank's own step k - 2
+    taken out, a CTA that runs two steps ahead of its starved sibling
+    fills the parity counter of a step the sibling has not stored: the
+    neighbour is released early and relays a stripe that is not there."""
+    x = _ag_emu_input(n, 2, "float32", seed=8)
+    for bidirectional in (False, True):
+        every, _, early, _, mixed = _emulate_gather_relay(
+            x, n, bidirectional, _starve, ctas=2, own_step_wait=False)
+        assert mixed > 0 and early > 0
+        assert not all(torch.equal(every[r], x) for r in range(n))
+        every, _, early, _, mixed = _emulate_gather_relay(
+            x, n, bidirectional, _starve, ctas=2)
+        assert (early, mixed) == (0, 0)
+        assert all(torch.equal(every[r], x) for r in range(n))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_gather_relay_small_rings_need_no_own_step_wait(n):
+    """Rings of 1, 2 and 3 count no arrival of step 2 or later: without
+    the own-step wait, in every order, nothing is read early or counted
+    towards another step."""
+    x = _ag_emu_input(n, 2, "bfloat16", seed=9)
+    for pick in _pickers(n) + [_starve]:
+        every, _, early, rewrites, mixed = _emulate_gather_relay(
+            x, n, True, pick, ctas=2, own_step_wait=False)
+        assert (early, rewrites, mixed) == (0, 0, 0)
+        assert all(torch.equal(every[r], x) for r in range(n))
+
+
+def test_all_gather_moved_bytes():
+    """The probe's 16 MiB at n = 8 (2 MiB shards): 240 MiB, where the
+    stream protocol with a copy-out consumer moved 2(2n - 1) = 30 blocks
+    a rank, 480 MiB; the function itself reads 16 MiB and writes 128.
+    A ring of one reads its shard and writes it once."""
+    mib = 2 ** 20
+    assert rp.all_gather_moved_bytes(8, 2 * mib) == 240 * mib
+    assert 8 * 2 * (2 * 8 - 1) * 2 * mib == 480 * mib
+    assert rp.all_gather_moved_bytes(2, 12) == 2 * 3 * 12
+    assert rp.all_gather_moved_bytes(3, 20) == 3 * 5 * 20
+    assert rp.all_gather_moved_bytes(1, 12) == 2 * 12
 
 
 def test_all_gather_errors():
