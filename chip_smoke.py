@@ -300,8 +300,20 @@ CM_WGMMA_CASES = ((8, 8 * 424, 8 * 200, 4000, True),
                   (8, 8 * 1536, 200, 8 * 1000, False))
 # CTAs an SM of each bf16 kernel (its shared memory), and its tile.
 CM_WGMMA_TILES = {False: (1, 128, 256), True: (2, 128, 128)}
-# Kernel vs plain: in f32 both sum the same exact products in another
-# order (FMA tiles over k vs cuBLAS), so max |a - b| <= 1e-5 * max |b|; in
+# Cases aimed at the f32 split-TF32 product (K stages of 32; 128 x 128
+# tiles, one CTA an SM, in both kernels), as CM_WGMMA_CASES: the
+# reduce-scatter with 424-row blocks, kn = 200 (no multiple of 32) and
+# f = 1800, 4 x 15 tiles a block over at most 132 // 8 = 16 CTAs a rank;
+# the all-gather with 1480-row shards, k = 200 and 600 columns a rank,
+# 12 x 5 tiles a block: three or four products a CTA a ring step, each
+# with tails in M, N and K.
+CM_TF32_CASES = ((8, 8 * 424, 8 * 200, 1800, True),
+                 (8, 8 * 1480, 200, 8 * 600, False))
+CM_TF32_TILE = (1, 128, 128)
+# Kernel vs plain: in f32 the kernel sums split-TF32 passes (each
+# product within ~2**-22 of the exact one, its f32 sums in other orders)
+# where cuBLAS sums exact f32 products, so max |a - b| <= 1e-5 * max |b|
+# (one TF32 pass is ~3e-4 off and must miss it); in
 # bf16 both round an f32 value that differs by that reordering once: 1
 # ulp, counted as phase 6 counts its matmul (STEP_ULPS): at the larger
 # magnitude or at 2**-5 below it. Not ring attention's 2**-12: over k up
@@ -1745,20 +1757,21 @@ def ptxas_entries(text):
 
 
 def check_wgmma_build(cuda_build, source):
-    """The bf16 wgmma kernels of ``source`` as ptxas reported them in this
-    run: the collective matmuls' two, the tile kernel's four instances
-    (two widths, with and without tanh); no spills. Returns a line for the
+    """The tile-product kernels of ``source`` as ptxas reported them in
+    this run: the collective matmuls' four (bf16 on wgmma, f32 on the
+    split-TF32 mma.sync form), the tile kernel's four instances (two
+    widths, with and without tanh); no spills. Returns a line for the
     log."""
     text = cuda_build.build_logs.get(source)
     if text is None:
         return (f"{source}: ptxas report not in this run (the library was "
                 f"built earlier in this checkout)")
     if source == "collective_matmul":
-        want = 2
+        want = 4
         kernels = {("ag_matmul" if "ag_matmul" in name else "mm_rs")
-                   + " bf16": regs
+                   + (" bf16" if "bfloat16" in name else " f32"): regs
                    for name, regs in ptxas_entries(text).items()
-                   if "bfloat16" in name}
+                   if "ag_matmul_kernel" in name or "mm_rs_kernel" in name}
     else:
         want = 4
         kernels = {}
@@ -1796,6 +1809,7 @@ def phase_tp_mlp(torch, card):
     from dpu_operator_tpu_torch import cuda_build
     from dpu_operator_tpu_torch.parallel import burn
     from dpu_operator_tpu_torch.parallel import collective_matmul as cm
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
 
     log(f"tp-mlp ptxas: {check_wgmma_build(cuda_build, 'collective_matmul')}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1813,8 +1827,8 @@ def phase_tp_mlp(torch, card):
                  + [c + (False,) for c in CM_OFF_GRID]
                  + [c + (True,) for c in CM_RS_OFF_GRID]
                  + [(8, 16, 64, 16, True)]
-                 + (list(CM_WGMMA_CASES) if dtype == torch.bfloat16
-                    else []))
+                 + list(CM_WGMMA_CASES if dtype == torch.bfloat16
+                        else CM_TF32_CASES))
         for n, rows, k, f, reduce_scatter in cases:
             what = "matmul reduce-scatter" if reduce_scatter else \
                 "all-gather matmul"
@@ -1822,8 +1836,11 @@ def phase_tp_mlp(torch, card):
             _, err, bar = cm_case(torch, cm, burn, tag, rand(rows, k, dtype),
                                   rand(k, f, dtype), n, reduce_scatter)
             extra = ""
-            if (n, rows, k, f, reduce_scatter) in CM_WGMMA_CASES:
-                per_sm, bm, bn = CM_WGMMA_TILES[reduce_scatter]
+            if (n, rows, k, f, reduce_scatter) in (CM_WGMMA_CASES
+                                                   + CM_TF32_CASES):
+                per_sm, bm, bn = (CM_WGMMA_TILES[reduce_scatter]
+                                  if dtype == torch.bfloat16
+                                  else CM_TF32_TILE)
                 cols = f if reduce_scatter else f // n
                 tiles = math.ceil(rows // n / bm) * math.ceil(cols / bn)
                 ctas = min(tiles, per_sm * sms // n)
@@ -1890,7 +1907,6 @@ def phase_tp_mlp(torch, card):
         name = str(dtype)[6:]
         x, w1, w2 = inputs[dtype]
         item = x.element_size()
-        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
         got = outs.pop(dtype)
         check(got.shape == (TP_B, TP_D) and got.dtype == dtype,
               f"tp-mlp pair {name}: {got.dtype} {tuple(got.shape)}")
@@ -1926,6 +1942,25 @@ def phase_tp_mlp(torch, card):
                 check(same_bits(torch, mine, h),
                       f"tp-mlp ag_matmul {name}: differs from the pair's "
                       f"first half")
+            elif dtype == torch.float32:
+                # One TF32 pass a slice (emulated) must miss the bar that
+                # the kernel's three meet.
+                want = plain(a, b, n)
+                kn = a.shape[1] // n
+                one = rp.ring_reduce_scatter_plain(torch.cat([
+                    cm.tf32x3_product(a[:, r * kn:(r + 1) * kn],
+                                      b[r * kn:(r + 1) * kn], single=True)
+                    for r in range(n)]), n)
+                one_err = float((one - want).abs().max())
+                top = float(want.abs().max())
+                check(one_err > CM_F32_REL * top,
+                      f"tp-mlp {key} {name}: one TF32 pass is within the "
+                      f"f32 bar ({one_err} of {top}); the bar does not bite")
+                log(f"tp-mlp {key} {name}: one TF32 pass (emulated) max "
+                    f"|err| {one_err:.3e} = {one_err / top:.2e} of max |b|, "
+                    f"outside the bar ({CM_F32_REL}); the kernel's "
+                    f"{err / top:.2e}")
+                del want, one
             del mine
             ms = time_ms(torch, lambda: kern(a, b, n), n=5, warm=1, batch=2)
             launch_ms, host_ms, seen = device_ms(
@@ -1935,8 +1970,14 @@ def phase_tp_mlp(torch, card):
             library_ms = time_ms(torch, lambda: torch.matmul(a, b), n=5,
                                  warm=1, batch=2)
             nbytes = (a.numel() + b.numel() + a.shape[0] * b.shape[1]) * item
-            t_ops = flops / peak * 1e3
+            # f32: the split's three passes on the TF32 tensor cores; the
+            # FMA pipes' bound is logged beside it.
+            t_ops = (flops / BF16_FLOP_PER_S if dtype == torch.bfloat16
+                     else 3 * flops / TF32_FLOP_PER_S) * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            fma = ("" if dtype == torch.bfloat16 else
+                   f"; {max(flops / FP32_FLOP_PER_S * 1e3, t_bytes):.4f} ms "
+                   f"on the f32 FMA pipes")
             log(f"tp-mlp {key} {name} [{a.shape[0]}, {a.shape[1]}] @ "
                 f"[{b.shape[0]}, {b.shape[1]}] n={n}: == plain within the "
                 f"bar, max |err| {err:.3e} ({bar}); kernel {ms:.4f} ms "
@@ -1944,9 +1985,10 @@ def phase_tp_mlp(torch, card):
                 f"{host_ms:.4f} ms of host time to queue a call; "
                 f"{flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
                 f"torch.matmul {library_ms:.4f} ms, bound "
-                f"{max(t_ops, t_bytes):.4f} ms ({flops} flop, {nbytes} B; "
-                f"{n} ranks share the card: the relay is a copy within its "
-                f"memory) [{card}]")
+                f"{max(t_ops, t_bytes):.4f} ms ({flops} flop"
+                f"{'' if dtype == torch.bfloat16 else ', x 3 split passes'}"
+                f", {nbytes} B{fma}; {n} ranks share the card: the relay is "
+                f"a copy within its memory) [{card}]")
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
             if dtype == torch.float32:
                 records.append(dict(

@@ -39,16 +39,20 @@
 //
 // Products: bf16 operands on `tile_product_wgmma` (TMA into a ring of
 // swizzled stages, wgmma.mma_async, f32 accumulate, a 64-row half of the
-// tile per warpgroup), f32 operands on the FMA pipes in f32 (64 x 64
-// tiles, a 4 x 4 patch a thread), both with tails, so chunk, k / n, f / n
-// and f need not divide by a tile. The bf16 tile is each kernel's own,
-// the faster of the two widths for it when both were timed at the MLP's
-// shapes on an H100: the all-gather matmul takes 128 x 256 (four stages,
-// one CTA an SM), the reduce-scatter 128 x 128 (three stages, two CTAs an
-// SM), whose f32 partials are copied and folded by the same CTAs and go
-// faster with twice as many (`PERF.md` §6). The wrapper checks that
-// every row the kernels read or write is whole 16-byte units (cp.async
-// moves 16 bytes; a tensor map's strides are multiples of 16 bytes).
+// tile per warpgroup), f32 operands on `tile_product_tf32x3` (cp.async
+// stages of f32, each value split into TF32 hi and lo as a warp loads
+// it, mma.sync in three passes a product for f32 accuracy, each 16-deep
+// slice's sum added to the running f32 sums with one rounding; 128 x 128
+// tiles, one CTA an SM), both with tails, so chunk, k / n, f / n and f
+// need not divide by a tile. The bf16
+// tile is each kernel's own, the faster of the two widths for it when
+// both were timed at the MLP's shapes on an H100: the all-gather matmul
+// takes 128 x 256 (four stages, one CTA an SM), the reduce-scatter 128 x
+// 128 (three stages, two CTAs an SM), whose f32 partials are copied and
+// folded by the same CTAs and go faster with twice as many (`PERF.md`
+// §6). The wrapper checks that every row the kernels read or write is
+// whole 16-byte units (cp.async moves 16 bytes; a tensor map's strides
+// are multiples of 16 bytes).
 //
 // bf16 operands are read through tensor maps that the host encodes for
 // each call from `parallel/collective_matmul.py` `tma_views` (3-D views,
@@ -63,15 +67,17 @@
 // (x [4096, 4096] @ w1 [4096, 8192]; relu(h) [4096, 8192] @ w2
 // [8192, 4096]; n = 8) each does 2.7e11 flop against 168 MB (bf16) or
 // 336 MB (f32) of operands and output, 800-1600 flop a byte: 0.2779 ms at
-// the bf16 peak. With every rank on one card, the relay that the product
-// hides is a copy within that card's memory, never a link.
+// the bf16 peak; in f32 the split's three passes take 8.2e11 flop, 1.67
+// ms at the TF32 peak. With every rank on one card, the relay that the
+// product hides is a copy within that card's memory, never a link.
 //
 // Layout: one cooperative launch (`ring::launch_ring`) of n x G CTAs of
 // 256 threads; G is the output tiles of one block, capped by what the
-// card holds at once with the product's shared memory (bf16 all-gather:
-// one CTA an SM, 16 a rank at n = 8 on an H100's 132 SMs, and at the
-// MLP's shapes 4 x 4 tiles a block, one a CTA a step; bf16
-// reduce-scatter: 33 a rank, 4 x 32 tiles a block).
+// card holds at once with the product's shared memory (bf16 all-gather
+// and both f32 kernels: one CTA an SM, 16 a rank at n = 8 on an H100's
+// 132 SMs; at the MLP's shapes the bf16 all-gather has 4 x 4 tiles a
+// block, one a CTA a step, the f32 one 4 x 8; bf16 reduce-scatter: 33 a
+// rank, 4 x 32 tiles a block, as the f32 one over 16).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -86,11 +92,14 @@ using tile::bf16;
 static_assert(tile::kThreads == ring::kThreads,
               "one CTA size for the ring and the tile product");
 
+// The f32 tile's width, the same in both kernels: 128 x 128.
+constexpr int kF32Width = 128;
+
 // The tile product for operands of type T, and its epilogue that stores T;
-// kWide is the bf16 tile's width (f32 has one tile). `State` is what a CTA
-// keeps from one product to the next (its shared memory; for bf16 the
-// mbarrier ring's place too), made once per launch by `begin`; `Operand`
-// is how a product names A or B.
+// kWide is the bf16 tile's width (f32 has one, kF32Width). `State` is
+// what a CTA keeps from one product to the next (its shared memory; for
+// bf16 the mbarrier ring's place too), made once per launch by `begin`;
+// `Operand` is how a product names A or B.
 template <typename T, int kWide>
 struct Product;
 
@@ -127,8 +136,8 @@ struct Product<bf16, kWide> {
 template <int kWide>
 struct Product<float, kWide> {
   static constexpr bool kTma = false;
-  static constexpr int BM = tile::kF32Tile, BN = tile::kF32Tile;
-  using Smem = tile::SmemF32;
+  static constexpr int BM = tile::kTfBM, BN = kF32Width;
+  using Smem = tile::SmemTf32<BN>;
   using Store = tile::StoreF32;
   struct Operand {
     const float* p;
@@ -146,8 +155,8 @@ struct Product<float, kWide> {
                                              const Operand& b, int m, int n,
                                              int k, int row0, int col0,
                                              const E& out) {
-    tile::tile_product_f32<true>(st.sm, a.p, a.ld, b.p, b.ld, m, n, k, row0,
-                                 col0, out);
+    tile::tile_product_tf32x3(st.sm, a.p, a.ld, b.p, b.ld, m, n, k, row0,
+                              col0, out);
   }
 };
 

@@ -31,11 +31,12 @@
 // m' = max(m, max s), p = exp(s - m'), alpha = exp(m - m'),
 // l' = l * alpha + sum p, o' = o * alpha + p v with the accurate expf,
 // and out = o / (l == 0 ? 1 : l), rounded once to q's type. Both
-// products keep f32 accuracy on the TF32 tensor cores by a split: hi =
-// x rounded as cvt.rna.tf32.f32 rounds it, lo = x - hi rounded the same
-// way, and a . b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms
-// first (the dropped lo_a lo_b and the residuals are ~2^-22 of a
-// product). A pass is dropped only where its lo is zero by type: a bf16
+// products keep f32 accuracy on the TF32 tensor cores by the split of
+// `tile_product.cuh` (`tf32`, `split_mma`, shared with the f32 collective
+// matmuls): hi = x rounded as cvt.rna.tf32.f32 rounds it, lo = x - hi
+// rounded the same way, and a . b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b,
+// the small terms first (the dropped lo_a lo_b and the residuals are
+// ~2^-22 of a product). A pass is dropped only where its lo is zero by type: a bf16
 // value is exact in TF32 (8 mantissa bits within 10). So q . k takes 3
 // passes, 2 where q or K is bf16, 1 where both are; p . v takes 3, 2
 // where V is bf16 (p, from expf, is always f32). The tensor cores'
@@ -91,10 +92,15 @@
 #include <type_traits>
 
 #include "ring_stream.cuh"
+#include "tile_product.cuh"  // the TF32 split and its mma
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using tile::split_mma;
+using tile::SplitA;
+using tile::tf32;
+using tile::tf32_lo;
 
 constexpr int kThreads = ring::kThreads;
 static_assert(kThreads == 256, "eight warps of 16 query rows");
@@ -163,20 +169,6 @@ __device__ __forceinline__ void store(bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
-// from zero, the low 13 bits of the f32 pattern cleared), in two integer
-// ops: ptxas expands the cvt into four, with a guard for NaN and inf
-// that finite attention inputs never need (a NaN still propagates: its
-// lo is NaN).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x's TF32 lo: x - hi rounded the same way.
-__device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
-  return tf32(x - __uint_as_float(hi));
-}
-
 // Columns c .. c + 3 of a row as f32, 0 past `cols`. Read through L2
 // only (ld.global.cg), as one 8- or 16-byte load where `vec` allows it.
 template <typename T>
@@ -234,42 +226,6 @@ __device__ __forceinline__ void load_tile(const T* src, long long src_ld,
       }
     }
   }
-}
-
-// c += a . b on the tensor cores, one m16n8k8 TF32 product.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment split into TF32 hi and lo (lo left unset where exact).
-template <bool kExact>
-struct SplitA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ SplitA() {}
-  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
-    const float a[4] = {a0, a1, a2, a3};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      hi[i] = tf32(a[i]);
-      if (!kExact) lo[i] = tf32_lo(a[i], hi[i]);
-    }
-  }
-};
-
-// c += a . b with f32 accuracy, b given split (h, l): lo_a h + hi_a l +
-// hi_a h, a pass dropped where its operand is exact in TF32.
-template <bool kAExact, bool kBExact>
-__device__ __forceinline__ void split_mma(float (&c)[4],
-                                          const SplitA<kAExact>& a,
-                                          uint32_t h0, uint32_t h1,
-                                          uint32_t l0, uint32_t l1) {
-  if (!kAExact) mma(c, a.lo, h0, h1);
-  if (!kBExact) mma(c, a.hi, l0, l1);
-  mma(c, a.hi, h0, h1);
 }
 
 // Folds each block into every row tile this CTA owns. kBN keys a tile;

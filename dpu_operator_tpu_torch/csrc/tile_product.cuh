@@ -16,11 +16,11 @@
 //     registers). A fragment's element order is opaque, so the epilogue
 //     goes through a per-warp f32 staging tile and hands over 8
 //     neighbours of one row at a time;
-//   * f32, `tile_product_f32`: the same staging in steps of 16, and the
-//     product on the FMA pipes in f32 (never TF32): 64 x 64 tiles, each
-//     thread a register-blocked 4 x 4 patch (rows ty * 4 .., columns
-//     tx * 4 ..) fed from shared memory as float4, one 16-byte load of A
-//     and one of B feeding 16 FMAs. The epilogue gets 4 neighbours of a row;
+//   * f32, `tile_product_tf32x3` (the f32 collective matmuls): cp.async
+//     staging as above, three stages deep, each value split into TF32 hi
+//     and lo as a warp loads it and multiplied on the tensor cores by
+//     mma.sync in three passes a product, for f32 accuracy; its note is
+//     at the form, further down. The epilogue gets 4 neighbours of a row;
 //   * bf16 on Hopper's own path, `tile_product_wgmma` (the burn tile, the
 //     benchmark matmul, the bf16 collective matmuls): operands brought in
 //     by TMA through a ring of mbarrier-guarded stages and multiplied by
@@ -28,23 +28,22 @@
 //
 // Tails of the cp.async forms. The wmma form has none: its caller
 // guarantees that M and N are multiples of the tile and K of the step.
-// The f32 form, with kTails, takes M, N and K that are not: a 16-byte unit
-// of an operand that lies outside them is zero-filled (cp.async with a
-// source size of 0) and the epilogue is called only for groups that lie
-// inside C. The caller guarantees that every row of A, B and C that the
-// product reads or writes, and every row stride, is a whole number of
-// 16-byte units, so that a unit (and a group of 4 f32 outputs) is wholly
-// inside or wholly outside. Without kTails its loop is unpredicated, as
-// the wmma form's.
+// The TF32 form takes M, N and K that are not: a 16-byte unit of an
+// operand that lies outside them is zero-filled (cp.async with a source
+// size of 0) and the epilogue is called only for groups that lie inside
+// C. The caller guarantees that every row of A, B and C that the product
+// reads or writes, and every row stride, is a whole number of 16-byte
+// units, so that a unit (and a group of 4 f32 outputs) is wholly inside
+// or wholly outside.
 //
 // The cp.async forms read operands with cp.async.cg, through L2 only: a
 // ring kernel's operand may be a slot that a CTA on another SM has just
 // written, and L1 is not coherent across SMs. (TMA reads through L2 too.)
 //
-// Shared memory is the caller's: a `Smem` or an `SmemF32` on a 128-byte
-// boundary, static or dynamic, or a `SmemWgmma` on a 1024-byte one. The
-// product leaves it free for the next call (every stage is read before the
-// loop's last barrier).
+// Shared memory is the caller's: a `Smem` on a 128-byte boundary, static
+// or dynamic, an `SmemTf32` on a 16-byte one (dynamic: it is above 48 KB),
+// or a `SmemWgmma` on a 1024-byte one. The product leaves it free for the
+// next call (every stage is read before the product's last barrier).
 
 #pragma once
 
@@ -62,8 +61,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBK = 32;  // K depth of one bf16 stage
 constexpr int kPad = 8;  // bf16 of row padding: 16 bytes, fewer bank conflicts
-constexpr int kF32Tile = 64;  // BM = BN of the f32 form
-constexpr int kF32BK = 16;    // K depth of one f32 stage
 
 // Row strides are multiples of 16 bytes (cp.async) and every fragment's
 // first element lies on 32 bytes (wmma), given a 128-byte-aligned base.
@@ -72,13 +69,6 @@ struct Smem {
   bf16 a[2][BM][kBK + kPad];
   bf16 b[2][kBK][BN + kPad];
   float stage[kWarps][16 * 16];  // one accumulator fragment per warp
-};
-
-// The A rows carry 4 floats of padding: the two 4-row groups that the two
-// half-warps read at once then start 64 bytes apart, in other banks.
-struct SmemF32 {
-  float a[2][kF32Tile][kF32BK + 4];
-  float b[2][kF32BK][kF32Tile];
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -98,24 +88,15 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                : "memory");
 }
 
-template <bool kTails>
-__device__ __forceinline__ void cp_unit(void* dst, const void* src,
-                                        const void* base, bool valid) {
-  if (kTails) {
-    cp_async16_zfill(dst, valid ? src : base, valid);
-  } else {
-    cp_async16(dst, src);
-  }
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Waits until at most one group (the one most recently committed) is
+// Waits until at most N cp.async groups (the most recently committed) are
 // still in flight.
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
@@ -213,7 +194,7 @@ __device__ void tile_product(Smem<BM, BN>& sm, const bf16* A, long long lda,
                          (kt + 1) * kBK);
     }
     cp_async_commit();  // possibly empty: keeps "wait for all but one" right
-    cp_async_wait_one();
+    cp_async_wait<1>();
     __syncthreads();  // stage s, copied by every thread, is in place
 #pragma unroll
     for (int kk = 0; kk < kBK; kk += 16) {
@@ -254,93 +235,243 @@ __device__ void tile_product(Smem<BM, BN>& sm, const bf16* A, long long lda,
     }
 }
 
-// -- f32 on the FMA pipes -----------------------------------------------------
+// -- f32 on the TF32 tensor cores, split for f32 accuracy ----------------------
+//
+// Serves the f32 instances of TPU kernels 11 and 12 (parallel/
+// collective_matmul.py of the JAX package: `_pallas_ag_matmul`,
+// `_pallas_mm_rs`) through `collective_matmul.cu`; the split and its
+// mma are ring attention's too (`ring_attn.cu`). What bounds those
+// kernels is operations: 2.749e11 flop each at the tensor-parallel MLP's
+// shapes. On the FMA pipes (67 TFLOP/s) that is 4.1 ms; the TF32 tensor
+// cores (495 dense, about 315 by mma.sync on an H100) keep only 10
+// mantissa bits, so each operand is split, x ~ hi + lo with hi = x
+// rounded to TF32 and lo = x - hi rounded the same way, and a . b ~
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, the small terms first (the dropped
+// lo_a lo_b and the residuals are ~2^-22 of a product): three passes,
+// 8.25e11 flop of mma, 1.67 ms at the TF32 peak.
+//
+// The tensor cores' f32 sums truncate, so a sum carried over a long K in
+// one accumulator drifts one way. Each 16-deep slice's passes therefore
+// go into fresh accumulators, and the slice's result is added to the
+// running f32 sums with one rounding to nearest.
+//
+// Layout: a CTA tile of 128 x BN, eight warps of 32 columns each (64 x
+// 32 at BN = 128); K in stages of kTfBK = 32, landing in shared memory
+// as f32 by cp.async, kTfStages deep (one barrier a stage). A warp
+// splits each value as it loads it into a fragment: the planes of a
+// split stage would double every fragment load and add a pass between
+// two barriers, and shared memory, not the arithmetic, then sets the
+// pace (1.3-1.4x slower on an H100, `PERF.md` §6). mma.sync.m16n8k8
+// wants A's (row g, k t) and (g, k t + 4) and B's (k t, column g), g =
+// lane / 4, t = lane % 4. The contraction index may be permuted as long
+// as A and B agree: in a 16-deep slice, k = t stands for column 4t (4t +
+// 2 in the slice's second mma) and k = t + 4 for 4t + 1 (4t + 3), so the
+// A fragments of a row are one 16-byte load. Bank conflicts: A's 16-byte
+// units are swizzled by the row's parity (rows g and g + 1 are read at
+// once), B's by 2 * ((k / 4) mod 4) (rows 4t + i of four t are read at
+// once, four columns apart). Registers: a warp's 64 x 32 running sums
+// take 64 a thread, so the fresh sums are one m16 tile's (16) and a
+// slice's passes are added to the running sums every 16 of K.
 
-template <bool kTails>
-__device__ __forceinline__ void load_stage_f32(SmemF32& sm, int s,
-                                               const float* A, long long lda,
-                                               const float* B, long long ldb,
-                                               int M, int N, int K, int row0,
-                                               int col0, int k0) {
-  static_assert(kThreads == kF32Tile * kF32BK / 4, "one A unit a thread");
-  static_assert(kThreads == kF32BK * kF32Tile / 4, "one B unit a thread");
-  {
-    const int r = threadIdx.x / (kF32BK / 4);
-    const int kc = threadIdx.x % (kF32BK / 4) * 4;
-    cp_unit<kTails>(&sm.a[s][r][kc],
-                    A + static_cast<long long>(row0 + r) * lda + k0 + kc, A,
-                    row0 + r < M && k0 + kc < K);
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero, the low 13 bits of the f32 pattern cleared), in two integer
+// ops: ptxas expands the cvt into four, with a guard for NaN and inf
+// that finite inputs never need (a NaN still propagates: its lo is NaN).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x's TF32 lo: x - hi rounded the same way.
+__device__ __forceinline__ uint32_t tf32_lo(float x, uint32_t hi) {
+  return tf32(x - __uint_as_float(hi));
+}
+
+// c += a . b on the tensor cores, one m16n8k8 TF32 product.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment split into TF32 hi and lo (lo left unset where exact).
+template <bool kExact>
+struct SplitA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ SplitA() {}
+  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
+    const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      hi[i] = tf32(a[i]);
+      if (!kExact) lo[i] = tf32_lo(a[i], hi[i]);
+    }
   }
-  {
-    const int r = threadIdx.x / (kF32Tile / 4);
-    const int nc = threadIdx.x % (kF32Tile / 4) * 4;
-    cp_unit<kTails>(&sm.b[s][r][nc],
-                    B + static_cast<long long>(k0 + r) * ldb + col0 + nc, B,
-                    k0 + r < K && col0 + nc < N);
+};
+
+// c += a . b with f32 accuracy, b given split (h, l): lo_a h + hi_a l +
+// hi_a h, a pass dropped where its operand is exact in TF32.
+template <bool kAExact, bool kBExact>
+__device__ __forceinline__ void split_mma(float (&c)[4],
+                                          const SplitA<kAExact>& a,
+                                          uint32_t h0, uint32_t h1,
+                                          uint32_t l0, uint32_t l1) {
+  if (!kAExact) mma(c, a.lo, h0, h1);
+  if (!kBExact) mma(c, a.hi, l0, l1);
+  mma(c, a.hi, h0, h1);
+}
+
+constexpr int kTfBM = 128;
+constexpr int kTfBK = 32;     // K depth of one stage
+constexpr int kTfStages = 3;  // stages in flight
+
+// A stage as cp.async lands it, f32, 16-byte units swizzled (note above).
+template <int BN>
+struct SmemTf32 {
+  float a[kTfStages][kTfBM][kTfBK];
+  float b[kTfStages][kTfBK][BN];
+};
+
+// Where A's unit kq of row r and B's unit nq of row k lie in their rows.
+__device__ __forceinline__ int a_unit(int r, int kq) {
+  return kq ^ 4 * (r & 1);
+}
+__device__ __forceinline__ int b_unit(int k, int nq) {
+  return nq ^ 2 * ((k >> 2) & 3);
+}
+
+// Every thread: its 16-byte units of K stage k0 into stage s,
+// zero-filled outside M, N and K.
+template <int BN>
+__device__ __forceinline__ void load_stage_tf32(SmemTf32<BN>& sm, int s,
+                                                const float* A, long long lda,
+                                                const float* B, long long ldb,
+                                                int M, int N, int K, int row0,
+                                                int col0, int k0) {
+  for (int e = threadIdx.x; e < kTfBM * kTfBK / 4; e += kThreads) {
+    const int r = e / (kTfBK / 4), kq = e % (kTfBK / 4);
+    const bool ok = row0 + r < M && k0 + 4 * kq < K;
+    cp_async16_zfill(
+        &sm.a[s][r][4 * a_unit(r, kq)],
+        ok ? A + static_cast<long long>(row0 + r) * lda + k0 + 4 * kq : A, ok);
+  }
+  for (int e = threadIdx.x; e < kTfBK * BN / 4; e += kThreads) {
+    const int k = e / (BN / 4), nq = e % (BN / 4);
+    const bool ok = k0 + k < K && col0 + 4 * nq < N;
+    cp_async16_zfill(
+        &sm.b[s][k][4 * b_unit(k, nq)],
+        ok ? B + static_cast<long long>(k0 + k) * ldb + col0 + 4 * nq : B, ok);
   }
 }
 
-// tile_product's function for f32 operands, in 64 x 64 tiles; every sum
-// runs over k in order, one fmaf per product.
-template <bool kTails, class Epilogue>
-__device__ void tile_product_f32(SmemF32& sm, const float* A, long long lda,
-                                 const float* B, long long ldb, int M, int N,
-                                 int K, int row0, int col0,
-                                 const Epilogue& out) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// out(C[row0:row0+kTfBM, col0:col0+BN] = A[row0.., :K] @ B[:K, col0..]) at
+// f32 accuracy for row-major f32 A [M, K] and B [K, N] with row strides
+// lda and ldb; the epilogue is called for the groups of 4 inside C. All
+// threads of the CTA call it.
+template <int BN, class Epilogue>
+__device__ void tile_product_tf32x3(SmemTf32<BN>& sm, const float* A,
+                                    long long lda, const float* B,
+                                    long long ldb, int M, int N, int K,
+                                    int row0, int col0, const Epilogue& out) {
+  constexpr int kWarpsN = BN / 32;
+  constexpr int WM = kTfBM / (kWarps / kWarpsN);
+  constexpr int MI = WM / 16;  // m16 tiles of a warp; four n8 tiles
+  static_assert(kWarps % kWarpsN == 0 && WM % 16 == 0, "warp layout");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = warp / kWarpsN * WM, wc = warp % kWarpsN * 32;
 
-  const int nk = kTails ? (K + kF32BK - 1) / kF32BK : K / kF32BK;
-  load_stage_f32<kTails>(sm, 0, A, lda, B, ldb, M, N, K, row0, col0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < nk) {
-      load_stage_f32<kTails>(sm, s ^ 1, A, lda, B, ldb, M, N, K, row0, col0,
-                             (kt + 1) * kF32BK);
+  float acc[MI][4][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int nk = (K + kTfBK - 1) / kTfBK;
+#pragma unroll
+  for (int s = 0; s < kTfStages - 1; ++s) {
+    if (s < nk) {
+      load_stage_tf32(sm, s, A, lda, B, ldb, M, N, K, row0, col0, s * kTfBK);
     }
     cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kF32BK; kk += 4) {
-      float4 a[4], b[4];
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<kTfStages - 2>();  // stage kt has landed
+    __syncthreads();  // ... for every thread; stage kt - 1 is read by all
+    const int next = kt + kTfStages - 1;
+    if (next < nk) {
+      load_stage_tf32(sm, next % kTfStages, A, lda, B, ldb, M, N, K, row0,
+                      col0, next * kTfBK);
+    }
+    cp_async_commit();  // possibly empty: keeps the group count right
+    const int s = kt % kTfStages;
+#pragma unroll 1  // one slice's B fragments live at a time
+    for (int d = 0; d < kTfBK; d += 16) {
+      // B: rows d + 4t + i, columns wc + 8j + g, split; [j][i].
+      uint32_t bh[4][4], bl[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(&sm.a[s][ty * 4 + i][kk]);
+        const int k = d + 4 * t + i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wc + 8 * j + g;
+          const float v = sm.b[s][k][4 * b_unit(k, n >> 2) + (n & 3)];
+          bh[j][i] = tf32(v);
+          bl[j][i] = tf32_lo(v, bh[j][i]);
+        }
       }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        b[c] = *reinterpret_cast<const float4*>(&sm.b[s][kk + c][tx * 4]);
-      }
+      for (int i = 0; i < MI; ++i) {
+        // Rows g and g + 8 of the m16 tile, columns d + 4t .. + 3.
+        const int r = wr + 16 * i + g;
+        const int at = 4 * a_unit(r, d / 4 + t);
+        const float4 x0 = *reinterpret_cast<const float4*>(&sm.a[s][r][at]);
+        const float4 x1 =
+            *reinterpret_cast<const float4*>(&sm.a[s][r + 8][at]);
+        const SplitA<false> a0(x0.x, x1.x, x0.y, x1.y);  // first k8
+        const SplitA<false> a1(x0.z, x1.z, x0.w, x1.w);  // second k8
+        // The slice's passes into fresh sums, added to acc with one
+        // rounding.
+        float part[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float av[4] = {a[i].x, a[i].y, a[i].z, a[i].w};
+        for (int j = 0; j < 4; ++j) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[i][0] = fmaf(av[c], b[c].x, acc[i][0]);
-          acc[i][1] = fmaf(av[c], b[c].y, acc[i][1]);
-          acc[i][2] = fmaf(av[c], b[c].z, acc[i][2]);
-          acc[i][3] = fmaf(av[c], b[c].w, acc[i][3]);
+          for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+          split_mma<false, false>(part[j], a0, bh[j][0], bh[j][1], bl[j][0],
+                                  bl[j][1]);
+          split_mma<false, false>(part[j], a1, bh[j][2], bh[j][3], bl[j][2],
+                                  bl[j][3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[j][e];
         }
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every stage is read: the next call may refill them
 
+  // Epilogue: the accumulator holds (row g, columns 2t, 2t + 1) and (row
+  // g + 8, the same); lanes t and t ^ 1 swap halves, so that an even t
+  // hands over row g and an odd t row g + 8, columns 2 (t & ~1) .. + 3.
+  const bool odd = t & 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    const int col = col0 + tx * 4;
-    if (!kTails || (row < M && col < N)) {
-      const float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
-      out(row, col, v);
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* c = acc[i][j];
+      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+      const int row = row0 + wr + 16 * i + g + (odd ? 8 : 0);
+      const int col = col0 + wc + 8 * j + 2 * (t & ~1);
+      if (row < M && col < N) {
+        const float v[4] = {odd ? r0 : c[0], odd ? r1 : c[1],
+                            odd ? c[2] : r0, odd ? c[3] : r1};
+        out(row, col, v);
+      }
     }
-  }
 }
 
 // -- bf16 on wgmma, fed by TMA -----------------------------------------------

@@ -32,7 +32,9 @@ Each kernel has its plain versions and a wrapper:
     that holds every rank of the ring on the tensors' card: the ring
     protocols of ``csrc/ring_stream.cuh`` with the tile product of
     ``csrc/tile_product.cuh`` inside (bf16: TMA-fed wgmma, its operands
-    read through the tensor-map views of ``tma_views``; f32: FMA tiles).
+    read through the tensor-map views of ``tma_views``; f32: mma.sync
+    TF32 with each operand split into hi and lo, three passes a product,
+    as ``tf32x3_product`` writes it out).
     Given tensors on the CPU they run the plain version; on a CUDA tensor
     they launch the kernel or raise. ``.launches`` counts their launches.
 
@@ -49,6 +51,7 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from .ring_attention import split_matmul
 from .ring_probe import (_kernel_input, _launch, _on, _ring_setup,
                          ring_reduce_scatter_plain)
 from .tile_mma import (K_AXIS, PART_AXIS, TILE_AXIS, WG_BK, WG_BM, WG_PANEL,
@@ -56,6 +59,10 @@ from .tile_mma import (K_AXIS, PART_AXIS, TILE_AXIS, WG_BK, WG_BM, WG_PANEL,
 
 #: The kernels' operand types and their codes in ``csrc/collective_matmul.cu``.
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: K depth of the f32 kernels' fresh sums: each 16-deep slice's split
+#: passes are added to the running f32 sum once (``tile_product_tf32x3``).
+FOLD_K = 16
 
 
 def tma_views(op: str, n: int, chunk: int, k: int, f: int,
@@ -118,6 +125,29 @@ def _product(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype
              ) -> torch.Tensor:
     """One f32 product, rounded once to ``dtype``."""
     return (x.float() @ w.float()).to(dtype)
+
+
+def tf32x3_product(a: torch.Tensor, b: torch.Tensor,
+                   single: bool = False) -> torch.Tensor:
+    """f32 a [M, K] @ b [K, N] with the f32 kernels' arithmetic
+    (``tile::tile_product_tf32x3``): K in slices of ``FOLD_K``, the last
+    one zero-filled to its depth as the kernel's loads are; each slice's
+    product by ``split_matmul`` (``lo_a hi_b + hi_a lo_b + hi_a hi_b``,
+    the small terms first) in fresh f32 sums, then added to the running
+    f32 sum with one rounding. ``single``: one TF32 pass a slice, which
+    the f32 bar does not admit. The tensor cores' own sums within a slice
+    truncate and run in another order; this form rounds to nearest."""
+    a, b = a.float(), b.float()
+    k = a.shape[1]
+    pad = -k % FOLD_K
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k0 in range(0, k + pad, FOLD_K):
+        out += split_matmul(a[:, k0:k0 + FOLD_K], b[k0:k0 + FOLD_K],
+                            False, False, single)
+    return out
 
 
 # -- all-gather matmul ----------------------------------------------------------

@@ -20,7 +20,13 @@ Bars:
     ``tests/test_collective_matmul.py`` between those kernels and its XLA
     paths, with the f32 ``atol=1e-6`` above beside the all-gather's
     ``rtol=1e-5``: a product that sums to nearly 0 in another order is
-    off by more than 1e-5 of itself (3e-7 absolute, seen).
+    off by more than 1e-5 of itself (3e-7 absolute, seen);
+  * the f32 kernels' split-TF32 arithmetic written out in plain torch
+    (``tf32x3_product``): against the reference's XLA paths, the f32 bar
+    above plus the split's own bound, 3 * 2**-22 * sum_k |x_ik w_kj|; at
+    the path's contraction lengths, ``chip_smoke.CM_F32_REL`` of max |C|
+    against float64, the bar the card holds the kernels to, which one
+    TF32 pass must miss.
 """
 
 import numpy as np
@@ -232,6 +238,124 @@ def test_tensor_parallel_mlp_pair(shape):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-5)
     dense = np.maximum(X.astype(np.float64) @ W1, 0) @ W2
     np.testing.assert_allclose(got, dense, rtol=1e-4, atol=1e-4)
+
+
+# -- the f32 kernels' split-TF32 arithmetic -------------------------------------
+#
+# ``cm.tf32x3_product`` writes the f32 kernels' product out in plain
+# torch: K slices of 16, each split into TF32 hi and lo and multiplied in
+# three passes, small terms first, into fresh f32 sums that are added to
+# the running sum with one rounding. The ring does not change an
+# element's arithmetic: the all-gather matmul's element is one product
+# over the whole K, the reduce-scatter's the ring-ordered f32 sum of n
+# partials over k / n.
+
+
+# An operand's hi + lo is within 2**-22 of it and lo_a lo_b is dropped:
+# each product term of the split within 3 * 2**-22 of the exact one.
+SPLIT_REL = 3 * 2.0 ** -22
+
+
+def _ag_split_emulation(x, w, single=False):
+    return cm.tf32x3_product(torch.from_numpy(x), torch.from_numpy(w),
+                                  single)
+
+
+def _rs_split_emulation(x, w, n, single=False):
+    x, w = torch.from_numpy(x), torch.from_numpy(w)
+    kn = x.shape[1] // n
+    parts = torch.cat([cm.tf32x3_product(x[:, r * kn:(r + 1) * kn],
+                                              w[r * kn:(r + 1) * kn], single)
+                       for r in range(n)])
+    return rp.ring_reduce_scatter_plain(parts, n)
+
+
+@pytest.mark.parametrize("op,shape", [("ag", (1, 1, 8)), ("ag", (2, 1, 4)),
+                                      ("ag", (4, 1, 2)), ("rs", (1, 1, 8)),
+                                      ("rs", (2, 1, 4))])
+def test_tf32x3_product_matches_reference_xla(op, shape):
+    """At the reference tests' shapes the kernel's arithmetic meets the
+    reference's XLA paths within this file's f32 bar widened by the
+    split's own error: hi + lo stands for an operand within 2**-22 of it
+    and the dropped lo_a lo_b is within 2**-22 of a product, so an
+    element may move by 3 * 2**-22 * sum_k |x_ik w_kj| more than a
+    reordering of f32 sums moves it (at the reduce-scatter's (1, 1, 8),
+    one element in 256 near cancellation moved 1.43e-6, past atol=1e-6
+    with rtol=1e-5 of its 0.019)."""
+    n = shape[2]
+    if op == "ag":
+        x, w = _ag_inputs(n, seed=n)
+        got, want = _ag_split_emulation(x, w), _ref_ag(shape, x, w)
+    else:
+        x, w = _rs_inputs(n, seed=30 + n)
+        got, want = _rs_split_emulation(x, w, n), _ref_rs(shape, x, w)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    split = SPLIT_REL * (np.abs(x.astype(np.float64))
+                         @ np.abs(w.astype(np.float64)))
+    excess = np.abs(got.numpy() - want) - (RTOL * np.abs(want) + ATOL + split)
+    assert excess.max() <= 0, excess.max()
+
+
+def _path_inputs(op, seed):
+    """A few narrow rows at the MLP path's contraction lengths: the
+    all-gather matmul's K = 4096, the reduce-scatter's k / n = 1024 with
+    n = 8; x ~ N(0, 1) (the reduce-scatter's through a relu, as relu(h)
+    is), w ~ N(0, 1 / K), as ``chip_smoke.tp_weights`` draws them."""
+    rng = np.random.RandomState(seed)
+    if op == "ag":
+        k, rows = chip_smoke.TP_D, 8
+    else:
+        k, rows = chip_smoke.TP_H, 16
+    x = rng.randn(rows, k).astype(np.float32)
+    if op == "rs":
+        x = np.maximum(x, 0)
+    w = (rng.randn(k, 16) / np.sqrt(k)).astype(np.float32)
+    return x, w
+
+
+def _path_split_error(op, seed, single):
+    """(max |emulation - float64 product|, max |float64 product|)."""
+    x, w = _path_inputs(op, seed)
+    n = chip_smoke.TP_MESH["tp"]
+    got = (_ag_split_emulation(x, w, single) if op == "ag"
+           else _rs_split_emulation(x, w, n, single))
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    return float(np.abs(got.numpy() - exact).max()), float(np.abs(exact).max())
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("op", ["ag", "rs"])
+def test_tf32x3_product_holds_the_f32_bar_at_the_paths_contractions(
+        op, seed):
+    """Within ``chip_smoke.CM_F32_REL`` of max |C| against float64 at the
+    path's contraction lengths: the bar the card holds the kernels to."""
+    err, top = _path_split_error(op, seed, single=False)
+    assert err <= chip_smoke.CM_F32_REL * top, (err, top)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("op", ["ag", "rs"])
+def test_one_tf32_pass_misses_the_f32_bar_at_the_paths_contractions(
+        op, seed):
+    """One TF32 pass a slice, on the same inputs, lies outside the bar: the
+    bar tells the split from plain TF32."""
+    err, top = _path_split_error(op, seed, single=True)
+    assert err > chip_smoke.CM_F32_REL * top, (err, top)
+
+
+@pytest.mark.parametrize("k", [1, 15, 33, 200])
+@pytest.mark.parametrize("single", [False, True])
+def test_tf32x3_product_zero_fills_a_k_tail(k, single):
+    """A K that is no multiple of 16 gives, bit for bit, what the operands
+    zero-padded to whole slices give: the kernel's zero-filled loads."""
+    rng = np.random.RandomState(k)
+    a = torch.from_numpy(rng.randn(5, k).astype(np.float32))
+    b = torch.from_numpy(rng.randn(k, 12).astype(np.float32))
+    pad = -k % cm.FOLD_K
+    a_pad = torch.nn.functional.pad(a, (0, pad))
+    b_pad = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    got = cm.tf32x3_product(a, b, single)
+    assert torch.equal(got, cm.tf32x3_product(a_pad, b_pad, single))
 
 
 # -- errors, devices, kernel selection ------------------------------------------

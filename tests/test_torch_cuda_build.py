@@ -97,10 +97,16 @@ def test_tile_sources_rebuild_when_the_product_header_changes(
                                   "SmemWgmma {", "wgmma.mma_async.sync",
                                   "cp.async.bulk.tensor",
                                   "mbarrier.try_wait",
-                                  "cuTensorMapEncodeTiled"])
+                                  "cuTensorMapEncodeTiled",
+                                  "void tile_product_tf32x3",
+                                  "SmemTf32 {", "uint32_t tf32(",
+                                  "void split_mma(",
+                                  "mma.sync.aligned.m16n8k8.row.col.f32"
+                                  ".tf32.tf32.f32"])
 def test_only_the_header_defines_the_tile_product(form):
     """The tile product lives once: no source keeps a copy of its own
-    staging, shared-memory layout or tensor-core loop."""
+    staging, shared-memory layout or tensor-core loop, nor of the TF32
+    split that ring attention and the f32 collective matmuls share."""
     assert form in (cuda_build.CSRC_DIR / "tile_product.cuh").read_text()
     for src in sorted(cuda_build.CSRC_DIR.glob("*.cu")):
         assert form not in src.read_text(), src.name
@@ -116,11 +122,18 @@ def _body(src, signature):
 def test_bf16_products_multiply_on_wgmma_and_the_chain_on_wmma():
     """The bf16 collective matmuls and the tile kernel (the burn tile and
     the benchmark matmul) call the TMA-fed wgmma form, and no longer the
-    wmma one; the burn chain keeps wmma, so the header keeps that form."""
+    wmma one; the burn chain keeps wmma, so the header keeps that form.
+    The f32 collective matmuls call the split-TF32 form, and the f32 FMA
+    form and its staging are gone from every source."""
     src = (cuda_build.CSRC_DIR / "collective_matmul.cu").read_text()
     assert "tile::tile_product_wgmma(" in src
     assert "tile::tile_product<" not in src
-    assert "tile::tile_product_f32<" in src
+    assert "tile::tile_product_tf32x3(" in src
+    for path in cuda_build.CSRC_DIR.iterdir():
+        text = path.read_text()
+        for gone in ("tile_product_f32", "load_stage_f32", "SmemF32",
+                     "kF32Tile", "kF32BK"):
+            assert gone not in text, (path.name, gone)
     mma = (cuda_build.CSRC_DIR / "tile_mma.cu").read_text()
     tile = _body(mma, "    tile_kernel(")
     assert "tile::tile_product_wgmma(" in tile
@@ -203,6 +216,46 @@ def test_wgmma_build_check_reads_the_tile_kernels():
         chip_smoke.check_wgmma_build(Build, "tile_mma")
 
 
+def test_wgmma_build_check_reads_both_types_of_the_collective_matmuls():
+    """``chip_smoke.check_wgmma_build`` finds the collective matmuls' four
+    kernels (bf16 on wgmma, f32 on the split-TF32 form) in
+    ``collective_matmul``'s ptxas report, fails on a spill in an f32 one,
+    and on a missing instance."""
+    import chip_smoke
+
+    def entry(kernel, dtype, spill=0):
+        arg = "f" if dtype == "f32" else "13__nv_bfloat16"
+        params = "AgParams" if kernel == "ag_matmul" else "RsParams"
+        name = (f"_ZN12_GLOBAL__N_1{len(kernel) + 7}{kernel}_kernelI{arg}"
+                f"EEvN12_GLOBAL__N_18{params}E")
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\n"
+                f"    0 bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads\n"
+                f"ptxas info    : Used 200 registers, used 1 barriers\n")
+
+    instances = [(k, d) for k in ("ag_matmul", "mm_rs")
+                 for d in ("f32", "bf16")]
+
+    class Build:
+        build_logs = {"collective_matmul": "".join(entry(*i)
+                                                   for i in instances)}
+
+    assert chip_smoke.check_wgmma_build(Build, "collective_matmul") == (
+        "ag_matmul bf16 200 registers, 0 spills, ag_matmul f32 200 "
+        "registers, 0 spills, mm_rs bf16 200 registers, 0 spills, mm_rs "
+        "f32 200 registers, 0 spills")
+    Build.build_logs = {"collective_matmul": "".join(
+        entry(*i, spill=16 if i == ("mm_rs", "f32") else 0)
+        for i in instances)}
+    with pytest.raises(AssertionError, match="mm_rs f32.*spill"):
+        chip_smoke.check_wgmma_build(Build, "collective_matmul")
+    Build.build_logs = {"collective_matmul": "".join(entry(*i)
+                                                     for i in instances[1:])}
+    with pytest.raises(AssertionError, match="ptxas reported"):
+        chip_smoke.check_wgmma_build(Build, "collective_matmul")
+
+
 def test_ring_attn_build_check_reads_every_instance():
     """``chip_smoke.check_ring_attn_build`` finds the ring attention
     kernel's eight instances (q and K/V each f32 or bf16, two widths) in
@@ -247,9 +300,13 @@ def test_ring_attn_build_check_reads_every_instance():
 
 def test_ring_attn_folds_on_the_tensor_cores():
     """Both products of the ring attention kernel are TF32 mma.sync
-    passes; no scalar FMA fold is left."""
+    passes, through the split that ``tile_product.cuh`` holds; no scalar
+    FMA fold is left."""
     src = (cuda_build.CSRC_DIR / "ring_attn.cu").read_text()
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    header = (cuda_build.CSRC_DIR / "tile_product.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in header
+    assert '#include "tile_product.cuh"' in src
+    assert "using tile::split_mma;" in src
     assert "fmaf(a" not in src and "AttnConsumer" in src
     assert src.count("split_mma<") >= 4
 
