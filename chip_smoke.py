@@ -7,11 +7,19 @@ Phases, each of which raises on failure:
 
   1. device  — a CUDA card is present; print its name and power limit.
   2. build   — compile the port's kernel from ``csrc/`` (nvcc, sm_90a).
-  3. kernel  — each kernel against its plain PyTorch version at the
-               shapes the serving path gives it, on the card: pools
-               bitwise equal, outputs within the stated tolerance, a
-               poisoned pool gives the clean output; median times of
-               the kernel and the plain version (CUDA events).
+  3. kernel  — the paged-attention kernel (the context split across
+               CTAs, 32 block-table entries a CTA) built with no spills
+               in any instance (ptxas); against its plain PyTorch version
+               and the split's arithmetic written out in PyTorch
+               (``paged_attn_split_plain`` at the kernel's chunk size) at
+               the shapes the serving path gives it, int8 and fp32 pools,
+               once more with a prefill chunk straddling the first chunk
+               boundary and one from the table's last position (rows
+               past the table clip to its last block): pools bitwise
+               equal, outputs within the stated tolerance, a poisoned
+               pool gives the clean output, 20 repeats bitwise equal;
+               median times of the kernel and the plain version (CUDA
+               events).
   4. serve   — the port's serving path end to end at full width
                (``ServingServer`` -> ``PagedKVExecutor`` ->
                ``PagedDecodeStep`` -> the CUDA kernel): 8 HTTP requests,
@@ -86,8 +94,8 @@ Phases, each of which raises on failure:
                reference and of ring attention on heads 0 and 31, repeats
                bitwise equal; times of the all-to-all (CUDA events, its
                launch's device time from the profiler and the host's time
-               to queue a call), its plain version and one PyTorch call,
-               and of a Ulysses call with
+               to queue a call, split into the wrapper's parts), its plain
+               version and one PyTorch call, and of a Ulysses call with
                the exchanges' share of it.
  11. tp-mlp  — the collective matmuls (all-gather matmul, matmul
                reduce-scatter). The bf16 kernels (TMA-fed wgmma) built
@@ -149,8 +157,10 @@ SOURCES = ("paged_attn", "tile_mma", "ring_attn", "ring_collectives",
 KS, KC, KB, KBS, KH, KDH, KN = 16, 16, 256, 16, 32, 128, 8192
 # Kernel vs plain: both accumulate f32 over up to 4096 positions, in
 # another order (online softmax by blocks vs one softmax), and scale by
-# 1/sqrt(dh) vs divide by sqrt(dh).
+# 1/sqrt(dh) vs divide by sqrt(dh). The same bar against the split's
+# PyTorch arithmetic, which sums in torch's order within a chunk.
 O_RTOL, O_ATOL = 1e-4, 1e-5
+PA_REPEATS = 20
 
 # Serving phase: the attention widths of Llama-2-7B (d 4096, 32 heads
 # of 128), the repo's default MLP width 2*d, a 4096-token context.
@@ -354,11 +364,14 @@ def card_line() -> str:
 # -- phase 3: kernel against plain --------------------------------------------
 
 
-def kernel_inputs(torch, pool_dtype, poisoned, seed=0):
+def kernel_inputs(torch, pool_dtype, poisoned, seed=0, chunk_positions=0):
     """Seeded inputs at deploy shape: one idle slot, decode rows, and
     16-row prefill chunks crossing block edges, ctx from 0 to ~4000. The
     pools are drawn on the card (a CUDA generator), the rest with
-    numpy."""
+    numpy. With ``chunk_positions`` (the positions one CTA of the kernel
+    owns), slot 2's prefill chunk straddles the first chunk boundary and
+    slot 4's starts at the table's last position, so that its rows past
+    the table clip to the last block."""
     rng = np.random.RandomState(seed)
     S, C, B, bs, H, dh, N = KS, KC, KB, KBS, KH, KDH, KN
     ctx = np.zeros(S, np.int64)
@@ -371,6 +384,9 @@ def kernel_inputs(torch, pool_dtype, poisoned, seed=0):
             ctx[s] = rng.randint(0, 4000 - C) // bs * bs + rng.randint(1, bs)
             n_new[s] = C
     ctx[S - 1] = B * bs - 1            # the very last position
+    if chunk_positions:
+        ctx[2], n_new[2] = chunk_positions - 5, C
+        ctx[4], n_new[4] = B * bs - 1, C
     tables = rng.permutation(N)[:S * B].reshape(S, B)
     tables[0] = 0                      # idle slot: the planner's zero row
     q, k, v = (rng.randn(S, C, H, dh).astype(np.float32) for _ in range(3))
@@ -397,7 +413,7 @@ def kernel_inputs(torch, pool_dtype, poisoned, seed=0):
     if poisoned:
         ok = np.zeros((N, bs), bool)
         for s in range(S):
-            p = np.arange(limit[s])
+            p = np.arange(min(limit[s], B * bs))  # the table's positions
             ok[tables[s, p // bs], p % bs] = True
         bad = torch.from_numpy(~ok).cuda()
         if pool_dtype == "int8":
@@ -467,67 +483,127 @@ def time_ms(torch, fn, n=25, warm=3, batch=10):
     return statistics.median(times)
 
 
+def check_paged_attn_build(cuda_build):
+    """The paged-attention kernel's six instances (int8 pools read 16 or
+    4 codes at a time, f32 pools, each for heads up to 128 and 256 wide)
+    as ptxas reported them in this run: no spills. Returns a line for the
+    log."""
+    text = cuda_build.build_logs.get("paged_attn")
+    if text is None:
+        return ("paged_attn: ptxas report not in this run (the library was "
+                "built earlier in this checkout)")
+    kernels = {}
+    for name, regs in ptxas_entries(text).items():
+        found = re.search(r"paged_attn_kernelI([af])Li(\d+)ELi(\d+)E", name)
+        if found:
+            pool = "int8" if found[1] == "a" else "f32"
+            kernels[f"{pool} x{found[2]} dh<={128 * int(found[3])}"] = regs
+    check(len(kernels) == 6, f"paged_attn: ptxas reported {sorted(kernels)}")
+    for name, (regs, stores, loads) in kernels.items():
+        check(stores == 0 and loads == 0,
+              f"paged_attn {name}: {stores} B spill stores, {loads} B loads")
+    return ", ".join(f"{name} {regs} registers, 0 spills"
+                     for name, (regs, _, _) in sorted(kernels.items()))
+
+
 def phase_kernel(torch, card):
+    from dpu_operator_tpu_torch import cuda_build
     from dpu_operator_tpu_torch.parallel import paged_attn as pa
 
+    log(f"kernel build: {check_paged_attn_build(cuda_build)}")
+    chunk = pa.CHUNK_BLOCKS * KBS
     record = None
     for pool_dtype in ("int8", "fp32"):
-        clean = {}
-        for poisoned in (False, True):
-            args, ctx, n_new = kernel_inputs(torch, pool_dtype, poisoned)
-            kargs = [a.clone() for a in args]
-            before = pa.paged_attn_step_cuda.launches
-            o_k = pa.paged_attn_step_cuda(*kargs)
-            o_p = pa.paged_attn_step_plain(*args)
-            torch.cuda.synchronize()
-            check(pa.paged_attn_step_cuda.launches == before + 1,
-                  "the wrapper must count its one launch")
-            tag = f"{pool_dtype}{' poisoned' if poisoned else ''}"
-            for i, name in ((10, "kpool"), (11, "vpool")):
-                if not torch.equal(bits(torch, kargs[i]),
-                                   bits(torch, args[i])):
-                    raise AssertionError(f"kernel {tag}: {name} differs "
-                                         f"from the plain version's")
-            check(torch.isfinite(o_k).all(), f"kernel {tag}: non-finite o")
-            check(torch.isfinite(o_p).all(), f"plain {tag}: non-finite o")
-            err = float((o_k - o_p).abs().max())
-            if not torch.allclose(o_k, o_p, rtol=O_RTOL, atol=O_ATOL):
-                raise AssertionError(f"kernel {tag}: o differs from the "
-                                     f"plain version by {err}")
-            check(not o_k[0].any(), "idle slot rows must be 0")
-            if poisoned:
-                if not (torch.equal(o_k, clean["k"])
-                        and torch.equal(o_p, clean["p"])):
-                    raise AssertionError(f"{tag}: poisoned pool leaked "
-                                         f"into o")
-                log(f"kernel {tag}: o equals the clean run's exactly")
-                continue
-            clean = {"k": o_k, "p": o_p}
-            ms = time_ms(torch, lambda: pa.paged_attn_step_cuda(*kargs))
-            plain_ms = time_ms(torch,
-                               lambda: pa.paged_attn_step_plain(*args),
-                               n=20, warm=2)
-            nbytes, flops = attn_cost(ctx, n_new, pool_dtype)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOP_PER_S * 1e3
-            log(f"kernel {tag}: pools bitwise equal, max |o err| {err:.3e} "
-                f"(rtol {O_RTOL}, atol {O_ATOL}); kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms (median of 25/20 batches of 10), "
-                f"bound {max(t_bytes, t_ops):.4f} ms "
-                f"({nbytes} B, {flops} flop) [{card}]")
-            if pool_dtype == "int8":
-                record = dict(
-                    name="paged_attn", route="cuda",
-                    source="dpu_operator_tpu_torch/csrc/paged_attn.cu",
-                    replaces="dpu_operator_tpu/parallel/"
-                             "pallas_paged_attn.py:292",
-                    launches=None, max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    library_ms=None)
-            del args, kargs
-    torch.cuda.empty_cache()
+        for edges in (False, True):
+            clean = {}
+            for poisoned in (False, True):
+                args, ctx, n_new = kernel_inputs(
+                    torch, pool_dtype, poisoned,
+                    chunk_positions=chunk if edges else 0)
+                kargs = [a.clone() for a in args]
+                sargs = [a.clone() for a in args]
+                before = pa.paged_attn_step_cuda.launches
+                o_k = pa.paged_attn_step_cuda(*kargs)
+                o_p = pa.paged_attn_step_plain(*args)
+                o_s = pa.paged_attn_split_plain(
+                    *sargs, chunk_blocks=pa.CHUNK_BLOCKS)
+                torch.cuda.synchronize()
+                check(pa.paged_attn_step_cuda.launches == before + 1,
+                      "the wrapper must count its one launch")
+                tag = (f"{pool_dtype}{' edges' if edges else ''}"
+                       f"{' poisoned' if poisoned else ''}")
+                for i, name in ((10, "kpool"), (11, "vpool")):
+                    for got, who in ((kargs, "kernel"), (sargs, "split")):
+                        if not torch.equal(bits(torch, got[i]),
+                                           bits(torch, args[i])):
+                            raise AssertionError(
+                                f"{who} {tag}: {name} differs from the "
+                                f"plain version's")
+                del sargs
+                for o, who in ((o_k, "kernel"), (o_p, "plain"),
+                               (o_s, "split")):
+                    check(torch.isfinite(o).all(), f"{who} {tag}: non-finite o")
+                err = float((o_k - o_p).abs().max())
+                err_s = float((o_k - o_s).abs().max())
+                for want, who, e in ((o_p, "plain version", err),
+                                     (o_s, "split's PyTorch arithmetic",
+                                      err_s)):
+                    if not torch.allclose(o_k, want, rtol=O_RTOL,
+                                          atol=O_ATOL):
+                        raise AssertionError(f"kernel {tag}: o differs from "
+                                             f"the {who} by {e}")
+                check(not o_k[0].any(), "idle slot rows must be 0")
+                if poisoned:
+                    if not (torch.equal(o_k, clean["k"])
+                            and torch.equal(o_p, clean["p"])
+                            and torch.equal(o_s, clean["s"])):
+                        raise AssertionError(f"{tag}: poisoned pool leaked "
+                                             f"into o")
+                    log(f"kernel {tag}: pools bitwise equal, o equals the "
+                        f"clean run's exactly")
+                    continue
+                # A repeat appends the same codes to the same places, so
+                # it reads what the first call read.
+                for i in range(PA_REPEATS):
+                    again = pa.paged_attn_step_cuda(*kargs)
+                    check(torch.equal(bits(torch, again), bits(torch, o_k)),
+                          f"kernel {tag} repeat {i}: differs from the first "
+                          f"call's bits")
+                clean = {"k": o_k, "p": o_p, "s": o_s}
+                if edges:
+                    log(f"kernel {tag}: pools bitwise equal (kernel, split, "
+                        f"plain), max |o err| {err:.3e} vs plain, "
+                        f"{err_s:.3e} vs split (rtol {O_RTOL}, atol "
+                        f"{O_ATOL}), {PA_REPEATS} repeats bitwise equal")
+                    continue
+                ms = time_ms(torch, lambda: pa.paged_attn_step_cuda(*kargs))
+                plain_ms = time_ms(torch,
+                                   lambda: pa.paged_attn_step_plain(*args),
+                                   n=20, warm=2)
+                nbytes, flops = attn_cost(ctx, n_new, pool_dtype)
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / FP32_FLOP_PER_S * 1e3
+                log(f"kernel {tag}: pools bitwise equal (kernel, split, "
+                    f"plain), max |o err| {err:.3e} vs plain, {err_s:.3e} vs "
+                    f"split (rtol {O_RTOL}, atol {O_ATOL}), {PA_REPEATS} "
+                    f"repeats bitwise equal; kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms (median of 25/20 batches of 10), "
+                    f"bound {max(t_bytes, t_ops):.4f} ms ({nbytes} B, "
+                    f"{flops} flop) [{card}]")
+                if pool_dtype == "int8":
+                    record = dict(
+                        name="paged_attn", route="cuda",
+                        source="dpu_operator_tpu_torch/csrc/paged_attn.cu",
+                        replaces="dpu_operator_tpu/parallel/"
+                                 "pallas_paged_attn.py:292",
+                        launches=None, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by=("bytes" if t_bytes >= t_ops
+                                  else "operations"),
+                        library_ms=None)
+            del args, kargs, clean
+            torch.cuda.empty_cache()
     return record
 
 
@@ -1484,6 +1560,82 @@ def device_ms(torch, fn, kernel, calls=20):
     return launch_ms, host_ms, how
 
 
+def host_us(torch, parts, calls=200):
+    """{part: host us a call}: each callable of ``parts`` timed alone,
+    ``calls`` times in a row with ``time.perf_counter_ns`` between two
+    synchronizations (the card runs each launch faster than ``calls``
+    fill its queue, so the host is what is timed)."""
+    us = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        us[name] = (time.perf_counter_ns() - t0) / calls / 1e3
+        torch.cuda.synchronize()
+    return us
+
+
+def cudart_parts(dev):
+    """The CUDA runtime's cudaGetDevice and one cudaDeviceGetAttribute
+    (the queries the cooperative launcher once made on every launch), as
+    host-time parts, where the runtime library is found."""
+    import ctypes
+
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for path in ("libcudart.so", "libcudart.so.12",
+                 os.path.join(home, "lib64", "libcudart.so")):
+        try:
+            runtime = ctypes.CDLL(path)
+        except OSError:
+            continue
+        value = ctypes.c_int()
+        return {"cudart_get_device": lambda: runtime.cudaGetDevice(
+                    ctypes.byref(value)),
+                # cudaDevAttrCooperativeLaunch is 95
+                "cudart_attribute": lambda: runtime.cudaDeviceGetAttribute(
+                    ctypes.byref(value), 95, dev.index)}
+    return {}
+
+
+def a2a_host_split(torch, rp, x, n):
+    """{part: host us a call} of ``rp.all_to_all_cuda(x, n)`` (``host_us``):
+    the whole call and each part of the wrapper, the checks, the output's
+    allocation, the device and stream lookup, the kept launch state and
+    its epoch, and the C entry (the launcher's kept card queries and the
+    cooperative launch), with ``cudart_parts``."""
+    dev = x.device
+    rank_bytes = x.shape[0] // n * x.shape[1] * x.element_size()
+    lib = rp._a2a_library()
+    out = torch.empty_like(x)
+    stream = rp._raw_stream(dev)
+    state = rp._a2a_launch(dev, stream, n, out.data_ptr(), rank_bytes)
+
+    def checks():
+        rp._a2a_rows(x, n)
+        rp._kernel_input(x, n, "all_to_all_cuda")
+
+    def c_launch():
+        state.control.epoch += 1
+        err = lib.all_to_all_launch(x.data_ptr(), state.outs, state.flags, n,
+                                    rank_bytes // n, state.control.epoch,
+                                    stream)
+        check(err == 0, f"all_to_all_launch: CUDA error {err}")
+
+    return host_us(torch, {
+        "checks": checks,
+        "alloc": lambda: torch.empty_like(x),
+        "device_stream": lambda: (torch.cuda.current_device() != dev.index,
+                                  rp._raw_stream(dev)),
+        "launch_state": lambda: rp._next_epoch(rp._a2a_launch(
+            dev, stream, n, out.data_ptr(), rank_bytes).control),
+        "c_launch": c_launch,
+        "library": rp._a2a_library,
+        "call": lambda: rp.all_to_all_cuda(x, n),
+        **cudart_parts(dev)})
+
+
 def check_a2a(torch, rp, tag, x, n):
     """One launch of the all-to-all (none for n = 1): the plain version's
     bits and the transpose's. Returns the kernel's output."""
@@ -1578,6 +1730,9 @@ def phase_ulysses(torch, card):
         n, n, chunk, COLL_WIDTH).transpose(0, 1).contiguous(), n=10, warm=2)
     kernel_ms, host_ms, seen = device_ms(
         torch, lambda: rp.all_to_all_cuda(x, n), "all_to_all_kernel")
+    split = a2a_host_split(torch, rp, x, n)
+    log(f"ulysses all_to_all host us a call, by part (200 calls each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" [{card}]")
     nbytes = x.numel() * x.element_size()
     t_bytes = 2 * nbytes / HBM_BYTES_PER_S * 1e3
     log(f"ulysses all_to_all [{rows}, {COLL_WIDTH}] f32 n={n}: == plain == "

@@ -34,9 +34,14 @@
 // exported (`all_to_all_flag_words`) and checked by the caller.
 //
 // Layout. One cooperative launch (`ring::launch_ring`) of n x G CTAs of
-// 256 threads, G from the block's bytes; each CTA owns one stripe of
-// every block (`ring::copy_stripe`: 16-byte units where both ends allow,
-// else 2-byte units), so a block is any whole number of 2-byte units.
+// 256 threads, G from the card: the n ranks' CTAs fill two CTAs an SM
+// (fewer where a block has fewer units than a rank's threads). Each CTA
+// owns one stripe of every block: 16-byte units where every base and the
+// block allow, else 2-byte units, so a block is any whole number of
+// 2-byte units. The copy is the all-to-all's own (`exchange_stripe`):
+// for each unit of its stripe a thread first loads that unit of all n
+// blocks into registers, then stores them in the order above, so n
+// loads are in flight a thread and no load waits behind a store.
 // Output pointers are per rank (`Params::out[r]`): across cards only
 // where they come from changes (CUDA IPC or symmetric memory).
 //
@@ -72,15 +77,56 @@ struct Params {
   long long block_bytes;
   int n;
   int ctas;                 // CTAs of one rank
+  int wide;                 // 16-byte units (else 2-byte ones)
   unsigned long long epoch;
 };
+
+// This CTA's stripe of every block of rank `me`: unit i (of `Unit`) of
+// block dst goes to rank dst's output at block `me`. Unit i belongs to
+// thread i % kThreads of CTA (i / kThreads) % ctas. For each of its
+// units a thread loads the unit of all n blocks, own block first, and
+// then stores them in the same order. Sources are read through L2 only.
+template <class Unit>
+__device__ __forceinline__ void exchange_stripe(const Params& p, int me,
+                                                int cta) {
+  const int n = p.n;
+  const long long units = p.block_bytes / static_cast<long long>(sizeof(Unit));
+  const Unit* src = reinterpret_cast<const Unit*>(p.x) + me * n * units;
+  // Both ends of the k-th copy in registers: the output array indexed by
+  // a rank known only at run time would go through local memory.
+  const Unit* from[kMaxRanks];
+  Unit* to[kMaxRanks];
+#pragma unroll
+  for (int k = 0; k < kMaxRanks; ++k) {
+    const int dst = (me + k) % n;
+    char* out = p.out[0];
+#pragma unroll
+    for (int r = 1; r < kMaxRanks; ++r) {
+      if (r == dst) out = p.out[r];
+    }
+    from[k] = src + dst * units;
+    to[k] = reinterpret_cast<Unit*>(out) + me * units;
+  }
+  const long long stride = static_cast<long long>(p.ctas) * blockDim.x;
+  for (long long i = static_cast<long long>(cta) * blockDim.x + threadIdx.x;
+       i < units; i += stride) {
+    Unit v[kMaxRanks];
+#pragma unroll
+    for (int k = 0; k < kMaxRanks; ++k) {
+      if (k < n) v[k] = __ldcg(from[k] + i);
+    }
+#pragma unroll
+    for (int k = 0; k < kMaxRanks; ++k) {
+      if (k < n) __stcg(to[k] + i, v[k]);
+    }
+  }
+}
 
 __global__ void __launch_bounds__(ring::kThreads)
     all_to_all_kernel(Params p) {
   const int n = p.n;
   const int me = blockIdx.x / p.ctas;
   const int cta = blockIdx.x % p.ctas;
-  const long long bb = p.block_bytes;
   const unsigned long long tag = p.epoch * ring::kTagSteps;
   A2AFlags* mine = p.flags + me;
 
@@ -95,11 +141,10 @@ __global__ void __launch_bounds__(ring::kThreads)
   }
 
   // 2. The own block, then every peer's, before any wait.
-  const char* local = p.x + static_cast<long long>(me) * n * bb;
-  for (int k = 0; k < n; ++k) {
-    const int dst = (me + k) % n;
-    ring::copy_stripe(p.out[dst] + me * bb, local + dst * bb, bb, cta,
-                      p.ctas);
+  if (p.wide) {
+    exchange_stripe<uint4>(p, me, cta);
+  } else {
+    exchange_stripe<unsigned short>(p, me, cta);
   }
 
   // 3. Every peer's block has landed here.
@@ -139,18 +184,30 @@ extern "C" int all_to_all_launch(const void* x, void* const* outs,
   }
   Params p;
   p.x = static_cast<const char*>(x);
+  uintptr_t bases = reinterpret_cast<uintptr_t>(x) |
+                    static_cast<uintptr_t>(block_bytes);
   for (int r = 0; r < kMaxRanks; ++r) {
     p.out[r] = r < n ? static_cast<char*>(outs[r]) : nullptr;
     if (r < n && p.out[r] == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    bases |= reinterpret_cast<uintptr_t>(p.out[r]);
   }
   p.flags = static_cast<A2AFlags*>(flags);
   p.block_bytes = block_bytes;
   p.n = n;
   p.ctas = 1;
+  p.wide = (bases & 15) == 0;
   p.epoch = epoch;
+  int sms = 0, per_sm = 0;
+  const int err = ring::launch_shape(
+      reinterpret_cast<const void*>(all_to_all_kernel), 0, sms, per_sm);
+  if (err) return err;
+  // Two CTAs an SM over all ranks, and no CTA without a unit to move.
+  const long long units = block_bytes / (p.wide ? 16 : 2);
+  const long long busy = (units + ring::kThreads - 1) / ring::kThreads;
+  const long long fill = 2 * sms / n > 1 ? 2 * sms / n : 1;
   return ring::launch_ring(all_to_all_kernel, p, p.ctas, n,
-                           ring::ctas_for(block_bytes), 0,
+                           busy < fill ? busy : fill, 0,
                            static_cast<cudaStream_t>(stream));
 }

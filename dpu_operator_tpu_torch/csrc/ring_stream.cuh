@@ -69,6 +69,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace ring {
 
 constexpr unsigned long long kTagSteps = 16;  // > the largest ring, 8
@@ -643,6 +645,74 @@ inline long long ctas_for(long long block_bytes) {
   return (block_bytes + kBytesPerCta - 1) / kBytesPerCta;
 }
 
+// What a cooperative launch of `fn` with `smem` bytes of dynamic shared
+// memory may use on the current device: its SM count and how many CTAs
+// of kThreads threads an SM holds at once. Asked of the card once per
+// (kernel, shared memory, device), then kept: the queries (device
+// attributes, the occupancy) cost more host time than the launch. The
+// kernel's dynamic shared-memory limit is raised to `smem` where the
+// last limit set for it on the device is lower, and never lowered, so a
+// kept answer for a smaller `smem` stays launchable. One table for the
+// process, under a lock: any thread may launch. Returns the CUDA error
+// code, 0 on success; cudaErrorNotSupported where the card has no
+// cooperative launch.
+inline int launch_shape(const void* fn, size_t smem, int& sms,
+                        int& per_sm) {
+  struct Shape {
+    const void* fn;
+    size_t smem;
+    int dev, sms, per_sm;
+  };
+  struct Limit {  // the dynamic shared memory last allowed `fn` on `dev`
+    const void* fn;
+    int dev;
+    size_t smem;
+  };
+  constexpr int kKept = 64;
+  static std::mutex lock;
+  static Shape shapes[kKept];
+  static Limit limits[kKept];
+  static int n_shapes = 0, n_limits = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::lock_guard<std::mutex> held(lock);
+  if (smem > 0) {
+    Limit* limit = nullptr;
+    for (int i = 0; i < n_limits && i < kKept; ++i) {
+      if (limits[i].fn == fn && limits[i].dev == dev) limit = &limits[i];
+    }
+    if (limit == nullptr || limit->smem < smem) {
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (limit == nullptr) limit = &limits[n_limits++ % kKept];
+      *limit = Limit{fn, dev, smem};
+    }
+  }
+  for (int i = 0; i < n_shapes && i < kKept; ++i) {
+    if (shapes[i].fn == fn && shapes[i].smem == smem &&
+        shapes[i].dev == dev) {
+      sms = shapes[i].sms;
+      per_sm = shapes[i].per_sm;
+      return 0;
+    }
+  }
+  int coop = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                      smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  shapes[n_shapes++ % kKept] = Shape{fn, smem, dev, sms, per_sm};
+  return 0;
+}
+
 // One cooperative launch of `groups` x G CTAs of kThreads threads, each
 // with `smem` bytes of dynamic shared memory. G is `want`, capped by what
 // the card holds at once: all CTAs are co-resident by construction, so a
@@ -652,32 +722,17 @@ inline long long ctas_for(long long block_bytes) {
 template <class Params>
 int launch_ring(void (*fn)(Params), Params& p, int& ctas, int groups,
                 long long want, size_t smem, cudaStream_t stream) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  }
-  if (e == cudaSuccess && smem > 0) {
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(fn),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                      smem);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  int sms = 0, per_sm = 0;
+  const int err = launch_shape(reinterpret_cast<const void*>(fn), smem, sms,
+                               per_sm);
+  if (err) return err;
   const int room = per_sm * sms / groups;
   if (room < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   ctas = static_cast<int>(want < room ? want : room);
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(fn),
-                                  dim3(groups * ctas), dim3(kThreads), args,
-                                  smem, stream);
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fn), dim3(groups * ctas), dim3(kThreads),
+      args, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

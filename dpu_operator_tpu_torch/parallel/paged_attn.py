@@ -25,18 +25,35 @@ instead, and on any other device it raises. ``paged_attn_step_plain`` is
 the reference's XLA composition (``serving/kvcache/paged.py``: drop
 scatter, full table gather, masked softmax, einsum) in PyTorch; the CPU
 path and the tests use it.
+
+The kernel splits each slot's context across CTAs, ``CHUNK_BLOCKS``
+block-table entries a CTA, and combines the chunks' partial softmax
+states in chunk order (flash-decoding's split-K). ``paged_attn_split_plain``
+writes that arithmetic out in PyTorch -- each chunk's appends, its
+running max ``m``, normalizer ``l`` and unnormalized output ``acc``, and
+the combine -- for the tests and for holding the kernel on the card; no
+path runs it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from typing import Dict, Tuple
 
 import torch
 
 from .quantize import int8_block_decode
 
 NEG = -1e30
+
+#: Block-table entries one CTA of the kernel owns (``kChunkBlocks`` of
+#: ``csrc/paged_attn.cu``; the wrapper checks the library's).
+CHUNK_BLOCKS = 32
+#: The largest chunk width C and head width dh the kernel takes.
+MAX_CHUNK_ROWS = 64
+MAX_HEAD_DIM = 256
 
 
 def _quantize_rows(vals: torch.Tensor, row_scales: torch.Tensor
@@ -86,11 +103,8 @@ def paged_attn_step_plain(tables, ctx, n_new, q, k_new, v_new,
     valid = rows[None, :] < n_new[:, None]
     blk = torch.gather(tables, 1, torch.clamp(pos // bs, 0, B - 1))
     off = pos % bs
-    if kpool.dtype == torch.int8:
-        k_rows = _quantize_rows(k_new, kscale_rows)
-        v_rows = _quantize_rows(v_new, vscale_rows)
-    else:
-        k_rows, v_rows = k_new, v_new
+    k_rows, v_rows = _quantized_rows(k_new, v_new, kscale_rows,
+                                     vscale_rows, kpool.dtype)
     _scatter_rows_drop(kpool, blk, off, valid, k_rows)
     _scatter_rows_drop(vpool, blk, off, valid, v_rows)
     keys = int8_block_decode(kpool[tables], kscale_tbl).reshape(S, T, H, dh)
@@ -110,6 +124,84 @@ def paged_attn_step_plain(tables, ctx, n_new, q, k_new, v_new,
                          torch.full((), NEG, dtype=scores.dtype, device=dev))
     attn = torch.softmax(scores, dim=-1)
     return torch.einsum("shct,sthd->schd", attn, vals).contiguous()
+
+
+def _quantized_rows(k_new, v_new, kscale_rows, vscale_rows, pool_dtype):
+    if pool_dtype == torch.int8:
+        return (_quantize_rows(k_new, kscale_rows),
+                _quantize_rows(v_new, vscale_rows))
+    return k_new, v_new
+
+
+def paged_attn_split_plain(tables, ctx, n_new, q, k_new, v_new,
+                           kscale_rows, vscale_rows, kscale_tbl, vscale_tbl,
+                           kpool, vpool, chunk_blocks: int = CHUNK_BLOCKS
+                           ) -> torch.Tensor:
+    """The kernel's split of the context, in plain PyTorch: the same
+    function as ``paged_attn_step_plain``, computed as the kernel orders
+    it. Chunk z owns block-table entries ``[z * chunk_blocks, (z + 1) *
+    chunk_blocks)``; in chunk order it appends the new rows whose clipped
+    block index ``min(pos // bs, B - 1)`` it owns, then attends its own
+    positions: per row the running max ``m`` (``NEG`` where the row may
+    see none of them), ``l = sum exp(s - m)`` and ``acc = sum exp(s - m)
+    v``, with the valid-block guard and the per-row causal mask. The
+    chunks combine in chunk order, ``M = max m``, ``l = sum l_z exp(m_z -
+    M)``, ``acc = sum acc_z exp(m_z - M)``, and ``o = acc / l`` (0 where
+    l is 0: an idle slot)."""
+    S, C, H, dh = q.shape
+    bs = kpool.shape[1]
+    B = tables.shape[1]
+    K = int(chunk_blocks)
+    if K < 1:
+        raise ValueError(f"chunk_blocks must be >= 1, got {chunk_blocks}")
+    dev = q.device
+    tables = tables.long()
+    ctx = ctx.long()
+    n_new = n_new.long()
+    rows = torch.arange(C, device=dev)
+    pos = ctx[:, None] + rows[None, :]                       # [S, C]
+    valid = rows[None, :] < n_new[:, None]
+    clipped = torch.clamp(pos // bs, 0, B - 1)
+    blk = torch.gather(tables, 1, clipped)
+    off = pos % bs
+    k_rows, v_rows = _quantized_rows(k_new, v_new, kscale_rows,
+                                     vscale_rows, kpool.dtype)
+    limit = ctx + n_new
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    parts = []
+    for z in range(-(-B // K)):
+        mine = valid & (clipped // K == z)
+        _scatter_rows_drop(kpool, blk, off, mine, k_rows)
+        _scatter_rows_drop(vpool, blk, off, mine, v_rows)
+        lo, hi = z * K, min((z + 1) * K, B)
+        tb = tables[:, lo:hi]
+        n = (hi - lo) * bs
+        keys = int8_block_decode(kpool[tb], kscale_tbl[:, lo:hi]
+                                 ).reshape(S, n, H, dh)
+        vals = int8_block_decode(vpool[tb], vscale_tbl[:, lo:hi]
+                                 ).reshape(S, n, H, dh)
+        tpos = torch.arange(lo * bs, hi * bs, device=dev)
+        t_ok = tpos[None, :] < limit[:, None]                 # [S, n]
+        keys = torch.where(t_ok[:, :, None, None], keys, zero)
+        vals = torch.where(t_ok[:, :, None, None], vals, zero)
+        scores = torch.einsum("schd,sthd->shct", q, keys) / math.sqrt(dh)
+        allowed = ((tpos[None, None, :] <= pos[:, :, None])
+                   & t_ok[:, None, :])[:, None]               # [S, 1, C, n]
+        scores = torch.where(allowed, scores,
+                             torch.full((), NEG, device=dev))
+        m = scores.amax(dim=-1)                               # [S, H, C]
+        p = torch.where(allowed, torch.exp(scores - m[..., None]), zero)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("shct,sthd->shcd", p, vals)))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(top)
+    acc = torch.zeros((S, H, C, dh), dtype=torch.float32, device=dev)
+    for m, lz, accz in parts:                                 # chunk order
+        w = torch.exp(m - top)
+        l = l + lz * w
+        acc = acc + accz * w[..., None]
+    o = torch.where(l[..., None] > 0, acc / l[..., None], zero)
+    return o.permute(0, 2, 1, 3).contiguous()
 
 
 def _check(tables, ctx, n_new, q, k_new, v_new, kscale_rows, vscale_rows,
@@ -139,8 +231,12 @@ def _check(tables, ctx, n_new, q, k_new, v_new, kscale_rows, vscale_rows,
                              f"got {pool.dtype} {tuple(pool.shape)}")
     if kpool.shape != vpool.shape or kpool.dtype != vpool.dtype:
         raise ValueError("kpool and vpool must match in shape and dtype")
-    if dh % 4:
-        raise ValueError(f"d_head={dh} must be a multiple of 4")
+    if dh % 4 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"d_head={dh} must be a multiple of 4 and at "
+                         f"most {MAX_HEAD_DIM}")
+    if C > MAX_CHUNK_ROWS:
+        raise ValueError(f"chunk width {C} is over the kernel's "
+                         f"{MAX_CHUNK_ROWS}")
     tensors = {name: t for name, (t, _, _) in want.items()}
     tensors.update(kpool=kpool, vpool=vpool)
     for name, t in tensors.items():
@@ -157,10 +253,49 @@ def _launcher():
     lib = load("paged_attn")
     fn = lib.paged_attn_step_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+        lib.paged_attn_chunk_blocks.argtypes = []
+        lib.paged_attn_chunk_blocks.restype = ctypes.c_int
+        blocks = lib.paged_attn_chunk_blocks()
+        if blocks != CHUNK_BLOCKS:
+            raise RuntimeError(f"paged_attn.cu's CTAs own {blocks} block-"
+                               f"table entries; the wrapper sizes its "
+                               f"scratch for {CHUNK_BLOCKS}")
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+#: Scratch of the kernel's combine by (device, stream, shape): the
+#: partials [S, H, Z, C, dh] and [S, H, Z, C, 2] f32 and the arrival
+#: words [S, H] (zeroed here once; each launch's last arriver resets its
+#: words to 0). Launches on one stream run in order, so they share it.
+_scratch: Dict[tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+_scratch_lock = threading.Lock()
+#: Scratch sets kept at once; the oldest goes first.
+SCRATCH_KEEP = 8
+
+
+def _scratch_for(device: torch.device, stream: int, S: int, H: int,
+                 C: int, dh: int, B: int):
+    """The combine's scratch for (device, stream, shape), allocated at the
+    first call and reused after (on the stream current at allocation, so
+    a set dropped from the cache is reused only in that stream's
+    order)."""
+    Z = -(-B // CHUNK_BLOCKS)
+    key = (device.type, device.index, stream, S, H, Z, C, dh)
+    with _scratch_lock:
+        got = _scratch.get(key)
+        if got is None:
+            got = (torch.empty((S, H, Z, C, dh), dtype=torch.float32,
+                               device=device),
+                   torch.empty((S, H, Z, C, 2), dtype=torch.float32,
+                               device=device),
+                   torch.zeros((S, H), dtype=torch.int32, device=device))
+            _scratch[key] = got
+            while len(_scratch) > SCRATCH_KEEP:
+                _scratch.pop(next(iter(_scratch)))
+        return got
 
 
 def paged_attn_step_cuda(tables, ctx, n_new, q, k_new, v_new, kscale_rows,
@@ -184,7 +319,9 @@ def paged_attn_step_cuda(tables, ctx, n_new, q, k_new, v_new, kscale_rows,
     launch = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        scratch = _scratch_for(q.device, stream, S, H, C, dh, B)
         err = launch(*(t.data_ptr() for t in args), o.data_ptr(),
+                     *(t.data_ptr() for t in scratch),
                      S, C, B, bs, H, dh, int(kpool.dtype == torch.int8),
                      1.0 / math.sqrt(dh), stream)
     if err:

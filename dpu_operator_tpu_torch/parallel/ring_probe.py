@@ -167,16 +167,22 @@ _controls_lock = threading.Lock()
 
 def _control(device: torch.device, stream: int,
              kind: type = _RingControl) -> _RingControl:
-    """The control words of ``kind`` on (device, stream), its epoch
-    advanced by one for the call about to be launched."""
+    """The control words of ``kind`` on (device, stream)."""
     with _controls_lock:
         key = (kind, device.index, stream)
         ctl = _controls.get(key)
         if ctl is None:
             ctl = kind(device)
             _controls[key] = ctl
-        ctl.epoch += 1
         return ctl
+
+
+def _next_epoch(ctl: _RingControl) -> int:
+    """``ctl``'s epoch, advanced by one for the call about to be
+    launched."""
+    with _controls_lock:
+        ctl.epoch += 1
+        return ctl.epoch
 
 
 # -- all-gather ---------------------------------------------------------------
@@ -276,8 +282,8 @@ def _launch(what: str, x: torch.Tensor, n: int, call) -> None:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ctl = _control(x.device, stream)
-        err = call(ids(*right), ids(*left), ctl.flags.data_ptr(), ctl.epoch,
-                   stream)
+        err = call(ids(*right), ids(*left), ctl.flags.data_ptr(),
+                   _next_epoch(ctl), stream)
     if err:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
@@ -440,7 +446,14 @@ def all_to_all_plain(x: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+_a2a_lib = None
+
+
 def _a2a_library():
+    """The all-to-all's library, bound and checked at its first call."""
+    global _a2a_lib
+    if _a2a_lib is not None:
+        return _a2a_lib
     from ..cuda_build import load
 
     lib = load("all_to_all")
@@ -457,7 +470,57 @@ def _a2a_library():
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_ulonglong, ctypes.c_void_p]
         lib.all_to_all_launch.restype = ctypes.c_int
+    _a2a_lib = lib
     return lib
+
+
+def _raw_stream(device: torch.device) -> int:
+    """The handle of the current stream on ``device`` (a CUDA device),
+    without building a ``torch.cuda.Stream`` where this torch offers the
+    raw getter."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+class _A2ALaunch:
+    """What one all-to-all launch on (device, stream, n, output base,
+    rank bytes) passes besides x: the n ranks' output pointers as a
+    ctypes array, and the control words of (device, stream) with the
+    address of their flags. Built once per key and kept, so a call in a
+    steady loop (where the allocator hands the same output block back)
+    builds no array and takes no lock to find its words."""
+
+    __slots__ = ("outs", "control", "flags")
+
+    def __init__(self, out_base: int, rank_bytes: int, n: int,
+                 control: _RingControl):
+        self.outs = (ctypes.c_void_p * n)(*(out_base + r * rank_bytes
+                                            for r in range(n)))
+        self.control = control
+        self.flags = control.flags.data_ptr()
+
+
+_a2a_launches: Dict[tuple, _A2ALaunch] = {}
+#: Launch states kept at once; the oldest goes first.
+A2A_LAUNCHES_KEPT = 32
+
+
+def _a2a_launch(device: torch.device, stream: int, n: int, out_base: int,
+                rank_bytes: int) -> _A2ALaunch:
+    """The launch state of (device, stream, n, output base, rank bytes),
+    built at its first call."""
+    key = (device.index, stream, n, out_base, rank_bytes)
+    state = _a2a_launches.get(key)
+    if state is None:
+        state = _A2ALaunch(out_base, rank_bytes, n,
+                           _control(device, stream, _A2AControl))
+        with _controls_lock:
+            _a2a_launches[key] = state
+            while len(_a2a_launches) > A2A_LAUNCHES_KEPT:
+                _a2a_launches.pop(next(iter(_a2a_launches)))
+    return state
 
 
 def all_to_all_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -465,7 +528,8 @@ def all_to_all_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
     kernel, all n ranks on x's card, every block moved bit for bit. Any
     type whose block is a whole number of 2-byte units; 1 <= n <= 8 (a
     ring of one is the identity and launches nothing). Raises on anything
-    else and where the card refuses the launch."""
+    else and where the card refuses the launch. Enters x's device only
+    where it is not the current one."""
     if x.device.type == "cpu":
         return all_to_all_plain(x, n)
     rows = _a2a_rows(x, n)
@@ -476,16 +540,17 @@ def all_to_all_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
     if block_bytes == 0 or block_bytes % 2:
         raise ValueError(f"all_to_all_cuda: the kernel moves 2-byte units; "
                          f"a block of {block_bytes} bytes is none")
+    if torch.cuda.current_device() != x.device.index:
+        with torch.cuda.device(x.device):
+            return all_to_all_cuda(x, n)
     out = torch.empty_like(x)
-    rank_bytes = rows * x.shape[1] * x.element_size()
-    outs = (ctypes.c_void_p * n)(*(out.data_ptr() + r * rank_bytes
-                                   for r in range(n)))
     lib = _a2a_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        ctl = _control(x.device, stream, _A2AControl)
-        err = lib.all_to_all_launch(x.data_ptr(), outs, ctl.flags.data_ptr(),
-                                    n, block_bytes, ctl.epoch, stream)
+    stream = _raw_stream(x.device)
+    state = _a2a_launch(x.device, stream, n, out.data_ptr(),
+                        rows * x.shape[1] * x.element_size())
+    err = lib.all_to_all_launch(x.data_ptr(), state.outs, state.flags, n,
+                                block_bytes, _next_epoch(state.control),
+                                stream)
     if err:
         raise RuntimeError(f"all_to_all kernel launch failed: CUDA error "
                            f"{err}")

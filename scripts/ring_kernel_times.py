@@ -26,25 +26,83 @@ traffic alone (the same [4096, 4096] output and 8 ranks with a
 contraction of 8 a rank, so that the products are negligible and the
 time is the partials' writes, copies and folds), and of the one-way ring
 all-gather of the all-gather matmul's own x (bf16, 4 MiB shards; the
-all-gather's own protocol, not the matmul's relay). With the card's name
-and power limit. Needs a CUDA card.
+all-gather's own protocol, not the matmul's relay). Then the paged-
+attention decode step at ``chip_smoke.py``'s phase-3 shape and inputs,
+int8 and fp32 pools, and the all-to-all's launch on the card
+(``torch.profiler``) and its host time a call, whole and by part of the
+tree's wrapper (``chip_smoke.a2a_host_split`` of this checkout where the
+tree's wrapper keeps its launch state, ``a2a_host_split_before`` here
+where it does not: the form before).
+With the card's name and power limit. Needs a CUDA card.
 """
 
+import importlib.util
 import json
 import os
 import sys
 
-tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                       os.path.join(os.path.dirname(__file__), ".."))
+here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else here)
 sys.path.insert(0, tree)
 
 import torch  # noqa: E402
 
 import chip_smoke as c  # noqa: E402
+
+# This checkout's helpers, run on the tree's package (they import it
+# lazily, from the tree first on the path).
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke_here", os.path.join(here, "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 from dpu_operator_tpu_torch.parallel import burn, fabric_probe  # noqa: E402
 from dpu_operator_tpu_torch.parallel import mxu_bench  # noqa: E402
 from dpu_operator_tpu_torch.parallel import ring_attention as ra  # noqa: E402
 from dpu_operator_tpu_torch.parallel import ring_probe as rp  # noqa: E402
+
+
+def a2a_host_split_before(torch, rp, x, n):
+    """{part: host us a call} of the all-to-all wrapper's form before its
+    launch state was kept: the checks, the allocation, the pointer
+    array, the device context and stream, the control words (their epoch
+    advanced), the C entry (the card queries and the cooperative launch)
+    and the library lookup, each timed alone, and the whole call."""
+    import ctypes
+
+    dev = x.device
+    rank_bytes = x.shape[0] // n * x.shape[1] * x.element_size()
+    lib = rp._a2a_library()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ctl = rp._control(dev, stream, rp._A2AControl)
+    outs = (ctypes.c_void_p * n)(*(out.data_ptr() + r * rank_bytes
+                                   for r in range(n)))
+
+    def checks():
+        rp._a2a_rows(x, n)
+        rp._kernel_input(x, n, "all_to_all_cuda")
+
+    def device_stream():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    def c_launch():
+        ctl.epoch += 1
+        err = lib.all_to_all_launch(x.data_ptr(), outs, ctl.flags.data_ptr(),
+                                    n, rank_bytes // n, ctl.epoch, stream)
+        smoke.check(err == 0, f"all_to_all_launch: CUDA error {err}")
+
+    return smoke.host_us(torch, {
+        "checks": checks,
+        "alloc": lambda: torch.empty_like(x),
+        "pointer_array": lambda: (ctypes.c_void_p * n)(
+            *(out.data_ptr() + r * rank_bytes for r in range(n))),
+        "device_stream": device_stream,
+        "control": lambda: rp._control(dev, stream, rp._A2AControl),
+        "c_launch": c_launch,
+        "library": rp._a2a_library,
+        "call": lambda: rp.all_to_all_cuda(x, n),
+        **smoke.cudart_parts(dev)})
 
 
 def main() -> int:
@@ -121,6 +179,21 @@ def main() -> int:
                     n=10, warm=2)
             del x, w1, w2, h, xs, ws
             torch.cuda.empty_cache()
+    from dpu_operator_tpu_torch.parallel import paged_attn as pa
+    for pool in ("int8", "fp32"):
+        args, _, _ = smoke.kernel_inputs(torch, pool, False)
+        out[f"paged_attn_{pool}_ms"] = c.time_ms(
+            torch, lambda: pa.paged_attn_step_cuda(*args))
+        del args
+        torch.cuda.empty_cache()
+    n = c.RING_MESH["sp"]
+    xa = c.coll_payload(torch, 8192, 512, torch.float32, seed=31)
+    out["all_to_all_launch_ms"], _, out["all_to_all_launch_read"] = (
+        smoke.device_ms(torch, lambda: rp.all_to_all_cuda(xa, n),
+                    "all_to_all_kernel"))
+    split = (smoke.a2a_host_split if hasattr(rp, "_a2a_launch")
+             else a2a_host_split_before)
+    out["all_to_all_host_us"] = split(torch, rp, xa, n)
     out["card"] = c.card_line()
     print(json.dumps(out), flush=True)
     return 0

@@ -335,3 +335,66 @@ def test_all_gather_relays_from_the_output():
     for user in ("ring_attn.cu", "collective_matmul.cu"):
         assert "ring::run_ring_stream(" in (csrc / user).read_text()
     assert "slots" not in inspect.getsource(ring_probe.ring_all_gather_cuda)
+
+
+# Every C entry point of each source, and the wrappers bind each one.
+EXPORTS = {
+    "paged_attn": {"paged_attn_chunk_blocks", "paged_attn_step_launch"},
+    "tile_mma": {"tile_mma_launch", "burn_chain_launch"},
+    "ring_attn": {"ring_attn_launch"},
+    "ring_collectives": {"ring_all_gather_launch",
+                         "ring_reduce_scatter_launch"},
+    "all_to_all": {"all_to_all_flag_words", "all_to_all_launch"},
+    "collective_matmul": {"ag_matmul_launch", "mm_rs_launch"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(EXPORTS))
+def test_every_exported_symbol_is_known_and_bound(name):
+    """A source exports exactly the entry points listed here, and the
+    port's Python binds each by name (an export the wrappers never call
+    is dead code; one missing from this list is a new contract that
+    needs a test)."""
+    import re
+
+    src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
+    assert set(re.findall(r'extern "C" \w+ (\w+)\(', src)) == EXPORTS[name]
+    python = "".join(p.read_text() for p in
+                     (cuda_build.PKG_DIR / "parallel").glob("*.py"))
+    for symbol in EXPORTS[name]:
+        assert re.search(rf"\b{symbol}\b", python), symbol
+
+
+def test_paged_attn_build_check_reads_every_instance():
+    """``chip_smoke.check_paged_attn_build`` finds the paged-attention
+    kernel's six instances (int8 pools at 16 and 4 codes a load, f32
+    pools, each for heads up to 128 and 256 wide) and fails on a spill or
+    a missing instance."""
+    import chip_smoke
+
+    def entry(pool, codes, dpl, spill=0):
+        name = (f"_ZN12_GLOBAL__N_117paged_attn_kernelI{pool}Li{codes}ELi"
+                f"{dpl}EEEvNS_6ParamsE")
+        return (f"ptxas info    : Compiling entry function '{name}' for "
+                f"'sm_90a'\n"
+                f"    0 bytes stack frame, {spill} bytes spill stores, "
+                f"{spill} bytes spill loads\n"
+                f"ptxas info    : Used 96 registers, used 1 barriers\n")
+
+    instances = [("a", 16, 1), ("a", 16, 2), ("a", 4, 1), ("a", 4, 2),
+                 ("f", 4, 1), ("f", 4, 2)]
+
+    class Build:
+        build_logs = {"paged_attn": "".join(entry(*i) for i in instances)}
+
+    line = chip_smoke.check_paged_attn_build(Build)
+    assert "int8 x16 dh<=128 96 registers, 0 spills" in line
+    assert "f32 x4 dh<=256 96 registers, 0 spills" in line
+    Build.build_logs = {"paged_attn": "".join(
+        entry(*i, spill=4 if i == ("f", 4, 1) else 0) for i in instances)}
+    with pytest.raises(AssertionError, match="f32 x4 dh<=128.*spill"):
+        chip_smoke.check_paged_attn_build(Build)
+    Build.build_logs = {"paged_attn": "".join(entry(*i)
+                                              for i in instances[1:])}
+    with pytest.raises(AssertionError, match="ptxas reported"):
+        chip_smoke.check_paged_attn_build(Build)

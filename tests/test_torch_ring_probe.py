@@ -551,6 +551,34 @@ def test_all_to_all_cuda_on_cpu_runs_the_plain_version():
     assert rp.all_to_all_cuda.launches == before
 
 
+def test_all_to_all_launch_state_is_kept_per_key(monkeypatch):
+    """The wrapper keeps its launch state by (device, stream, n, output
+    base, rank bytes): a repeat finds the same pointer array, a second n
+    (or another base) builds its own, all share one set of control words
+    on a (device, stream), and the oldest state goes first."""
+    monkeypatch.setattr(rp, "_a2a_launches", {})
+    monkeypatch.setattr(rp, "_controls", {})
+    cpu = torch.device("cpu")
+    four = rp._a2a_launch(cpu, 5, 4, 4096, 256)
+    assert rp._a2a_launch(cpu, 5, 4, 4096, 256) is four
+    assert list(four.outs) == [4096 + 256 * r for r in range(4)]
+    eight = rp._a2a_launch(cpu, 5, 8, 4096, 256)
+    assert eight is not four and eight.outs is not four.outs
+    assert list(eight.outs) == [4096 + 256 * r for r in range(8)]
+    assert list(four.outs) == [4096 + 256 * r for r in range(4)]
+    assert eight.control is four.control
+    assert four.flags == four.control.flags.data_ptr()
+    moved = rp._a2a_launch(cpu, 5, 4, 8192, 256)
+    assert moved is not four and list(moved.outs)[0] == 8192
+    assert rp._a2a_launch(cpu, 6, 4, 4096, 256).control is not four.control
+    epoch = four.control.epoch
+    assert rp._next_epoch(four.control) == epoch + 1
+    for base in range(rp.A2A_LAUNCHES_KEPT):
+        rp._a2a_launch(cpu, 5, 2, 10 ** 6 + 64 * base, 32)
+    assert len(rp._a2a_launches) == rp.A2A_LAUNCHES_KEPT
+    assert rp._a2a_launch(cpu, 5, 4, 4096, 256) is not four
+
+
 def test_odd_shard_runs_the_one_way_ring():
     """3 rows per rank cannot be halved: the bidirectional request takes
     the one-way ring's steps (the reference's rule) and still gathers."""
