@@ -37,17 +37,23 @@ Phases, each of which raises on failure:
                4096^3 on its full-K and K-blocked routes; max error
                against the stated tolerance, median times of the kernel,
                the plain version and (matmul) ``torch.matmul``, bound.
-               The tile kernel (TMA-fed wgmma) built with no spills
-               (ptxas); at both of its widths (128 x 256 and 128 x 128) a
-               product off the K step and off the wide tile within 1 ulp
-               of plain, and both widths timed at 4096^3 and 2048^2;
-               repeats bitwise equal; a launch's device time and the
-               host's time to queue a call.
+               The chain (TMA-fed wgmma in one cooperative launch) at
+               n 128, 640 and 1152 and 1, 2, 3 and 8 steps against
+               plain, 20 repeats at 1024^2 bitwise equal, a launch's
+               device time and the host's time to queue a call, whole
+               and by part of the wrapper. The chain kernel and the tile
+               kernel (TMA-fed wgmma) built with no spills (ptxas); the
+               tile kernel at both of its widths (128 x 256 and 128 x
+               128) a product off the K step and off the wide tile within
+               1 ulp of plain, and both widths timed at 4096^3 and
+               2048^2; repeats bitwise equal; a launch's device time and
+               the host's time to queue a call.
   7. health  — the health/bench path: ``best_burn_step()`` on the health
                burn's own inputs (one chain launch, finite signature), the
                2048^2 burn (eight tile launches), the block-config sweep
                of ``mxu_bench``, and one ``bench_gpu`` run in a process
-               of its own, whose JSON is logged.
+               of its own, whose JSON is logged, and its chain's TFLOP/s
+               beside those of the 8 (matmul + tanh) composition.
   8. ring    — ring attention: the kernel's eight instances built
                with no spills (ptxas); small rings (n 1-8; shards off
                the 128-row tile; heads up to 256 wide and off the mma's
@@ -192,6 +198,13 @@ STEP_ULPS = 1.0
 # = 1.6 before tanh); on an H100 this phase measured 0.0188. The bound is
 # 2**-4 = 16 ulps at the top of tanh's range, far below a fault's O(1).
 CHAIN_ATOL = 2.0 ** -4
+# The chain off the health burn's size and length: the smallest square
+# (one tile), one whose 5 x 5 tiles leave a partial last wave, and the
+# largest that ``burn.chain_fits``; one step (no barrier), two, three (a
+# scratch part written twice) and eight. Inputs drawn as the burn's own.
+CHAIN_SIZES = (128, 640, 1152)
+CHAIN_LENGTHS = (1, 2, 3, 8)
+CHAIN_REPEATS = 20
 # The f32 signature sum(h**2) over the burn: its per-element flips have
 # random signs (the reference's own test allows 5 %).
 SIG_RTOL = 1e-4
@@ -861,6 +874,7 @@ def phase_tiles(torch, card):
         f"{sig_k:.2f} vs plain {sig_p:.2f} (rtol {SIG_RTOL}); kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) [{card}]")
+    chain_cases(torch, card, burn, x, w, got)
 
     for i, (m, n) in enumerate(TILE_SHAPES):
         x, w = randn_pair(torch, m, n, seed=1 + i)
@@ -904,6 +918,89 @@ def phase_tiles(torch, card):
     tile_widths(torch, card, burn, mxu_bench, x, w)
     torch.cuda.empty_cache()
     return records
+
+
+def chain_pair(torch, n, seed):
+    """x [n, n] ~ N(0, 1) and w [n, n] ~ N(0, 0.05^2), bf16, drawn on the
+    card: the health burn's own inputs (``burn_example_args``) at n."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((n, n), generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn((n, n), generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * 0.05
+    return x, w
+
+
+def chain_host_split(torch, burn, tile_mma, x, w):
+    """{part: host us a call} of ``burn.burn_chain(x, w)`` (``host_us``):
+    the whole call and each part of the wrapper, the checks, the scratch
+    and output allocations, the views array (kept), the device and stream
+    lookup, the library, and the C entry (three tensor-map encodes and
+    the cooperative launch), with ``cudart_parts``."""
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+
+    dev, n = x.device, x.shape[0]
+    lib = tile_mma._library()
+    h = torch.empty((2, n, n), dtype=torch.bfloat16, device=dev)
+    out = torch.empty_like(x)
+    stream = rp._raw_stream(dev)
+
+    def c_launch():
+        err = lib.burn_chain_launch(
+            x.data_ptr(), w.data_ptr(), h.data_ptr(), out.data_ptr(),
+            tile_mma._chain_views_arg(n), n, 8, stream)
+        check(err == 0, f"burn_chain_launch: CUDA error {err}")
+
+    return host_us(torch, {
+        "checks": lambda: tile_mma.operands("burn_chain", x, w),
+        "alloc": lambda: (torch.empty((2, n, n), dtype=torch.bfloat16,
+                                      device=dev), torch.empty_like(x)),
+        "views": lambda: tile_mma._chain_views_arg(n),
+        "device_stream": lambda: (torch.cuda.current_device() != dev.index,
+                                  rp._raw_stream(dev)),
+        "library": tile_mma._library,
+        "c_launch": c_launch,
+        "call": lambda: burn.burn_chain(x, w),
+        **cudart_parts(dev)})
+
+
+def chain_cases(torch, card, burn, x, w, first):
+    """The chain kernel off the health burn's size and length against
+    plain (``CHAIN_SIZES`` x ``CHAIN_LENGTHS``), ``CHAIN_REPEATS`` repeats
+    at the burn's own (x, w) equal to ``first`` bit for bit, a launch's
+    device time beside the host's time to queue a call, and that time by
+    part of the wrapper."""
+    from dpu_operator_tpu_torch.parallel import tile_mma
+
+    for n in CHAIN_SIZES:
+        xs, ws = chain_pair(torch, n, seed=n)
+        for length in CHAIN_LENGTHS:
+            tag = f"burn_chain {n}^2 x {length}"
+            got = burn.burn_chain(xs, ws, length)
+            want = burn.burn_chain_plain(xs, ws, length)
+            err, dist = compare(torch, burn, tag, got, want,
+                                ulps=STEP_ULPS if length == 1 else None,
+                                atol=CHAIN_ATOL)
+            sig_k, sig_p = (float(torch.sum(h.float() ** 2))
+                            for h in (got, want))
+            check(abs(sig_k - sig_p) <= SIG_RTOL * abs(sig_p),
+                  f"{tag}: signature {sig_k} vs plain {sig_p}")
+            log(f"tiles {tag}: max |err| {err:.3e} (atol {CHAIN_ATOL}), "
+                f"{dist:.2f} ulps, signature rel err "
+                f"{abs(sig_k - sig_p) / abs(sig_p):.2e} (rtol {SIG_RTOL})")
+    for i in range(CHAIN_REPEATS):
+        check(torch.equal(burn.burn_chain(x, w), first),
+              f"burn_chain repeat {i}: differs from the first call's bits")
+    ms = time_ms(torch, lambda: burn.burn_chain(x, w))
+    launch_ms, host_ms, how = device_ms(torch, lambda: burn.burn_chain(x, w),
+                                        "chain_kernel")
+    split = chain_host_split(torch, burn, tile_mma, x, w)
+    log(f"tiles burn_chain {x.shape[0]}^2 x 8: {CHAIN_REPEATS} repeats "
+        f"bitwise; {ms:.4f} ms by events, a launch {launch_ms:.4f} ms "
+        f"({how}), the host queues a call in {host_ms:.4f} ms: the card "
+        f"{'waits on' if host_ms > launch_ms else 'runs ahead of'} the "
+        f"host; host us a call by part: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()) + f" [{card}]")
 
 
 def tile_widths(torch, card, burn, mxu_bench, x, w):
@@ -1026,6 +1123,12 @@ def phase_health(torch, card, name):
                 "burn_kernel_tflops", "hbm_gbps", "ring_gbps",
                 "ring_bidir_gbps"):
         check(bench[key] > 0, f"bench_gpu {key} = {bench[key]}")
+    log(f"bench_gpu burn at {fabric_probe.BURN_DIM}^2 x 8: the chain kernel "
+        f"{bench['burn_kernel_tflops']} TFLOP/s "
+        f"{bench['burn_kernel_tflops_minmax']} against the composition of "
+        f"8 (torch.matmul + tanh) {bench['burn_torch_tflops']} TFLOP/s "
+        f"{bench['burn_torch_tflops_minmax']} (16 launches a chain, not "
+        f"one library call) [{card}]")
     check(bench["ring_ranks_share_card"] is True
           and bench["ring_axis_size"] == RING_MESH["sp"],
           f"bench_gpu ring block: {bench['ring_axis_size']} ranks")
@@ -1914,9 +2017,9 @@ def ptxas_entries(text):
 def check_wgmma_build(cuda_build, source):
     """The tile-product kernels of ``source`` as ptxas reported them in
     this run: the collective matmuls' four (bf16 on wgmma, f32 on the
-    split-TF32 mma.sync form), the tile kernel's four instances (two
-    widths, with and without tanh); no spills. Returns a line for the
-    log."""
+    split-TF32 mma.sync form), or ``tile_mma``'s five, the tile kernel's
+    four instances (two widths, with and without tanh) and the chain
+    kernel; no spills. Returns a line for the log."""
     text = cuda_build.build_logs.get(source)
     if text is None:
         return (f"{source}: ptxas report not in this run (the library was "
@@ -1928,13 +2031,15 @@ def check_wgmma_build(cuda_build, source):
                    for name, regs in ptxas_entries(text).items()
                    if "ag_matmul_kernel" in name or "mm_rs_kernel" in name}
     else:
-        want = 4
+        want = 5
         kernels = {}
         for name, regs in ptxas_entries(text).items():
             found = re.search(r"tile_kernelILi(\d+)ELb([01])E", name)
             if found:
                 kernels[f"tile 128x{found[1]}"
                         f"{' tanh' if found[2] == '1' else ''}"] = regs
+            elif "chain_kernel" in name:
+                kernels["chain"] = regs
     check(len(kernels) == want, f"{source}: ptxas reported {sorted(kernels)}")
     for name, (regs, stores, loads) in kernels.items():
         check(stores == 0 and loads == 0,

@@ -59,7 +59,8 @@
 // `make_ring` (it from the C arguments), `make_rank` (a CTA's `Rank` from
 // it) and `launch_ring`, the one cooperative launcher that every kernel
 // built on these primitives uses (the ring collectives, ring attention,
-// the all-to-all, the collective matmuls).
+// the all-to-all, the collective matmuls), and the burn chain of
+// `tile_mma.cu`, whose steps meet at grid-wide barriers.
 
 #pragma once
 

@@ -29,19 +29,28 @@
 // the wrappers launch 128 x 256, the faster at 4096^3 on an H100
 // (`parallel/tile_mma.py` TILE_WIDTH, `PERF.md` §6).
 //
-// The chain keeps the wmma form of `tile_product.cuh` (cp.async staging
-// two stages deep, nvcuda::wmma): each step needs all of the previous h
-// (2 MB at 1024^2), more than one SM's shared memory, so h lives in L2
-// (50 MB). One cooperative launch, of no more CTAs than the card can hold
-// at once, walks each step's output tiles and meets at a grid-wide barrier
-// between steps. Steps alternate between two h buffers that the caller
-// allocates (the TPU kernel updated h in place; here that would let one
-// CTA overwrite rows another CTA is still reading), and the last step
-// writes `out`. Operands are read with cp.async.cg, which caches in L2
-// only, so no CTA reads a stale line of h from its L1. Moving it to TMA
-// would need tensor maps of the two h buffers and a proxy fence after
-// every grid.sync(): later work (the chain has no library call to lose
-// to).
+// The chain multiplies with the same TMA-fed wgmma form, in 128 x 64
+// tiles (`wgmma.m64n64k16`, four stages). Each step needs all of the
+// previous h (2 MB at 1024^2), more than one SM's shared memory, so h
+// lives in L2 (50 MB) between steps. One cooperative launch
+// (`ring::launch_ring`, of no more CTAs than the card holds at once)
+// walks each step's output tiles, grid-stride, and meets at a grid-wide
+// barrier between steps. Steps alternate between the two parts of one
+// [2, n, n] scratch that the caller allocates (the TPU kernel updated h
+// in place; here that would let one CTA overwrite rows another CTA is
+// still reading), and the last step writes `out`. x and w are read
+// through the tile kernel's views, the scratch through one A view with a
+// part extent of 2 (`parallel/tile_mma.py` `chain_views`); `out` is only
+// stored to and has no map. Step i + 1 reads by TMA (the async proxy)
+// what step i stored by generic stores: grid.sync() orders those stores
+// before every thread of step i + 1, and the product's thread 0 fences
+// the proxies (fence.proxy.async.global) before its first load. A step
+// at 1024^2 is 128 tiles, one a CTA on an H100's 132 SMs. Its time goes
+// to each SM's loads from L2, not to the tensor cores: with 128 x 128
+// tiles (64 CTAs, 512 KB a CTA a step) a launch took 0.0904 ms and
+// 0.0779 with the wgmma left out, and at 128 x 64 (384 KB a CTA, twice
+// the SMs) 0.0753 and 0.0645 (NVIDIA H100 80GB HBM3, 700.00 W;
+// `scripts/chain_variants.py`, `PERF.md` §6).
 //
 // What bounds them: operations. At the path's shapes (1024^2 x 8 steps,
 // 2048^2, 4096^3) each does 680-2730 FLOP per byte it must move, above
@@ -57,6 +66,7 @@
 
 #include <atomic>
 
+#include "ring_stream.cuh"
 #include "tile_product.cuh"
 
 namespace {
@@ -64,9 +74,6 @@ namespace {
 namespace cg = cooperative_groups;
 using tile::bf16;
 using tile::kThreads;
-
-constexpr int kChainBM = 128;  // 1024^2 in 128 x 64 tiles: 128 CTAs, <= 132 SMs
-constexpr int kChainBN = 64;
 
 // A tile kernel's operands and output: x [m, k] and w [k, n] as their
 // tensor maps, out [m, n] row-major.
@@ -76,11 +83,11 @@ struct TileParams {
   int m, k, n;
 };
 
-// The wgmma form's stages at each width: what fits one CTA an SM (256)
-// or two (128).
+// The wgmma form's stages at each width: what fits one CTA an SM (256),
+// or two (128, and the chain's 64, whose stages are 24 KB).
 template <int BN>
 struct TileShape {
-  static constexpr int kStages = BN == 256 ? 4 : 3;
+  static constexpr int kStages = BN == 128 ? 3 : 4;
   using Smem = tile::SmemWgmma<BN, kStages>;
   // Dynamic shared memory is placed on 16 bytes: room to move up to 1024.
   static constexpr size_t kSmemBytes = sizeof(Smem) + alignof(Smem);
@@ -104,30 +111,61 @@ __global__ void __launch_bounds__(kThreads, 256 / BN)
                            tile::StoreBf16<kTanh>{p.out, p.n});
 }
 
-// No __restrict__: h0 and h1 are written in one step and read in the next.
-__global__ void __launch_bounds__(kThreads)
-    chain_kernel(const bf16* x, const bf16* w, bf16* h0, bf16* h1, bf16* out,
-                 int n, int length) {
-  using S = tile::Smem<kChainBM, kChainBN>;
+// The chain's operands: x [n, n] and the scratch h [2, n, n] as A views
+// (k, m, 1) and (k, m, 2), w [n, n] as the B view (n, k, 1); h and out
+// [n, n] for the stores.
+struct ChainParams {
+  tile::TmaView x_view, w_view, h_view;
+  bf16* h;
+  bf16* out;
+  int n, length;
+};
+
+// The chain's tile width: 128 x 64, four stages. At 1024^2 x 8 a launch
+// took 0.0756 ms against 0.0902 at 128 x 128 (NVIDIA H100 80GB HBM3,
+// 700.00 W; medians of 4 turns, `scripts/chain_variants.py`).
+constexpr int kChainWidth = 64;
+
+// Two CTAs an SM fit (four 24 KB stages each), so a chain of more tiles
+// than SMs (n = 1152: 162) is still one wave. Larger n walk their tiles
+// grid-stride.
+__global__ void __launch_bounds__(kThreads, 2)
+    chain_kernel(const __grid_constant__ ChainParams p) {
+  using Smem = TileShape<kChainWidth>::Smem;
   extern __shared__ __align__(128) unsigned char raw[];
-  S& sm = *reinterpret_cast<S*>(raw);
+  Smem& sm = *reinterpret_cast<Smem*>(
+      (reinterpret_cast<uintptr_t>(raw) + alignof(Smem) - 1) &
+      ~static_cast<uintptr_t>(alignof(Smem) - 1));
+  tile::wgmma_init(sm);
+  tile::WgmmaPipe pipe;
   cg::grid_group grid = cg::this_grid();
-  const int tiles_n = n / kChainBN;
-  const int tiles = n / kChainBM * tiles_n;
-  for (int step = 0; step < length; ++step) {
-    // Step i reads x (i == 0) or the buffer step i - 1 wrote, and writes
-    // h0 (even i), h1 (odd i) or, last, out.
-    const bf16* src = step == 0 ? x : (step & 1 ? h0 : h1);
-    bf16* dst = step == length - 1 ? out : (step & 1 ? h1 : h0);
+  const int n = p.n;
+  const int tiles_n = n / kChainWidth;
+  const int tiles = n / tile::kWgBM * tiles_n;
+  const tile::TmaOperand w{&p.w_view, 0, 0};
+  for (int step = 0; step < p.length; ++step) {
+    // Step i reads x (i == 0) or the part step i - 1 wrote, and writes
+    // part i % 2 or, last, out.
+    const tile::TmaOperand a =
+        step == 0 ? tile::TmaOperand{&p.x_view, 0, 0}
+                  : tile::TmaOperand{&p.h_view, (step - 1) & 1, 0};
+    bf16* dst = step == p.length - 1
+                    ? p.out
+                    : p.h + static_cast<long long>(step & 1) * n * n;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      tile::tile_product<kChainBM, kChainBN>(
-          sm, src, n, w, n, n, t / tiles_n * kChainBM,
-          t % tiles_n * kChainBN, tile::StoreBf16<true>{dst, n});
+      tile::tile_product_wgmma(sm, pipe, a, w, n, n, n,
+                               t / tiles_n * tile::kWgBM,
+                               t % tiles_n * kChainWidth,
+                               tile::StoreBf16<true>{dst, n});
     }
-    // Every tile of step i is written before any CTA starts step i + 1;
-    // and no CTA writes a buffer of step i + 2 while one still reads it
-    // in step i + 1.
-    if (step + 1 < length) grid.sync();
+    // Every tile of step i is stored before any CTA starts step i + 1,
+    // whose products (never hoisted above this barrier) fence the
+    // proxies before their first TMA load. And no CTA stores into a part
+    // while another still reads it: step i + 2 writes what step i + 1
+    // reads, and a CTA reaches this barrier only after every TMA load of
+    // its products has completed on its `full` barrier (each product
+    // consumes every stage it fills), so no read is in flight across it.
+    if (step + 1 < p.length) grid.sync();
   }
 }
 
@@ -193,40 +231,33 @@ extern "C" int tile_mma_launch(const void* x, const void* w, void* out,
 }
 
 // `length` >= 1 chained h = bf16(tanh(h @ w)) from h = x, x and w [n, n],
-// in ONE cooperative launch; h0 and h1 are [n, n] scratch, out [n, n] the
-// last h. Refuses (an error code, never a fallback) where the card cannot
-// hold one CTA of the kernel per SM or has no cooperative launch.
-extern "C" int burn_chain_launch(const void* x, const void* w, void* h0,
-                                 void* h1, void* out, int n, int length,
-                                 void* stream) {
-  const size_t smem = sizeof(tile::Smem<kChainBM, kChainBN>);  // < 48 KB
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// in ONE cooperative launch; h is [2, n, n] scratch, out [n, n] the last
+// h. views holds tile::kViewValues values for x's tensor map, then w's,
+// then h's (`chain_views`). Refuses (an error code, never a fallback) a
+// view the encoder refuses, a card that will not give the kernel its
+// shared memory or hold one CTA of it, and one with no cooperative
+// launch.
+extern "C" int burn_chain_launch(const void* x, const void* w, void* h,
+                                 void* out, const long long* views, int n,
+                                 int length, void* stream) {
+  ChainParams p;
+  if (views == nullptr || length < 1 ||
+      !tile::encode_view(p.x_view, x, views) ||
+      !tile::encode_view(p.w_view, w, views + tile::kViewValues) ||
+      !tile::encode_view(p.h_view, h, views + 2 * tile::kViewValues)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  }
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel,
-                                                      kThreads, smem);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!coop) return static_cast<int>(cudaErrorNotSupported);
-  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  const int tiles = n / kChainBM * (n / kChainBN);
-  // Co-resident by construction: at most per_sm CTAs on each SM.
-  const int blocks = tiles < per_sm * sms ? tiles : per_sm * sms;
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* wp = static_cast<const bf16*>(w);
-  bf16* h0p = static_cast<bf16*>(h0);
-  bf16* h1p = static_cast<bf16*>(h1);
-  bf16* outp = static_cast<bf16*>(out);
-  void* args[] = {&xp, &wp, &h0p, &h1p, &outp, &n, &length};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(chain_kernel),
-                                  dim3(blocks), dim3(kThreads), args, smem,
-                                  static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  p.h = static_cast<bf16*>(h);
+  p.out = static_cast<bf16*>(out);
+  p.n = n;
+  p.length = length;
+  const long long tiles =
+      static_cast<long long>(n / tile::kWgBM) * (n / kChainWidth);
+  // Sets the kernel's shared-memory limit before it asks the card how many
+  // CTAs an SM holds; the grid is at most that many an SM, and walks the
+  // tiles grid-stride.
+  int ctas = 0;
+  return ring::launch_ring(chain_kernel, p, ctas, 1, tiles,
+                           TileShape<kChainWidth>::kSmemBytes,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -1,56 +1,46 @@
 // The one tile product of the port's matmul kernels, for Hopper (sm_90a).
 //
-// A CTA of kThreads threads computes one BM x BN tile of C = A @ B for
-// row-major A [M, K] and B [K, N], each with its own row stride, and hands
-// every finished group of values to an epilogue functor, which stores it
-// where and as its caller wants: bf16, through tanh for the health burn
+// A CTA of kThreads threads computes one tile of C = A @ B and hands every
+// finished group of values to an epilogue functor, which stores it where
+// and as its caller wants: bf16, through tanh for the health burn
 // (`tile_mma.cu`); the operands' own type (the all-gather matmul of
 // `collective_matmul.cu`); f32 partial sums (its matmul reduce-scatter).
-// Three forms:
+// Two forms:
 //
-//   * bf16, `tile_product` (the health burn's chain): a loop over K in
-//     steps of kBK = 32; the A and B tiles of a step are staged in shared
-//     memory by cp.async, two stages deep (the next step's copy is in
-//     flight while this one multiplies), and multiplied on the tensor
-//     cores with nvcuda::wmma (bf16 operands, f32 accumulator in
-//     registers). A fragment's element order is opaque, so the epilogue
-//     goes through a per-warp f32 staging tile and hands over 8
-//     neighbours of one row at a time;
-//   * f32, `tile_product_tf32x3` (the f32 collective matmuls): cp.async
-//     staging as above, three stages deep, each value split into TF32 hi
-//     and lo as a warp loads it and multiplied on the tensor cores by
-//     mma.sync in three passes a product, for f32 accuracy; its note is
-//     at the form, further down. The epilogue gets 4 neighbours of a row;
-//   * bf16 on Hopper's own path, `tile_product_wgmma` (the burn tile, the
-//     benchmark matmul, the bf16 collective matmuls): operands brought in
-//     by TMA through a ring of mbarrier-guarded stages and multiplied by
-//     wgmma.mma_async; its note is at the form, further down.
+//   * bf16 on Hopper's own path, `tile_product_wgmma` (the burn chain and
+//     the burn tile, the benchmark matmul, the bf16 collective matmuls):
+//     operands brought in by TMA through a ring of mbarrier-guarded stages
+//     and multiplied by wgmma.mma_async; its note is at the form, further
+//     down;
+//   * f32, `tile_product_tf32x3` (the f32 collective matmuls): row-major
+//     A [M, K] and B [K, N], each with its own row stride, staged in
+//     shared memory by cp.async three stages deep, each value split into
+//     TF32 hi and lo as a warp loads it and multiplied on the tensor cores
+//     by mma.sync in three passes a product, for f32 accuracy; its note is
+//     at the form, further down. The epilogue gets 4 neighbours of a row.
 //
-// Tails of the cp.async forms. The wmma form has none: its caller
-// guarantees that M and N are multiples of the tile and K of the step.
-// The TF32 form takes M, N and K that are not: a 16-byte unit of an
-// operand that lies outside them is zero-filled (cp.async with a source
-// size of 0) and the epilogue is called only for groups that lie inside
-// C. The caller guarantees that every row of A, B and C that the product
-// reads or writes, and every row stride, is a whole number of 16-byte
-// units, so that a unit (and a group of 4 f32 outputs) is wholly inside
-// or wholly outside.
+// Tails of the cp.async form: it takes M, N and K that are not multiples
+// of its tile: a 16-byte unit of an operand that lies outside them is
+// zero-filled (cp.async with a source size of 0) and the epilogue is
+// called only for groups that lie inside C. The caller guarantees that
+// every row of A, B and C that the product reads or writes, and every row
+// stride, is a whole number of 16-byte units, so that a unit (and a group
+// of 4 f32 outputs) is wholly inside or wholly outside.
 //
-// The cp.async forms read operands with cp.async.cg, through L2 only: a
+// The cp.async form reads operands with cp.async.cg, through L2 only: a
 // ring kernel's operand may be a slot that a CTA on another SM has just
 // written, and L1 is not coherent across SMs. (TMA reads through L2 too.)
 //
-// Shared memory is the caller's: a `Smem` on a 128-byte boundary, static
-// or dynamic, an `SmemTf32` on a 16-byte one (dynamic: it is above 48 KB),
-// or a `SmemWgmma` on a 1024-byte one. The product leaves it free for the
-// next call (every stage is read before the product's last barrier).
+// Shared memory is the caller's: an `SmemTf32` on a 16-byte boundary
+// (dynamic: it is above 48 KB), or a `SmemWgmma` on a 1024-byte one. The
+// product leaves it free for the next call (every stage is read before
+// the product's last barrier).
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its encoder's types; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace tile {
@@ -59,24 +49,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBK = 32;  // K depth of one bf16 stage
-constexpr int kPad = 8;  // bf16 of row padding: 16 bytes, fewer bank conflicts
-
-// Row strides are multiples of 16 bytes (cp.async) and every fragment's
-// first element lies on 32 bytes (wmma), given a 128-byte-aligned base.
-template <int BM, int BN>
-struct Smem {
-  bf16 a[2][BM][kBK + kPad];
-  bf16 b[2][kBK][BN + kPad];
-  float stage[kWarps][16 * 16];  // one accumulator fragment per warp
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
 
 // 16 bytes from src, or 16 zero bytes where !valid (src is then not read).
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
@@ -137,103 +109,6 @@ struct StoreF32 {
     }
   }
 };
-
-// -- bf16 on the tensor cores -------------------------------------------------
-
-template <int BM, int BN>
-__device__ __forceinline__ void load_stage(Smem<BM, BN>& sm, int s,
-                                           const bf16* A, long long lda,
-                                           const bf16* B, long long ldb,
-                                           int row0, int col0, int k0) {
-  constexpr int kAChunks = kBK / 8;  // 16-byte chunks per A tile row
-  for (int c = threadIdx.x; c < BM * kAChunks; c += kThreads) {
-    const int r = c / kAChunks, kc = c % kAChunks * 8;
-    cp_async16(&sm.a[s][r][kc],
-               A + static_cast<long long>(row0 + r) * lda + k0 + kc);
-  }
-  constexpr int kBChunks = BN / 8;  // per B tile row
-  for (int c = threadIdx.x; c < kBK * kBChunks; c += kThreads) {
-    const int r = c / kBChunks, nc = c % kBChunks * 8;
-    cp_async16(&sm.b[s][r][nc],
-               B + static_cast<long long>(k0 + r) * ldb + col0 + nc);
-  }
-}
-
-// out(C[row0:row0+BM, col0:col0+BN] = A[row0:row0+BM, :K] @ B[:K, col0:col0+BN])
-// for row-major A with row stride lda and B with row stride ldb, K a
-// multiple of kBK. All threads of the CTA call it.
-template <int BM, int BN, class Epilogue>
-__device__ void tile_product(Smem<BM, BN>& sm, const bf16* A, long long lda,
-                             const bf16* B, long long ldb, int K, int row0,
-                             int col0, const Epilogue& out) {
-  using namespace nvcuda;
-  constexpr int kWarpsN = BN / 32;  // each warp owns a WM x 32 sub-tile
-  constexpr int kWarpsM = kWarps / kWarpsN;
-  constexpr int WM = BM / kWarpsM;
-  constexpr int FM = WM / 16;
-  constexpr int FN = 2;
-  static_assert(kWarpsM * kWarpsN == kWarps && WM % 16 == 0, "warp layout");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wr = warp / kWarpsN * WM, wc = warp % kWarpsN * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = K / kBK;
-  load_stage<BM, BN>(sm, 0, A, lda, B, ldb, row0, col0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    // Stage s ^ 1 was last read in step kt - 1, which every warp has
-    // left (the barrier at the end of the loop body).
-    if (kt + 1 < nk) {
-      load_stage<BM, BN>(sm, s ^ 1, A, lda, B, ldb, row0, col0,
-                         (kt + 1) * kBK);
-    }
-    cp_async_commit();  // possibly empty: keeps "wait for all but one" right
-    cp_async_wait<1>();
-    __syncthreads();  // stage s, copied by every thread, is in place
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i) {
-        wmma::load_matrix_sync(fa[i], &sm.a[s][wr + 16 * i][kk], kBK + kPad);
-      }
-#pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        wmma::load_matrix_sync(fb[j], &sm.b[s][kk][wc + 16 * j], BN + kPad);
-      }
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: each fragment goes through the warp's own f32 staging tile;
-  // a lane then hands 8 neighbours of one row to `out`.
-  float* st = sm.stage[warp];
-  const int r = lane / 2, c8 = lane % 2 * 8;
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      float v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = st[r * 16 + c8 + e];
-      out(row0 + wr + 16 * i + r, col0 + wc + 16 * j + c8, v);
-      __syncwarp();  // the staging tile is read before the next store
-    }
-}
 
 // -- f32 on the TF32 tensor cores, split for f32 accuracy ----------------------
 //
@@ -478,16 +353,18 @@ __device__ void tile_product_tf32x3(SmemTf32<BN>& sm, const float* A,
 //
 // Serves the bf16 instances of TPU kernels 11 and 12 (parallel/
 // collective_matmul.py of the JAX package: `_pallas_ag_matmul`,
-// `_pallas_mm_rs`), through `collective_matmul.cu`, and TPU kernels 3-5
-// (the burn tile and the benchmark matmul), through `tile_mma.cu`'s tile
+// `_pallas_mm_rs`), through `collective_matmul.cu`, TPU kernels 3-5 (the
+// burn tile and the benchmark matmul), through `tile_mma.cu`'s tile
 // kernel, whose operands are plain 2-D tensors read as views with one
-// part. What bounds the collective matmuls is
-// operations: at the tensor-parallel MLP's shapes each does 2.749e11 flop,
-// 0.2779 ms at the H100's 989 TFLOP/s bf16 peak, against 168 MB of operands
-// and output. The wmma form above reached 124 (all-gather matmul) and 81
+// part, and TPU kernel 2 (the burn chain), through `tile_mma.cu`'s chain
+// kernel, which reads the previous step's h as one part of a scratch
+// view with two. What bounds the collective matmuls is operations: at the
+// tensor-parallel MLP's shapes each does 2.749e11 flop, 0.2779 ms at the
+// H100's 989 TFLOP/s bf16 peak, against 168 MB of operands and output.
+// The form that came before, WMMA fragments (mma.sync) fed by per-thread
+// cp.async two stages deep, reached 124 (all-gather matmul) and 81
 // (reduce-scatter) TFLOP/s there, and ~188 on the benchmark matmul at
-// 4096^3 (NVIDIA H100 80GB HBM3, 700 W): mma.sync
-// fed by per-thread cp.async two stages deep cannot keep Hopper's tensor
+// 4096^3 (NVIDIA H100 80GB HBM3, 700 W): it cannot keep Hopper's tensor
 // cores busy. So this form uses the two mechanisms that can:
 //
 //   * TMA. One thread asks for a whole A tile (BM x 64, one box) and the B
@@ -524,10 +401,11 @@ __device__ void tile_product_tf32x3(SmemTf32<BN>& sm, const float* A,
 // accumulators go there as an f32 tile (rows padded to BN + 8 floats), and
 // each thread hands 8 neighbours of a row to `out`, as the other forms do.
 //
-// Generic writes by other CTAs (a ring slot) are read here by TMA, through
-// the async proxy: the thread that issues the loads fences the proxies
-// (fence.proxy.async.global) after the caller's acquire and before its
-// first load; the epilogue's generic use of the stages is fenced likewise
+// Generic writes by other CTAs (a ring slot, the chain's previous h) are
+// read here by TMA, through the async proxy: the thread that issues the
+// loads fences the proxies (fence.proxy.async.global) after the caller's
+// acquire or grid-wide barrier and before its first load; the epilogue's
+// generic use of the stages is fenced likewise
 // (fence.proxy.async.shared::cta) before the next product's loads.
 
 constexpr int kWgBM = 128;      // two warpgroups of 64 rows
@@ -687,6 +565,31 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// d[0..32) += A (64 x 16, K-major) @ B (16 x 64, MN-major), both read
+// from shared memory through their descriptors.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d[0..64) += A (64 x 16, K-major) @ B (16 x 128, MN-major), both
 // read from shared memory through their descriptors.
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
@@ -818,7 +721,7 @@ __device__ void tile_product_wgmma(SmemWgmma<BN, kStages>& sm,
                                    const TmaOperand& b, int M, int N, int K,
                                    int row0, int col0, const Epilogue& out) {
   static_assert(kThreads == 256, "two consumer warpgroups");
-  static_assert(BN == 128 || BN == 256, "a wgmma width");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "a wgmma width");
   using St = WgStage<BN>;
   static_assert(kWgBM * St::kLd * 4 <= kStages * St::kBytes,
                 "the f32 tile fits in the stages");
@@ -828,9 +731,9 @@ __device__ void tile_product_wgmma(SmemWgmma<BN, kStages>& sm,
   const unsigned base = pipe.used;
 
   if (threadIdx.x == 0) {
-    // Ring slots were written by other CTAs' generic stores and released
-    // to this thread by the caller's acquire: order them before the
-    // async proxy's reads.
+    // Ring slots and the chain's h were written by other CTAs' generic
+    // stores and released to this thread by the caller's acquire or
+    // grid.sync(): order them before the async proxy's reads.
     asm volatile("fence.proxy.async.global;\n" ::: "memory");
     for (int j = 0; j < nk && j < kStages; ++j) {
       wg_load(sm, (base + j) % kStages, a, b, row0, col0, j * kWgBK);
@@ -860,8 +763,10 @@ __device__ void tile_product_wgmma(SmemWgmma<BN, kStages>& sm,
                                      St::kPanelBytes, 1024);
       if constexpr (BN == 256) {
         wgmma_m64n256k16(acc, da, db);
-      } else {
+      } else if constexpr (BN == 128) {
         wgmma_m64n128k16(acc, da, db);
+      } else {
+        wgmma_m64n64k16(acc, da, db);
       }
     }
     wgmma_commit();

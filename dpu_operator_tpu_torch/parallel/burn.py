@@ -5,8 +5,9 @@ Counterpart of the JAX package's ``parallel/pallas_burn.py``. The burn is
 eight chained ``h = bf16(tanh(f32(h @ w)))`` from ``h = x``, reduced to
 the f32 health signature ``sum(h**2)``:
 
-  * ``burn_chain`` runs the whole chain in ONE launch
-    (``csrc/tile_mma.cu``, ``chain_kernel``), h kept in L2 between steps;
+  * ``burn_chain`` runs the whole chain in ONE cooperative launch
+    (``csrc/tile_mma.cu``, ``chain_kernel``, TMA + wgmma tiles, a
+    grid-wide barrier between steps), h kept in L2 between steps;
   * ``burn_tile`` runs one step per launch (``tile_kernel`` with the tanh
     epilogue);
   * ``burn_step_kernel`` picks between them by the reference's own rule
@@ -87,9 +88,9 @@ def burn_chain(x: torch.Tensor, w: torch.Tensor, length: int = 8
     if x.device.type == "cpu":
         return burn_chain_plain(x, w, length)
     _, _, n = tile_mma.operands("burn_chain", x, w)
-    h0, h1, out = (torch.empty_like(x) for _ in range(3))
-    tile_mma.launch("burn_chain_launch", x.device, (x, w, h0, h1, out),
-                    (n, length))
+    h = torch.empty((2, n, n), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    tile_mma.chain(x, w, h, out, length)
     burn_chain.launches += 1
     return out
 

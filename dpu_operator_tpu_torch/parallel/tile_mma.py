@@ -9,7 +9,9 @@ The kernels take row-major contiguous bf16 operands ``x [m, k]`` and
 tile's rows) and k a multiple of 32. ``operands`` checks that and raises
 on anything else; the C entry points trust it. ``product`` launches the
 tile kernel (``tile_kernel``, TMA + wgmma, in 128 x ``TILE_WIDTH`` tiles),
-``launch`` any entry point.
+``chain`` the burn chain (``chain_kernel``, the same product in 128 x 64
+tiles, every step in one cooperative launch, reading x, w and its
+scratch through ``chain_views``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import functools
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+
+from .ring_probe import _raw_stream
 
 CTA_TILE = 128
 K_STEP = 32
@@ -68,12 +72,34 @@ def tma_views(m: int, k: int, n: int, item: int = 2) -> Dict[str, TmaView]:
     }
 
 
+def chain_views(n: int, item: int = 2) -> Dict[str, TmaView]:
+    """The tensor maps of the chain kernel, in the order its C entry point
+    takes them: x [n, n] and w [n, n] as the tile kernel reads them
+    (``tma_views``), then the scratch h [2, n, n] as an A operand of two
+    parts, (k, m, 2), whose part coordinate picks the buffer a step
+    reads. Pure: a size in, views out."""
+    views = tma_views(n, n, n, item)
+    views["h"] = views["x"]._replace(dims=(n, n, 2))
+    return views
+
+
+def _flat_arg(views: Dict[str, TmaView]):
+    """Views as a C entry point takes them: one flat array of long long
+    (read, never written, by the callee)."""
+    flat = [v for view in views.values() for v in view.values()]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
 @functools.lru_cache(maxsize=64)
 def _views_arg(m: int, k: int, n: int):
-    """``tma_views`` as the C entry point takes them: one flat array of
-    long long (read, never written, by the callee)."""
-    flat = [v for view in tma_views(m, k, n).values() for v in view.values()]
-    return (ctypes.c_longlong * len(flat))(*flat)
+    """``tma_views`` as the tile kernel's C entry point takes them."""
+    return _flat_arg(tma_views(m, k, n))
+
+
+@functools.lru_cache(maxsize=64)
+def _chain_views_arg(n: int):
+    """``chain_views`` as the chain's C entry point takes them."""
+    return _flat_arg(chain_views(n))
 
 
 def operands(where: str, x: torch.Tensor, w: torch.Tensor
@@ -131,6 +157,25 @@ def product_of_width(where: str, x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def chain(x: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
+          out: torch.Tensor, length: int) -> None:
+    """``length`` chained ``bf16(tanh(h @ w))`` from ``h = x`` into
+    ``out``, in one cooperative launch of the chain kernel on scratch
+    ``h [2, n, n]``, on x's device's current stream. The caller has
+    checked x and w (``operands``, square) and allocated h and out;
+    raises if the launch failed. Enters x's device only where it is not
+    the current one."""
+    if torch.cuda.current_device() != x.device.index:
+        with torch.cuda.device(x.device):
+            return chain(x, w, h, out, length)
+    n = x.shape[0]
+    err = _library().burn_chain_launch(
+        x.data_ptr(), w.data_ptr(), h.data_ptr(), out.data_ptr(),
+        _chain_views_arg(n), n, length, _raw_stream(x.device))
+    if err:
+        raise RuntimeError(f"burn_chain_launch failed: CUDA error {err}")
+
+
 def _library():
     from ..cuda_build import load
 
@@ -140,20 +185,8 @@ def _library():
             [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
         lib.tile_mma_launch.restype = ctypes.c_int
+        lib.burn_chain_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.burn_chain_launch.restype = ctypes.c_int
     return lib
-
-
-def launch(entry: str, device: torch.device, tensors, ints) -> None:
-    """Call the C entry point ``entry`` of ``csrc/tile_mma.cu`` that takes
-    only tensors and ints (the chain's) on ``device``'s current stream with
-    the tensors' data pointers and the ints; raise if the launch failed."""
-    fn = getattr(_library(), entry)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * len(tensors)
-                       + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(t.data_ptr() for t in tensors), *ints, stream)
-    if err:
-        raise RuntimeError(f"{entry} failed: CUDA error {err}")

@@ -9,9 +9,12 @@ Each TREE is a checkout of the repository whose kernels have been built
 ``cuda_build.build``). Every library is dumped with ``cuobjdump -sass``,
 split by kernel, and each kernel's SASS is hashed, with the
 per-translation-unit tag of the anonymous namespace taken out of names
-and bodies. Prints one line a kernel: ``same``, ``DIFF``, or ``only-A``
-/ ``only-B``. A kernel whose SASS is the same in both trees runs the
-same instructions, so a time that moves between the two is noise. Needs
+and bodies and every run of blanks collapsed to one (the dump pads its
+columns by what else the library holds, so a kernel added beside
+another shifts the other's padding, not its instructions). Prints one
+line a kernel: ``same``, ``DIFF``, or ``only-A`` / ``only-B``. A kernel
+whose SASS is the same in both trees runs the same instructions, so a
+time that moves between the two is noise. Needs
 the CUDA toolkit's ``cuobjdump`` (``$CUDA_HOME/bin``, default
 ``/usr/local/cuda/bin``).
 """
@@ -39,7 +42,8 @@ def kernels(tree: str) -> dict:
         text = ANON.sub("ANON", text)
         for part in text.split("Function : ")[1:]:
             name, body = part.split("\n", 1)
-            body = "\n".join(line for line in body.splitlines()
+            body = "\n".join(" ".join(line.split())
+                             for line in body.splitlines()
                              if not line.strip().startswith("....")
                              and "Fatbin" not in line
                              and "code for sm" not in line)

@@ -26,9 +26,14 @@ traffic alone (the same [4096, 4096] output and 8 ranks with a
 contraction of 8 a rank, so that the products are negligible and the
 time is the partials' writes, copies and folds), and of the one-way ring
 all-gather of the all-gather matmul's own x (bf16, 4 MiB shards; the
-all-gather's own protocol, not the matmul's relay). Then the paged-
-attention decode step at ``chip_smoke.py``'s phase-3 shape and inputs,
-int8 and fp32 pools, and the all-to-all's launch on the card
+all-gather's own protocol, not the matmul's relay). Beside the burn
+chain: a launch's device time (``torch.profiler``), the host's time to
+queue a call, and the time of its function composed of 8 x
+(``torch.matmul`` + ``torch.tanh``), a yardstick of 16 library launches
+and not one call; and the wall ms of phase 7's health check (inputs
+drawn, one chain launch, the signature read back), median of 20. Then
+the paged-attention decode step at ``chip_smoke.py``'s phase-3 shape and
+inputs, int8 and fp32 pools, and the all-to-all's launch on the card
 (``torch.profiler``) and its host time a call, whole and by part of the
 tree's wrapper (``chip_smoke.a2a_host_split`` of this checkout where the
 tree's wrapper keeps its launch state, ``a2a_host_split_before`` here
@@ -39,7 +44,9 @@ With the card's name and power limit. Needs a CUDA card.
 import importlib.util
 import json
 import os
+import statistics
 import sys
+import time
 
 here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 tree = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else here)
@@ -105,6 +112,29 @@ def a2a_host_split_before(torch, rp, x, n):
         **smoke.cudart_parts(dev)})
 
 
+def composition(h, w):
+    """The burn chain's function composed of library calls, 8 x
+    (``torch.matmul`` + ``torch.tanh``) in bf16 (``bench_gpu``'s
+    ``burn_torch_tflops`` yardstick): 16 launches, not one call."""
+    for _ in range(8):
+        h = torch.tanh(torch.matmul(h, w))
+    return h
+
+
+def health_wall_ms(runs=20):
+    """Median host ms of one health check as phase 7 runs it: the burn's
+    inputs drawn on the card, ``best_burn_step()`` (one chain launch),
+    the signature read back."""
+    def once():
+        t0 = time.perf_counter()
+        float(burn.best_burn_step()(
+            *fabric_probe.burn_example_args(device="cuda")))
+        return (time.perf_counter() - t0) * 1e3
+
+    once()
+    return statistics.median(once() for _ in range(runs))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ring_kernel_times: no CUDA device", file=sys.stderr)
@@ -149,6 +179,14 @@ def main() -> int:
             torch, lambda: rp.all_to_all_cuda(x, n), n=10, warm=2)
     hx, hw = fabric_probe.burn_example_args(device="cuda")
     out["burn_chain_ms"] = c.time_ms(torch, lambda: burn.burn_chain(hx, hw))
+    out["burn_chain_launch_ms"], _, out["burn_chain_launch_read"] = (
+        smoke.device_ms(torch, lambda: burn.burn_chain(hx, hw),
+                        "chain_kernel"))
+    out["burn_chain_host_us"] = smoke.host_us(
+        torch, {"call": lambda: burn.burn_chain(hx, hw)})["call"]
+    out["burn_chain_composition_ms"] = c.time_ms(
+        torch, lambda: composition(hx, hw))
+    out["health_wall_ms"] = health_wall_ms()
     tx, tw = c.randn_pair(torch, 2048, 2048, seed=1)
     out["burn_tile_ms"] = c.time_ms(torch, lambda: burn.burn_tile(tx, tw))
     mx, mw = c.randn_pair(torch, 4096, 4096, seed=3)

@@ -39,9 +39,12 @@ def test_library_name_follows_source_headers_and_flags(tmp_path,
 
 RING_SOURCES = ["ring_attn", "ring_collectives", "all_to_all",
                 "collective_matmul"]
+# Every source that launches through the header's cooperative launcher:
+# the ring kernels and the burn chain.
+COOPERATIVE_SOURCES = RING_SOURCES + ["tile_mma"]
 
 
-@pytest.mark.parametrize("name", RING_SOURCES)
+@pytest.mark.parametrize("name", COOPERATIVE_SOURCES)
 def test_ring_sources_rebuild_when_the_protocol_header_changes(
         name, tmp_path, monkeypatch):
     """Every source built on ``ring_stream.cuh`` includes it: an edit to
@@ -58,11 +61,11 @@ def test_ring_sources_rebuild_when_the_protocol_header_changes(
     assert cuda_build.library_path(name) != first
 
 
-@pytest.mark.parametrize("name", RING_SOURCES)
+@pytest.mark.parametrize("name", COOPERATIVE_SOURCES)
 def test_ring_sources_share_the_headers_launcher(name):
     """The cooperative launcher lives once, in ``ring_stream.cuh``: every
-    source built on it launches through ``ring::launch_ring`` and keeps no
-    launcher of its own."""
+    source built on it (the ring kernels, the burn chain) launches through
+    ``ring::launch_ring`` and keeps no launcher of its own."""
     header = (cuda_build.CSRC_DIR / "ring_stream.cuh").read_text()
     assert "int launch_ring(" in header and "struct Ring {" in header
     src = (cuda_build.CSRC_DIR / f"{name}.cu").read_text()
@@ -90,8 +93,7 @@ def test_tile_sources_rebuild_when_the_product_header_changes(
     assert cuda_build.library_path(name) != first
 
 
-@pytest.mark.parametrize("form", ["void tile_product", "struct Smem",
-                                  "void load_stage", "wmma::mma_sync",
+@pytest.mark.parametrize("form", ["void tile_product",
                                   "cp.async.cg.shared.global",
                                   "void tile_product_wgmma",
                                   "SmemWgmma {", "wgmma.mma_async.sync",
@@ -120,27 +122,53 @@ def _body(src, signature):
 
 
 def test_bf16_products_multiply_on_wgmma_and_the_chain_on_wmma():
-    """The bf16 collective matmuls and the tile kernel (the burn tile and
-    the benchmark matmul) call the TMA-fed wgmma form, and no longer the
-    wmma one; the burn chain keeps wmma, so the header keeps that form.
-    The f32 collective matmuls call the split-TF32 form, and the f32 FMA
-    form and its staging are gone from every source."""
+    """(Named for the form the chain had before.) Every bf16 product
+    calls the TMA-fed wgmma form: the bf16 collective matmuls, the tile
+    kernel (the burn tile and the benchmark matmul) and the burn chain.
+    The wmma form is gone from every source (no ``nvcuda::wmma``, no
+    ``<mma.h>``, none of its staging), as is the f32 FMA form; the f32
+    collective matmuls call the split-TF32 form."""
     src = (cuda_build.CSRC_DIR / "collective_matmul.cu").read_text()
     assert "tile::tile_product_wgmma(" in src
-    assert "tile::tile_product<" not in src
     assert "tile::tile_product_tf32x3(" in src
+    mma = (cuda_build.CSRC_DIR / "tile_mma.cu").read_text()
+    for kernel in ("    tile_kernel(", "    chain_kernel("):
+        assert "tile::tile_product_wgmma(" in _body(mma, kernel), kernel
     for path in cuda_build.CSRC_DIR.iterdir():
         text = path.read_text()
-        for gone in ("tile_product_f32", "load_stage_f32", "SmemF32",
-                     "kF32Tile", "kF32BK"):
+        for gone in ("wmma::", "<mma.h>", "nvcuda", "tile_product<",
+                     "struct Smem {", "load_stage(", "cp_async16(",
+                     "kChainBM", "kChainBN", "tile_product_f32",
+                     "load_stage_f32", "SmemF32", "kF32Tile", "kF32BK"):
             assert gone not in text, (path.name, gone)
+
+
+def test_the_chain_syncs_between_steps_and_alternates_its_scratch():
+    """The chain kernel's steps, ``test_torch_tile_mma.chain_schedule``:
+    each step's products (read through x's view at step 0, else the
+    scratch view's part (step - 1) & 1), stored into part step & 1 or,
+    last, out, then one grid-wide barrier before the next step; the
+    products are never issued before it. The C entry encodes three maps
+    (x, w, the two-part scratch) and launches through
+    ``ring::launch_ring``."""
     mma = (cuda_build.CSRC_DIR / "tile_mma.cu").read_text()
-    tile = _body(mma, "    tile_kernel(")
-    assert "tile::tile_product_wgmma(" in tile
-    assert "tile::tile_product<" not in tile
     chain = _body(mma, "    chain_kernel(")
-    assert "tile::tile_product<" in chain
-    assert "tile_product_wgmma" not in chain
+    assert chain.count("grid.sync()") == 1
+    assert chain.index("tile::tile_product_wgmma(") < chain.index(
+        "grid.sync()")
+    assert "&p.x_view, 0, 0}" in chain
+    assert "&p.h_view, (step - 1) & 1, 0}" in chain
+    assert "step == p.length - 1" in chain and "(step & 1) * n * n" in chain
+    assert "tile::StoreBf16<true>{dst, n}" in chain
+    assert "tile::wgmma_init(sm);" in chain
+    assert chain.count("tile::WgmmaPipe pipe;") == 1
+    entry = _body(mma, 'extern "C" int burn_chain_launch(')
+    assert entry.count("tile::encode_view(") == 3
+    assert "ring::launch_ring(chain_kernel," in entry
+    # The tile that test_torch_tile_mma.py's emulated chain assembles.
+    from test_torch_tile_mma import CHAIN_WIDTH
+
+    assert f"constexpr int kChainWidth = {CHAIN_WIDTH};" in mma
 
 
 def test_collective_matmul_kernels_take_their_maps_as_grid_constants():
@@ -150,7 +178,8 @@ def test_collective_matmul_kernels_take_their_maps_as_grid_constants():
     collective matmuls' and the tile kernel."""
     for source, kernels in (("collective_matmul.cu",
                              ("ag_matmul_kernel(", "mm_rs_kernel(")),
-                            ("tile_mma.cu", ("    tile_kernel(",))):
+                            ("tile_mma.cu", ("    tile_kernel(",
+                                             "    chain_kernel("))):
         src = (cuda_build.CSRC_DIR / source).read_text()
         for kernel in kernels:
             decl = src[src.index(kernel):src.index(")", src.index(kernel))]
@@ -187,32 +216,62 @@ def test_ptxas_report_is_read_per_kernel():
         "_Z2k1I13__nv_bfloat16Evv": (185, 8, 4), "_Z2k2IfEvv": (123, 0, 0)}
 
 
+def _ptxas_entry(name, spill=0, registers=168):
+    return (f"ptxas info    : Compiling entry function '{name}' for "
+            f"'sm_90a'\n"
+            f"    0 bytes stack frame, {spill} bytes spill stores, "
+            f"{spill} bytes spill loads\n"
+            f"ptxas info    : Used {registers} registers, used 1 barriers\n")
+
+
+def _tile_entry(width, tanh, spill=0):
+    return _ptxas_entry(f"_ZN12_GLOBAL__N_111tile_kernelILi{width}ELb{tanh}"
+                        f"EEEvN12_GLOBAL__N_110TileParamsE", spill)
+
+
+def _chain_entry(spill=0):
+    return _ptxas_entry("_ZN44_GLOBAL__N__52e7e415_11_tile_mma_cu_4ebe64c412"
+                        "chain_kernelENS_11ChainParamsE", spill, 86)
+
+
 def test_wgmma_build_check_reads_the_tile_kernels():
     """``chip_smoke.check_wgmma_build`` finds the tile kernel's four
-    instances (two widths, with and without tanh) in ``tile_mma``'s ptxas
-    report and fails on a spill."""
+    instances (two widths, with and without tanh) and the chain kernel in
+    ``tile_mma``'s ptxas report and fails on a spill."""
     import chip_smoke
-
-    def entry(width, tanh, spill=0):
-        name = (f"_ZN12_GLOBAL__N_111tile_kernelILi{width}ELb{tanh}EEEvN12"
-                f"_GLOBAL__N_110TileParamsE")
-        return (f"ptxas info    : Compiling entry function '{name}' for "
-                f"'sm_90a'\n"
-                f"    0 bytes stack frame, {spill} bytes spill stores, "
-                f"{spill} bytes spill loads\n"
-                f"ptxas info    : Used 168 registers, used 1 barriers\n")
 
     class Build:
         build_logs = {"tile_mma": "".join(
-            entry(w, t) for w in (128, 256) for t in (0, 1))}
+            _tile_entry(w, t) for w in (128, 256) for t in (0, 1))
+            + _chain_entry()}
 
     assert chip_smoke.check_wgmma_build(Build, "tile_mma") == (
+        "chain 86 registers, 0 spills, "
         "tile 128x128 168 registers, 0 spills, tile 128x128 tanh 168 "
         "registers, 0 spills, tile 128x256 168 registers, 0 spills, "
         "tile 128x256 tanh 168 registers, 0 spills")
-    Build.build_logs = {"tile_mma": entry(256, 1, spill=8) + entry(128, 1)
-                        + entry(256, 0) + entry(128, 0)}
+    Build.build_logs = {"tile_mma": _tile_entry(256, 1, spill=8)
+                        + _tile_entry(128, 1) + _tile_entry(256, 0)
+                        + _tile_entry(128, 0) + _chain_entry()}
     with pytest.raises(AssertionError, match="spill"):
+        chip_smoke.check_wgmma_build(Build, "tile_mma")
+
+
+@pytest.mark.parametrize("spill", [8, 0])
+def test_wgmma_build_check_reads_the_chain_kernel(spill):
+    """``chip_smoke.check_wgmma_build`` fails on a spill in the chain
+    kernel, and on a report that lacks it (a spill-free one without the
+    chain, as the parent tree's build would give)."""
+    import chip_smoke
+
+    tiles = "".join(_tile_entry(w, t) for w in (128, 256) for t in (0, 1))
+
+    class Build:
+        build_logs = {"tile_mma": tiles + (_chain_entry(spill) if spill
+                                           else "")}
+
+    with pytest.raises(AssertionError,
+                       match="chain.*spill" if spill else "ptxas reported"):
         chip_smoke.check_wgmma_build(Build, "tile_mma")
 
 
