@@ -27,7 +27,10 @@ Phases, each of which raises on failure:
                plain attention; token streams must be identical. Before
                it, a small configuration on the card must decode the same
                streams as the CPU path the tests hold against the JAX
-               package.
+               package, in sync mode and in three speculative lanes
+               (``speculative``, ``speculative-pipelined``, and that with
+               tree width 3), int8 and fp32 pools; with fp32 pools the
+               speculative streams equal the sync streams.
   5. profile — one more served run under ``torch.profiler``: device time
                by kernel and the device's idle share.
   6. tiles   — the bf16 tile-product kernels of the health burn and the
@@ -122,6 +125,26 @@ Phases, each of which raises on failure:
                each kernel (CUDA events, a launch's device time from the
                profiler, the host's time to queue a call), its plain
                version and ``torch.matmul``, and the pair's wall time.
+ 12. spec    — speculative decoding on the served path at full width
+               (phase 4's model, prompts and 8 HTTP requests, spec_k 4, the
+               truncated draft over the step's own weights). fp32 pools:
+               the ``sync`` streams are the golden, and ``speculative``,
+               ``speculative-pipelined`` and ``speculative-pipelined``
+               with tree width 3 must each equal them token for token.
+               int8 pools: ``speculative`` and ``speculative-pipelined``
+               twice each, each pair identical (int8 speculative streams
+               are not compared with sync ones: a verify window's rows,
+               rejected ones included, set a block's scale). In chain
+               runs the paged-attention kernel launches at least once a
+               step; tree runs launch it never (their windows go through
+               ``tree_step``, the PyTorch composition). Every speculative
+               run has verify steps, every pipelined one a pipeline peak
+               of at least 2, and every run returns all its blocks. A line
+               a run: steps, verify steps, proposed and accepted tokens,
+               accept rate, tokens a verify step, pipeline peak, wall,
+               tokens/s, ms a step. Then the draft's host time idle and
+               behind queued verify steps, from its own stream and from
+               the executor's, and one profiled speculative-pipelined run.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -688,43 +711,72 @@ def serve_once(torch, ex, prompts, card):
                          step_ms=wall / max(steps, 1) * 1e3)
 
 
+# Speculative lanes of the small configuration: (mode, spec_k, tree width).
+SMALL_SPEC = (("speculative", 3, 1), ("speculative-pipelined", 3, 1),
+              ("speculative-pipelined", 3, 3))
+
+
 def phase_small(torch):
     """A small configuration on the card decodes the streams the CPU path
-    decodes; the CPU path is what the tests hold against the JAX
-    package."""
+    decodes, in sync mode and in the three speculative lanes; the CPU path
+    is what the tests hold against the JAX package. With fp32 pools the
+    speculative streams also equal the sync streams."""
     from dpu_operator_tpu_torch.serving import (GenerateRequest,
                                                 PagedKVExecutor)
+    from dpu_operator_tpu_torch.serving.spec import token_run
 
-    def drive(ex):
+    def drive(ex, tag):
         reqs = [GenerateRequest(prompt_vec=None, max_tokens=4,
                                 deadline=time.monotonic() + 60,
                                 prompt_tokens=list(p))
                 for p in SMALL_PROMPTS]
         for s, r in enumerate(reqs):
             ex.kv_attach(s, r)
+        live = set(range(len(reqs)))
         for _ in range(100):
             toks = ex.collect(ex.submit((), gen=ex.kv_gen()))
-            for s, r in enumerate(reqs):
-                if toks[s] >= 0 and len(r.tokens) < 4:
-                    r.tokens.append(int(toks[s]))
-            if all(len(r.tokens) == 4 for r in reqs):
+            for s in sorted(live):
+                r = reqs[s]
+                for t in token_run(toks[s]):
+                    if len(r.tokens) < 4:
+                        r.tokens.append(t)
+                if len(r.tokens) == 4:
+                    ex.kv_release_slot(s, cache=False)
+                    r.finish()
+                    live.discard(s)
+            if not live:
                 break
-        out = [list(r.tokens) for r in reqs]
-        for s, r in enumerate(reqs):
-            ex.kv_release_slot(s, cache=False)
-            r.finish()
+        check(not live, f"small {tag}: requests unfinished")
         ex.allocator.assert_clean()
-        return out
+        return [list(r.tokens) for r in reqs]
 
+    lanes = [("sync", dict(mode="sync"))]
+    lanes += [(f"{mode} k={k}" + (f" tree {w}" if w > 1 else ""),
+               dict(mode=mode, spec_k=k, spec_tree_width=w))
+              for mode, k, w in SMALL_SPEC]
     for pool_dtype in ("int8", "fp32"):
-        cpu = drive(PagedKVExecutor(**SMALL, pool_dtype=pool_dtype,
-                                    mode="sync", device="cpu"))
-        gpu = drive(PagedKVExecutor(**SMALL, pool_dtype=pool_dtype,
-                                    mode="sync", kernel="cuda",
-                                    device="cuda"))
-        check(gpu == cpu, f"small {pool_dtype}: card {gpu} != cpu {cpu}")
-        check(all(len(s) == 4 for s in gpu), f"small {pool_dtype}: short")
-        log(f"small {pool_dtype}: card streams == CPU streams {gpu}")
+        sync = None
+        for label, kw in lanes:
+            out = {}
+            for dev, extra in (("cpu", dict(device="cpu")),
+                               ("card", dict(kernel="cuda",
+                                             device="cuda"))):
+                ex = PagedKVExecutor(**SMALL, pool_dtype=pool_dtype, **kw,
+                                     **extra)
+                out[dev] = drive(ex, f"{label} {pool_dtype} {dev}")
+            gpu, cpu = out["card"], out["cpu"]
+            check(gpu == cpu, f"small {label} {pool_dtype}: card {gpu} "
+                  f"!= cpu {cpu}")
+            check(all(len(s) == 4 for s in gpu),
+                  f"small {label} {pool_dtype}: short")
+            if sync is None:
+                sync = gpu
+            elif pool_dtype == "fp32":
+                check(gpu == sync, f"small {label} fp32: {gpu} != sync "
+                      f"{sync}")
+            log(f"small {label} {pool_dtype}: card streams == CPU streams "
+                f"{gpu}" + (" == sync" if pool_dtype == "fp32"
+                            and label != "sync" else ""))
 
 
 def phase_serve(torch, card):
@@ -771,17 +823,18 @@ def phase_serve(torch, card):
     return launches
 
 
-def phase_profile(torch, card):
+def phase_profile(torch, card, label="pipelined", **kw):
     """Where a served run's device time goes: ``torch.profiler`` over one
-    pipelined run with the kernel, device time summed by kernel name.
-    The profiler's own host cost inflates the wall clock, so the idle
-    share read here is an upper bound."""
+    run with the kernel (phase 5: pipelined mode; phase 12 passes a
+    speculative mode), device time summed by kernel name. The profiler's
+    own host cost inflates the wall clock, so the idle share read here is
+    an upper bound."""
     from torch.profiler import ProfilerActivity, profile
 
     from dpu_operator_tpu_torch.serving import PagedKVExecutor
 
-    ex = PagedKVExecutor(**SERVE, mode="pipelined", kernel="cuda",
-                         device="cuda")
+    kw = kw or dict(mode="pipelined")
+    ex = PagedKVExecutor(**SERVE, **kw, kernel="cuda", device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, st = serve_once(torch, ex, serve_prompts(), card)
@@ -797,9 +850,9 @@ def phase_profile(torch, card):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     wall_ms = st["wall_s"] * 1e3
-    log(f"profile: {st['steps']} steps, device busy {busy_ms:.1f} ms of "
-        f"{wall_ms:.1f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"profiled) [{card}]")
+    log(f"profile {label}: {st['steps']} steps, device busy {busy_ms:.1f} "
+        f"ms of {wall_ms:.1f} ms wall (idle share "
+        f"{1 - busy_ms / wall_ms:.3f}, profiled) [{card}]")
     for us, count, key in rows[:12]:
         log(f"  {us / 1e3:10.3f} ms {us / 1e3 / busy_ms:6.3f}  x{count:<6d} "
             f"{key[:90]}")
@@ -2274,6 +2327,181 @@ def phase_tp_mlp(torch, card):
     return records
 
 
+# -- phase 12: speculative decoding on the served path ------------------------
+
+
+SPEC_K = 4          # a verify window of 5 rows, within the chunk of 16
+SPEC_TREE = 3       # tree lanes: the trunk and 2 first-position siblings
+# int8 repeats on all 8 requests (set to 4 if the script nears its limit)
+SPEC_INT8_REQUESTS = 8
+
+
+def first_diff(a, b):
+    """(request, token index) of the first difference of two stream lists,
+    or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        for j, (u, v) in enumerate(zip(x, y)):
+            if u != v:
+                return i, j
+        if len(x) != len(y):
+            return i, min(len(x), len(y))
+    return None
+
+
+def spec_run(torch, card, label, prompts, pool_dtype, **kw):
+    """Serve ``prompts`` once over HTTP on a fresh executor at full width;
+    check the kernel's launch count against the route (chain windows go
+    through the kernel, tree windows through the PyTorch composition) and
+    the spec counters; log one line; return the streams."""
+    from dpu_operator_tpu_torch.parallel import paged_attn as pa
+    from dpu_operator_tpu_torch.serving import PagedKVExecutor
+
+    t0 = time.monotonic()
+    ex = PagedKVExecutor(**dict(SERVE, pool_dtype=pool_dtype), **kw,
+                         kernel="cuda", device="cuda")
+    setup = time.monotonic() - t0
+    pa.paged_attn_step_cuda.launches = 0
+    streams, st = serve_once(torch, ex, prompts, card)
+    launches = pa.paged_attn_step_cuda.launches
+    kv = ex.kv_stats()
+    tree = kw.get("spec_tree_width", 1) > 1
+    if tree:
+        check(launches == 0, f"{label}: a tree run launched the kernel "
+              f"{launches} times")
+    else:
+        check(launches >= st["steps"] > 0,
+              f"{label}: kernel launches {launches} for {st['steps']} steps")
+    extra = ""
+    if ex.spec is not None:
+        check(kv["spec_verify_steps"] > 0, f"{label}: no verify step")
+        if ex.pipelined:
+            check(kv["spec_pipeline_peak"] >= 2,
+                  f"{label}: pipeline peak {kv['spec_pipeline_peak']}")
+        extra = (f"{kv['spec_verify_steps']} verify steps, "
+                 f"{kv['spec_proposed_tokens']} proposed / "
+                 f"{kv['spec_accepted_tokens']} accepted (rate "
+                 f"{kv['spec_accept_rate']}, {kv['spec_tokens_per_step']} "
+                 f"tokens a verify step), pipeline peak "
+                 f"{kv['spec_pipeline_peak']}, replans "
+                 f"{kv['spec_replans']}, ")
+    n_prompt = sum(map(len, prompts))
+    log(f"spec {label} {pool_dtype}: {len(prompts)} requests x "
+        f"{MAX_TOKENS} tokens, prompts {n_prompt} tokens, {st['steps']} "
+        f"steps, {extra}kernel launches {launches}, wall "
+        f"{st['wall_s']:.3f} s -> {st['gen_tok_per_s']:.1f} generated "
+        f"tok/s, {st['all_tok_per_s']:.1f} prompt+generated tok/s, "
+        f"{st['step_ms']:.3f} ms/step (setup {setup:.1f} s) [{card}]")
+    del ex
+    torch.cuda.empty_cache()
+    return streams
+
+
+def draft_overlap(torch, card, queued=8, reps=5):
+    """Whether the truncated draft waits for the verify window in flight:
+    host ms of one ``propose_full`` (the pipelined planner's draft call,
+    which ends in a copy to the host) on an idle card, then issued right
+    after ``queued`` full-width verify steps were queued on the
+    executor's stream, from the draft's own stream and, for comparison,
+    from the executor's stream. Logged, not checked: the draft's kernels
+    share the SMs with the steps'."""
+    from dpu_operator_tpu_torch.serving import PagedKVExecutor
+    from dpu_operator_tpu_torch.serving.spec import propose_full
+
+    ex = PagedKVExecutor(**dict(SERVE, pool_dtype="fp32"),
+                         mode="speculative-pipelined", spec_k=SPEC_K,
+                         kernel="cuda", device="cuda")
+    step, draft = ex._paged, ex.spec.draft
+    S, C, B, dev = step.slots, step.chunk, step.max_blocks_per_req, ex.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    ctx = B * step.block_size - C          # a full context, a full window
+    args = (ex._kpool, ex._kscale, ex._vpool, ex._vscale,
+            torch.zeros(S, **i32), torch.zeros((S, C), **i32),
+            torch.ones(S, dtype=torch.bool, device=dev),
+            torch.full((S,), ctx, **i32), torch.full((S,), C, **i32),
+            torch.arange(S * B, **i32).reshape(S, B))
+    last = np.arange(S, dtype=np.int32)
+    base = np.full(S, ctx, np.int32)
+
+    def queue(n):
+        with ex._on_stream():
+            for _ in range(n):
+                step(*args)
+
+    def draft_ms(n):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            queue(n)
+            t0 = time.perf_counter()
+            propose_full(draft, last, base)
+            out.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(out)
+
+    queue(1)
+    propose_full(draft, last, base)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    queue(queued)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / queued
+    alone = draft_ms(0)
+    own = draft_ms(queued)
+    draft._stream, kept = ex._stream, draft._stream
+    shared = draft_ms(queued)
+    draft._stream = kept
+    log(f"spec draft: propose_full (k={SPEC_K}, two chains) {alone:.3f} ms "
+        f"on an idle card; behind {queued} queued verify steps "
+        f"({step_ms:.3f} ms each, full window, full context) "
+        f"{own:.3f} ms from the draft's own stream, {shared:.3f} ms from "
+        f"the executor's stream (host clock, medians of {reps}) [{card}]")
+    del ex
+    torch.cuda.empty_cache()
+
+
+def phase_spec(torch, card):
+    """Speculative decoding at the served model's full width, through the
+    entry point (HTTP -> batcher -> PagedKVExecutor in a speculative
+    mode, the truncated draft over the step's own weights). fp32 pools:
+    every speculative lane decodes the sync streams token for token. int8
+    pools: each lane decodes the same streams twice (a verify window's
+    rows set a block's scale, so int8 speculative streams are not compared
+    with sync ones, by design)."""
+    prompts = serve_prompts()
+    log("spec: chain verify windows attend through the paged-attention "
+        "kernel; tree runs route every step through tree_step, the "
+        "PyTorch composition, and launch no paged-attention kernel (their "
+        "count is checked to be 0)")
+    chain = (("speculative/cuda", dict(mode="speculative", spec_k=SPEC_K)),
+             ("speculative-pipelined/cuda",
+              dict(mode="speculative-pipelined", spec_k=SPEC_K)))
+    gold = spec_run(torch, card, "sync/cuda", prompts, "fp32", mode="sync")
+    distinct = [len(set(s)) for s in gold]
+    check(min(distinct) > 1, f"spec: degenerate streams {distinct}")
+    lanes = chain + ((f"speculative-pipelined/tree {SPEC_TREE}",
+                      dict(mode="speculative-pipelined", spec_k=SPEC_K,
+                           spec_tree_width=SPEC_TREE)),)
+    for label, kw in lanes:
+        streams = spec_run(torch, card, label, prompts, "fp32", **kw)
+        at = first_diff(streams, gold)
+        check(at is None, f"spec {label} fp32: streams differ from "
+              f"sync/cuda first at request {at and at[0]}, token "
+              f"{at and at[1]}")
+    log(f"spec fp32: speculative, pipelined and tree streams == sync "
+        f"streams; distinct tokens per stream {distinct}")
+    sub = prompts[:SPEC_INT8_REQUESTS]
+    for label, kw in chain:
+        a = spec_run(torch, card, f"{label} #1", sub, "int8", **kw)
+        b = spec_run(torch, card, f"{label} #2", sub, "int8", **kw)
+        at = first_diff(a, b)
+        check(at is None, f"spec {label} int8: repeats differ at {at}")
+    log(f"spec int8: both chain lanes repeat their streams on "
+        f"{len(sub)} requests")
+    draft_overlap(torch, card)
+    phase_profile(torch, card, "speculative-pipelined",
+                  mode="speculative-pipelined", spec_k=SPEC_K)
+
+
 def main() -> int:
     try:
         import torch
@@ -2320,6 +2548,7 @@ def main() -> int:
     collectives = phase_collectives(torch, card)
     a2a = phase_ulysses(torch, card)
     tp_mlp = phase_tp_mlp(torch, card)
+    phase_spec(torch, card)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

@@ -7,6 +7,11 @@ the PyTorch paged-KV executor.
       -> PagedKVExecutor (kvcache/executor.py)
       -> PagedDecodeStep (kvcache/paged.py) + the CUDA paged-attention
          kernel (parallel/paged_attn.py)
+
+Speculative decoding (spec.py: the draft contract, greedy-verify
+acceptance and the two drafts) is the KV executors' third mode:
+``PagedKVExecutor(mode="speculative" | "speculative-pipelined")`` and
+``SyntheticKVExecutor(spec=SpecConfig(...))``.
 """
 
 from .api import (PRIORITIES, Draining, GenerateRequest, QueueFull,
@@ -15,11 +20,11 @@ from .api import (PRIORITIES, Draining, GenerateRequest, QueueFull,
 from .executor import Executor, ReplicaPool
 from .kvcache import (HostKVTier, KVBlockAllocator, KVCacheOOM, KVLease,
                       PagedDecodeStep, PagedKVExecutor, ParkedKV,
-                      PrefixTree)
+                      PrefixTree, SyntheticKVExecutor)
 from .queue import AdmissionQueue, TenantBudget
 from .scheduler import ContinuousBatcher
 from .server import ServingServer
-from .spec import NO_TOKEN, SpecConfig
+from .spec import NO_TOKEN, OracleDraft, SpecConfig, TruncatedDraft
 
 __all__ = [
     "AdmissionQueue",
@@ -32,6 +37,7 @@ __all__ = [
     "KVCacheOOM",
     "KVLease",
     "NO_TOKEN",
+    "OracleDraft",
     "PRIORITIES",
     "PagedDecodeStep",
     "PagedKVExecutor",
@@ -42,8 +48,10 @@ __all__ = [
     "ServingError",
     "ServingServer",
     "SpecConfig",
+    "SyntheticKVExecutor",
     "TenantBudget",
     "TenantOverBudget",
+    "TruncatedDraft",
     "encode_prompt",
     "encode_prompt_tokens",
 ]

@@ -4,7 +4,8 @@ its CUDA kernel."""
 
 from .allocator import (CACHE_OWNER, KVBlockAllocator, KVCacheOOM,
                         KVLease, PrefixTree)
-from .executor import NO_TOKEN, KVExecutorBase, PagedKVExecutor
+from .executor import (NO_TOKEN, KVExecutorBase, PagedKVExecutor,
+                       SyntheticKVExecutor)
 from .paged import (PagedDecodeStep, build_paged_params, kv_bytes_per_slot,
                     paged_kv_error_bound, params_from_numpy)
 from .tiering import HostKVTier, ParkedKV, verify_block_tokens
@@ -21,6 +22,7 @@ __all__ = [
     "PagedKVExecutor",
     "ParkedKV",
     "PrefixTree",
+    "SyntheticKVExecutor",
     "build_paged_params",
     "kv_bytes_per_slot",
     "paged_kv_error_bound",

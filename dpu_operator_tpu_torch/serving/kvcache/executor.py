@@ -48,18 +48,19 @@ from __future__ import annotations
 import contextlib
 import logging
 import threading
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ... import faults
-from ..executor import Executor
+from ..executor import Executor, _GuardedWorker
 # NO_TOKEN re-exported here for back-compat: the sentinel and the
 # emit-masking idiom live in serving/spec.py (a cleanup) so the
 # one-token and speculative collect paths share one definition.
 from ..spec import (NO_TOKEN, SpecConfig, accept_tree, clamp_spec_k,
-                    propose_full)
+                    propose_full, synthetic_next_token)
 from .allocator import (_ROOT as _TREE_ROOT, KVBlockAllocator,
                         KVCacheOOM, KVLease, PrefixTree)
 from .tiering import HostKVTier, ParkedKV, verify_block_tokens
@@ -1343,8 +1344,23 @@ class PagedKVExecutor(KVExecutorBase):
     asynchronous: the step is queued on this executor's own CUDA stream
     and the decode recurrence chains on the device, so the scheduler
     plans step k+1 while step k runs. ``mode="sync"`` drives the same
-    step through the scheduler's synchronous KV loop. The speculative
-    modes of the reference are not ported yet.
+    step through the scheduler's synchronous KV loop.
+    ``mode="speculative"`` is the draft/verify mode: the step emits
+    PER-POSITION argmax tokens (``per_pos=True``) and the executor plans
+    k-token verify windows against ``draft`` (default: a
+    spec.TruncatedDraft over this step's own embed/positional/output
+    weights) in the sync loop shape; every chain verify window attends
+    through the same fused call, the hand-written kernel on the card.
+    ``mode="speculative-pipelined"`` overlaps the draft with the verify:
+    window w+1 is planned from window w's proposed tokens while the
+    device still verifies w, the true bonus chains on the device
+    (``take_prev``), and a mis-speculation is the epoch-gated watermark
+    rollback. ``spec_tree_width >= 2`` widens either speculative mode to
+    a token tree (trunk chain + first-position siblings under a
+    tree-causal mask); every step of a tree-armed executor then goes
+    through ``PagedDecodeStep.tree_step``, the PyTorch composition,
+    which launches no paged-attention kernel (the kernel's per-row
+    causal mask cannot express the tree's).
 
     ``device=None`` means ``"cuda"``: the executor runs on the card
     unless the caller asks for the CPU, and with no CUDA device it
@@ -1357,7 +1373,9 @@ class PagedKVExecutor(KVExecutorBase):
     The pools are updated in place (the reference builds new arrays).
     Every read or write of them is queued on the executor's stream
     under ``_slock``, after every step dispatched before it and before
-    every step dispatched after it."""
+    every step dispatched after it. A rejected window's appended rows
+    stay in the pool until a later window overwrites them: the planner
+    never lets a step attend past ``ctx + n_app``."""
 
     def __init__(self, slots: int = 4, vocab: int = 64, d: int = 16,
                  heads: int = 2, block_size: int = 4,
@@ -1368,13 +1386,16 @@ class PagedKVExecutor(KVExecutorBase):
                  mode: str = "pipelined", warmup: bool = True,
                  kernel: Optional[str] = None,
                  pool_dtype: str = "int8",
+                 spec_k: int = 4, draft=None,
+                 spec_tree_width: int = 1,
+                 spec_adaptive: bool = False,
                  host_tier_bytes: Optional[int] = None, device=None):
-        if mode in ("speculative", "speculative-pipelined"):
-            raise ValueError(
-                f"mode={mode!r} is not ported yet (ROADMAP.md, queue 1 "
-                f"item 3: speculative decoding)")
-        if mode not in ("pipelined", "sync"):
-            raise ValueError(f"mode must be pipelined|sync, got {mode!r}")
+        if mode not in ("pipelined", "sync", "speculative",
+                        "speculative-pipelined"):
+            raise ValueError(f"mode must be pipelined|sync|speculative"
+                             f"|speculative-pipelined, got {mode!r}")
+        speculative = mode in ("speculative", "speculative-pipelined")
+        from ..spec import TruncatedDraft
         from .paged import PagedDecodeStep, resolve_device
 
         self.device = resolve_device(device, "PagedKVExecutor")
@@ -1384,7 +1405,8 @@ class PagedKVExecutor(KVExecutorBase):
                          prefill_chunk=prefill_chunk,
                          prefill_budget=prefill_budget,
                          prefix_cache=prefix_cache,
-                         pipelined=mode == "pipelined",
+                         pipelined=mode in ("pipelined",
+                                            "speculative-pipelined"),
                          host_tier_bytes=host_tier_bytes)
         # One stream per executor: steps, page imports/exports and pool
         # allocation all queue on it, in dispatch order.
@@ -1397,7 +1419,18 @@ class PagedKVExecutor(KVExecutorBase):
                 block_size=block_size, num_blocks=num_blocks,
                 max_blocks_per_req=max_blocks_per_req,
                 chunk=prefill_chunk, seed=seed, kernel=kernel,
-                pool_dtype=pool_dtype, device=self.device)
+                pool_dtype=pool_dtype, device=self.device,
+                per_pos=speculative,
+                tree=speculative and spec_tree_width > 1)
+            if speculative:
+                if draft is None:
+                    # Built on the step's stream: the draft's own stream
+                    # starts after the weights it reads have landed.
+                    draft = TruncatedDraft.from_paged(
+                        self._paged, spec_k, tree_width=spec_tree_width)
+                self._install_spec(SpecConfig(
+                    draft, spec_k, tree_width=spec_tree_width,
+                    adaptive=spec_adaptive))
             (self._kpool, self._kscale,
              self._vpool, self._vscale) = self._paged.init_pools()
             self._prev = self._paged.init_prev()
@@ -1483,18 +1516,36 @@ class PagedKVExecutor(KVExecutorBase):
 
     def _dispatch(self, plan: _StepPlan):
         """Queue one step; returns (out, event) without waiting for the
-        device. ``out`` is the [slots] token recurrence the next
-        pipelined step chains on."""
+        device. ``out`` is the [slots] token recurrence, or the [slots,
+        chunk] per-position tokens of a speculative step."""
         def dev(a):
             return torch.from_numpy(a).to(self.device, non_blocking=True)
 
         with self._on_stream():
-            (self._kpool, self._kscale, self._vpool, self._vscale,
-             out) = self._paged(
-                self._kpool, self._kscale, self._vpool, self._vscale,
-                self._prev, dev(plan.host_tok), dev(plan.use_host),
-                dev(plan.ctx), dev(plan.n_new), dev(plan.tables))
-            self._prev = out
+            args = (self._kpool, self._kscale, self._vpool, self._vscale,
+                    self._prev, dev(plan.host_tok), dev(plan.use_host),
+                    dev(plan.ctx), dev(plan.n_new), dev(plan.tables))
+            if self.spec is not None and plan.roff is not None:
+                (self._kpool, self._kscale, self._vpool, self._vscale,
+                 out) = self._paged.tree_step(
+                    *args, dev(plan.roff), dev(plan.n_app),
+                    dev(plan.plim), dev(plan.win))
+            else:
+                (self._kpool, self._kscale, self._vpool, self._vscale,
+                 out) = self._paged(*args)
+            if self.spec is None:
+                # out is the [slots] token recurrence the next
+                # pipelined step may chain on device.
+                self._prev = out
+            elif self.pipelined:
+                # Pipelined speculation: the NEXT window's base row
+                # chains the TRUE bonus on the device, the trunk leaf's
+                # per-position output (row n_app-1); rows with no work
+                # keep their previous chain value. Sync speculation
+                # never chains: every window is host-fed from the last
+                # ACCEPTED token, so _prev stays the zeroed init.
+                self._prev = self._paged.take_prev(
+                    out, dev(plan.n_app), self._prev)
             done = None
             if self._stream is not None:
                 done = torch.cuda.Event()
@@ -1503,8 +1554,230 @@ class PagedKVExecutor(KVExecutorBase):
 
     def _materialize(self, raw) -> np.ndarray:
         """The one place a step's tokens reach the host: wait for the
-        step's event, then copy the [slots] ids."""
+        step's event, then copy the ids."""
         out, done = raw
         if done is not None:
             done.synchronize()
         return out.cpu().numpy()
+
+
+class SyntheticKVExecutor(KVExecutorBase):
+    """Jax-free KV replica: same allocator/lease/plan machinery, but
+    the "device" is ``next = (31 * last_token + 7 * position + seed)
+    % vocab`` (spec.synthetic_next_token) — deterministic AND
+    position-dependent, so a resume that rewinds cursors wrong
+    produces a visibly different stream. With ``pipelined=True``
+    steps run FIFO on a worker thread with a dialable ``step_time_s``
+    (the SyntheticExecutor overlap idiom); ``fault_site`` names the
+    in-device chaos seam. ``spec=`` arms the draft/verify mode — the
+    SpecConfig's draft is typically spec.OracleDraft, whose dialed
+    acceptance rate is what the bench's controlled-speedup
+    measurement turns; combined with ``pipelined=True``
+    the executor plans window w+1 from window w's proposals while
+    the worker thread still runs w — the overlap the pipelined-spec
+    bench measures."""
+
+    def __init__(self, slots: int = 4, vocab: int = 64,
+                 block_size: int = 4, num_blocks: int = 128,
+                 max_blocks_per_req: int = 16, prefill_chunk: int = 8,
+                 prefill_budget: Optional[int] = None,
+                 prefix_cache: bool = True, step_time_s: float = 0.0,
+                 token_time_s: float = 0.0,
+                 seed: int = 0, pipelined: bool = True,
+                 fault_site: Optional[str] = None,
+                 spec: Optional[SpecConfig] = None,
+                 host_tier_bytes: Optional[int] = None):
+        super().__init__(slots, vocab=vocab, block_size=block_size,
+                         num_blocks=num_blocks,
+                         max_blocks_per_req=max_blocks_per_req,
+                         prefill_chunk=prefill_chunk,
+                         prefill_budget=prefill_budget,
+                         prefix_cache=prefix_cache, pipelined=pipelined,
+                         spec=spec, host_tier_bytes=host_tier_bytes)
+        self.step_time_s = float(step_time_s)
+        # Per-PLANNED-TOKEN cost on top of the fixed floor: the knob
+        # that makes prefill REAL in the cost model — a step co-running
+        # an 8-token prefill chunk costs base + 8*token_time_s, and
+        # every decode token in that batch pays it. Zero (the default)
+        # keeps the original fixed-cost behavior; the disagg bench turns it
+        # on to measure the cross-replica isolation claim (a prefill
+        # flood CANNOT inflate a dedicated decode replica's steps).
+        self.token_time_s = float(token_time_s)
+        self.seed = int(seed)
+        self.fault_site = fault_site
+        self._dev_prev = np.zeros((self.slots,), np.int32)
+        self._worker = _GuardedWorker(
+            "synthetic-kv-step", step_fn=self._device_step,
+            reset_fn=self._zero_dev_prev)
+
+    def _zero_dev_prev(self) -> None:
+        self._dev_prev = np.zeros((self.slots,), np.int32)
+
+    # -- the "device" ---------------------------------------------------------
+
+    def _device_step(self, plan: _StepPlan) -> np.ndarray:
+        if self.fault_site is not None:
+            faults.fire(f"{self.fault_site}.step")
+        cost = self.step_time_s
+        if self.token_time_s:
+            # Per-PLANNED-token cost covers draft positions too: a
+            # verify step really is wider than a one-token step, and
+            # the spec bench's per-step-cost decomposition leans on
+            # exactly this physics.
+            cost += self.token_time_s * int(np.sum(plan.n_new))
+        if cost:
+            time.sleep(cost)
+        if self.spec is not None:
+            # Per-position outputs, the verify contract: out[s, j] is
+            # the target's next token after consuming input j at its
+            # row position (ctx + roff[j]; roff == j for chain rows —
+            # tree siblings share the first trunk position). The
+            # synthetic recurrence is Markov on (input, position), so
+            # the per-position form IS the one-token recurrence
+            # applied at each fed position. Row 0 alone may
+            # device-chain (a pipelined plan-ahead's base row takes
+            # the in-flight window's true bonus); rows >= 1 are
+            # always host-fed drafts/siblings. The chain value
+            # carries the trunk LEAF's output (row n_app-1) — the
+            # bonus the next plan-ahead window chains from.
+            C = self.prefill_chunk
+            out = np.full((self.slots, C), NO_TOKEN, np.int32)
+            prev = self._dev_prev.copy()
+            for s in range(self.slots):
+                n = int(plan.n_new[s])
+                for j in range(n):
+                    if j == 0:
+                        tok_in = (int(plan.host_tok[s, 0])
+                                  if plan.use_host[s]
+                                  else int(prev[s]))
+                    else:
+                        tok_in = int(plan.host_tok[s, j])
+                    ro = (int(plan.roff[s, j])
+                          if plan.roff is not None else j)
+                    out[s, j] = synthetic_next_token(
+                        tok_in, int(plan.ctx[s]) + ro, self.seed,
+                        self.vocab)
+                if n > 0:
+                    na = (int(plan.n_app[s])
+                          if plan.n_app is not None else n)
+                    prev[s] = out[s, na - 1]
+            # Whole-attribute publish (copy-update-swap), never an
+            # in-place mutation of the shared array: reset() and the
+            # worker thread race only against an atomic swap.
+            self._dev_prev = prev
+            return out
+        out = np.zeros((self.slots,), np.int32)
+        for s in range(self.slots):
+            n = int(plan.n_new[s])
+            if n <= 0:
+                out[s] = self._dev_prev[s]
+                continue
+            if plan.use_host[s]:
+                last_in = int(plan.host_tok[s, n - 1])
+            else:
+                last_in = int(self._dev_prev[s])
+            last_pos = int(plan.ctx[s]) + n - 1
+            out[s] = synthetic_next_token(last_in, last_pos,
+                                          self.seed, self.vocab)
+        self._dev_prev = out
+        return out
+
+    def _backend_reset(self) -> None:
+        # _GuardedWorker.reset serializes behind queued steps and
+        # re-raises worker-side failures (the supervisor's discipline, shared
+        # with the row-plane SyntheticExecutor).
+        if not self.pipelined or not self._worker.started:
+            self._zero_dev_prev()
+            return
+        self._worker.reset()
+
+    def _dispatch(self, plan: _StepPlan):
+        if not self.pipelined:
+            return self._device_step(plan)
+        return self._worker.submit(plan)
+
+    def _materialize(self, raw) -> np.ndarray:
+        if not self.pipelined:
+            return raw
+        raw.event.wait()
+        if raw.error is not None:
+            raise raw.error
+        return raw.tokens
+
+    # -- cross-replica hand-off (the jax-free double) --------------------------
+
+    def _spec_fields(self) -> dict:
+        return dict(model="synthetic-kv", block_size=self.block_size,
+                    heads=1, d_head=1, vocab=self.vocab,
+                    max_blocks_per_req=self.max_blocks_per_req,
+                    pool_dtype="fp32", planes=1, seed=self.seed)
+
+    def _page_content(self, prompt, settled, n_tokens: int
+                      ) -> np.ndarray:
+        """The synthetic plane's KV truth for positions
+        [0, n_tokens): position p's "KV" is the token the step that
+        wrote it CONSUMED — prompt[p] through prefill, then the
+        settled stream shifted by one (position plen+j holds
+        settled[j], the previous emit fed back as input). Computable
+        host-side from the request alone on BOTH ends, which turns
+        the synthetic import into a true end-to-end transport
+        integrity check: the importer recomputes and compares."""
+        plen = len(prompt)
+        vals = [float(prompt[p]) if p < plen
+                else float(settled[p - plen])
+                for p in range(int(n_tokens))]
+        n_blocks = -(-int(n_tokens) // self.block_size)
+        arr = np.zeros((n_blocks, self.block_size, 1, 1), np.float32)
+        if vals:
+            arr.reshape(-1)[:len(vals)] = vals
+        return arr
+
+    def _export_pages(self, blocks, req, n_tokens: int) -> list:
+        content = self._page_content(req.prompt_tokens, req.tokens,
+                                     n_tokens)
+        return [(content, np.ones((content.shape[0],), np.float32))]
+
+    def _import_pages(self, blocks, planes: list, meta: dict) -> None:
+        """Verify, don't store: the synthetic recurrence is position-
+        only, so the pool content is the TRANSPORT'S correctness
+        proof, not decode state. Exact even through the int8 wire:
+        token values are small ints (< vocab <= 127/scale margin), so
+        scale/2 rounding error < 0.5 and rint recovers them."""
+        (payload, _scales), = planes
+        expect = self._page_content(meta["prompt_tokens"],
+                                    meta["settled"], meta["tokens"])
+        got = np.rint(np.asarray(payload, np.float32))
+        if not np.array_equal(got, np.rint(expect)):
+            raise ValueError(
+                f"transferred page content diverges for request "
+                f"{meta.get('req')} (transport corruption)")
+
+    def _chunk_content(self, tokens) -> np.ndarray:
+        """One cached prefix block's synthetic "KV": prefill position
+        p consumed prompt[p], and a prefix-tree block covers prompt
+        positions only — so the block's content IS its chunk's token
+        ids (the _page_content rule restricted to one block)."""
+        arr = np.zeros((1, self.block_size, 1, 1), np.float32)
+        vals = [float(t) for t in tokens]
+        arr.reshape(-1)[:len(vals)] = vals
+        return arr
+
+    def _tier_export_block(self, block: int, tokens) -> list:
+        content = self._chunk_content(tokens)
+        return [(content, np.ones((1,), np.float32))]
+
+    def _tier_import_block(self, block: int, planes: list,
+                           tokens) -> None:
+        """Verify, don't store (the _import_pages idiom): restored
+        content must equal the chunk the chain says this block holds —
+        a corrupted host payload surfaces HERE, and the caller
+        degrades to re-prefill."""
+        (payload, _scales), = planes
+        expect = self._chunk_content(tokens)
+        got = np.rint(np.asarray(payload, np.float32))
+        if not np.array_equal(got, np.rint(expect)):
+            raise ValueError(
+                "restored page content diverges (tier corruption)")
+
+    def close(self) -> None:
+        self._worker.close()

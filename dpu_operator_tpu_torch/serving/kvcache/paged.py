@@ -16,6 +16,21 @@ the host allocator. One step, per ``[slots, chunk]`` token window:
   * output projection, a residual ReLU MLP, untied-head logits and the
     argmax of the last written row: the ``[slots]`` int32 token ids.
 
+``per_pos=True`` (speculative verify) takes the argmax of EVERY chunk
+row instead, ``[slots, chunk]`` int32: ``out[s, j]`` is the target's
+next token after consuming input ``j``. The fused call is the same; a
+chain verify window is exactly the per-row causal attention the kernel
+computes over the ``n_new`` appended rows. ``take_prev`` picks the row
+the next pipelined window chains on.
+
+``tree=True`` (needs ``per_pos``) adds ``tree_step`` for token-tree
+verify windows: sibling rows share a position and must not see each
+other's branch, a mask that is not monotone in the row, which the fused
+kernel (one per-row softmax over the pool) cannot express. So
+``tree_step`` is the reference's composition written in PyTorch, under
+every kernel setting, and a tree-armed executor routes every step
+through it; it launches no paged-attention kernel.
+
 Unlike the reference, whose jitted step returns new (donated) arrays,
 this step updates the pools and scales IN PLACE and returns the same
 tensors. Callers order other pool reads and writes on the step's stream
@@ -30,6 +45,7 @@ more than the kernel's reassociation does.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -37,9 +53,11 @@ import torch
 from torch import nn
 
 from ...device import resolve_device
-from ...parallel.paged_attn import (paged_attn_step_cuda,
+from ...parallel.paged_attn import (NEG, _quantize_rows,
+                                    _scatter_rows_drop,
+                                    paged_attn_step_cuda,
                                     paged_attn_step_plain)
-from ...parallel.quantize import int8_block_decode_np
+from ...parallel.quantize import int8_block_decode, int8_block_decode_np
 
 #: One weight set per (seed, vocab, d, max_context, hidden) identity, as
 #: numpy arrays, shared by every step built from it.
@@ -112,7 +130,8 @@ class PagedDecodeStep(nn.Module):
     ``device=None`` means the CUDA card (see ``resolve_device``).
     ``kernel=None`` means the hand-written kernel (``"cuda"``) on a CUDA
     device and its plain version (``"torch"``) on the CPU;
-    ``kernel="cuda"`` on the CPU raises."""
+    ``kernel="cuda"`` on the CPU raises. ``per_pos`` and ``tree`` are
+    fixed at construction (see the module docstring)."""
 
     def __init__(self, slots: int, vocab: int, d: int, heads: int,
                  block_size: int, num_blocks: int,
@@ -121,10 +140,15 @@ class PagedDecodeStep(nn.Module):
                  params: Optional[dict] = None,
                  kernel: Optional[str] = None,
                  pool_dtype: str = "int8",
-                 scale_margin: float = 1.5, device=None):
+                 scale_margin: float = 1.5, device=None,
+                 per_pos: bool = False, tree: bool = False):
         super().__init__()
         if d % heads:
             raise ValueError(f"d={d} must divide by heads={heads}")
+        if tree and not per_pos:
+            raise ValueError("tree verify windows need per_pos=True "
+                             "(per-position argmax is the verify "
+                             "contract)")
         device = resolve_device(device, "PagedDecodeStep")
         if kernel is None:
             kernel = "cuda" if device.type == "cuda" else "torch"
@@ -139,6 +163,8 @@ class PagedDecodeStep(nn.Module):
         self.kernel = kernel
         self.pool_dtype = pool_dtype
         self.device = device
+        self.per_pos = bool(per_pos)
+        self.tree = bool(tree)
         self.scale_margin = float(scale_margin)
         self.slots = int(slots)
         self.vocab = int(vocab)
@@ -168,6 +194,13 @@ class PagedDecodeStep(nn.Module):
         self.register_buffer("_ones_rows",
                              torch.ones((S, C), device=device))
         self.register_buffer("_ones_tbl", torch.ones((S, B), device=device))
+
+    @property
+    def draft_params(self):
+        """(embed, wpos, wout): the weights the truncated-stage draft
+        (spec.TruncatedDraft) reuses, so draft and target share one
+        token space by construction."""
+        return self.embed, self.wpos, self.wout
 
     def init_pools(self):
         """Fresh zeroed (kpool, kscale, vpool, vscale): int8 codes +
@@ -214,20 +247,15 @@ class PagedDecodeStep(nn.Module):
                 use_host, ctx, n_new, tables):
         """(kpool, kscale, vpool, vscale, out_tokens): the pools and
         scales are the arguments, updated in place; ``out_tokens`` is
-        [slots] int32, still in flight on the device."""
+        [slots] int32 ([slots, chunk] with ``per_pos``), still in flight
+        on the device."""
         S, C = self.slots, self.chunk
         B, bs = self.max_blocks_per_req, self.block_size
         H, dh = self.heads, self.d_head
-        T = B * bs
         int8 = self.pool_dtype == "int8"
-        tok0 = torch.where(use_host, host_tok[:, 0], prev_tok)
-        toks = torch.cat([tok0[:, None], host_tok[:, 1:]], dim=1).long()
         ctx_l = ctx.long()
         pos = ctx_l[:, None] + self._rows[None, :]             # [S, C]
-        x = self.embed[toks] + self.wpos[torch.clamp(pos, 0, T - 1)]
-        q = (x @ self.wq).reshape(S, C, H, dh)
-        k = (x @ self.wk).reshape(S, C, H, dh)
-        v = (x @ self.wv).reshape(S, C, H, dh)
+        x, q, k, v = self._project(prev_tok, host_tok, use_host, pos)
         valid = self._rows[None, :] < n_new.long()[:, None]
         blk_all = torch.gather(tables.long(), 1,
                                torch.clamp(pos // bs, 0, B - 1))
@@ -246,9 +274,108 @@ class PagedDecodeStep(nn.Module):
                   ksc_tbl, vsc_tbl, kpool, vpool).reshape(S, C, H * dh)
         y = x + o @ self.wo
         y = y + torch.relu(y @ self.w1) @ self.w2
+        if self.per_pos:
+            # Speculative verify: logits for EVERY chunk row. Rows past
+            # n_new are garbage the collect path never reads.
+            return kpool, kscale, vpool, vscale, self._argmax_rows(y)
         last = torch.clamp(n_new.long() - 1, 0, C - 1)
         yl = torch.gather(y, 1, last[:, None, None].expand(S, 1, self.d)
                           )[:, 0]                              # [S, d]
         out = torch.argmax(yl @ self.wout, dim=1).to(torch.int32)
         return kpool, kscale, vpool, vscale, out
+
+    def _project(self, prev_tok, host_tok, use_host, pos):
+        """Token + absolute-position embedding of the window and its
+        q/k/v projections. Row 0 of the window is the only row the
+        device recurrence can feed; the others come from the host."""
+        S, C, H, dh = self.slots, self.chunk, self.heads, self.d_head
+        T = self.max_blocks_per_req * self.block_size
+        tok0 = torch.where(use_host, host_tok[:, 0], prev_tok)
+        toks = torch.cat([tok0[:, None], host_tok[:, 1:]], dim=1).long()
+        x = self.embed[toks] + self.wpos[torch.clamp(pos, 0, T - 1)]
+        q = (x @ self.wq).reshape(S, C, H, dh)
+        k = (x @ self.wk).reshape(S, C, H, dh)
+        v = (x @ self.wv).reshape(S, C, H, dh)
+        return x, q, k, v
+
+    def _argmax_rows(self, y) -> torch.Tensor:
+        """[S, C] int32: the argmax of ``y @ wout`` for every row."""
+        return torch.argmax(y @ self.wout, dim=2).to(torch.int32)
+
+    def tree_step(self, kpool, kscale, vpool, vscale, prev_tok, host_tok,
+                  use_host, ctx, n_new, tables, roff, n_app, plim, win):
+        """Token-tree verify step (``tree=True``): rows carry an explicit
+        position offset (siblings share the first trunk position), only
+        the first ``n_app`` rows APPEND (score-only sibling rows write
+        nothing), pool attention is bounded per row by ``plim`` and the
+        in-window mask ``win`` wires row-to-row attention over the
+        step's FRESH K/V, the only path a score-only row has to its own
+        key and value. One softmax runs over the pool and in-window
+        columns together. Pools and scales are updated in place; the
+        output is the [S, C] int32 per-row argmax."""
+        if not self.tree:
+            raise RuntimeError("tree_step needs a step built with "
+                               "tree=True")
+        S, C = self.slots, self.chunk
+        B, bs = self.max_blocks_per_req, self.block_size
+        H, dh = self.heads, self.d_head
+        T = B * bs
+        int8 = self.pool_dtype == "int8"
+        ctx_l = ctx.long()
+        pos = ctx_l[:, None] + roff.long()                     # [S, C]
+        x, q, k, v = self._project(prev_tok, host_tok, use_host, pos)
+        app = self._rows[None, :] < n_app.long()[:, None]
+        tl = tables.long()
+        blk_all = torch.gather(tl, 1, torch.clamp(pos // bs, 0, B - 1))
+        off = pos % bs
+        if int8:
+            self._update_scales(kscale, k, blk_all, pos, app, ctx_l)
+            self._update_scales(vscale, v, blk_all, pos, app, ctx_l)
+            ksc_rows, vsc_rows = kscale[blk_all], vscale[blk_all]
+            _scatter_rows_drop(kpool, blk_all, off, app,
+                               _quantize_rows(k, ksc_rows))
+            _scatter_rows_drop(vpool, blk_all, off, app,
+                               _quantize_rows(v, vsc_rows))
+            keys = int8_block_decode(kpool[tl], kscale[tl])
+            vals = int8_block_decode(vpool[tl], vscale[tl])
+        else:
+            _scatter_rows_drop(kpool, blk_all, off, app, k)
+            _scatter_rows_drop(vpool, blk_all, off, app, v)
+            keys, vals = kpool[tl], vpool[tl]
+        keys = keys.reshape(S, T, H, dh)
+        vals = vals.reshape(S, T, H, dh)
+        limit = ctx_l + n_app.long()
+        tpos = torch.arange(T, device=pos.device)
+        t_ok = (tpos[None, :] < limit[:, None])[:, :, None, None]
+        zero = torch.zeros((), dtype=keys.dtype, device=pos.device)
+        keys = torch.where(t_ok, keys, zero)
+        vals = torch.where(t_ok, vals, zero)
+        neg = torch.full((), NEG, dtype=keys.dtype, device=pos.device)
+        scores = torch.einsum("schd,sthd->shct", q, keys) / math.sqrt(dh)
+        causal = tpos[None, None, :] < plim.long()[:, :, None]
+        scores = torch.where(causal[:, None, :, :], scores, neg)
+        swin = torch.einsum("schd,swhd->shcw", q, k) / math.sqrt(dh)
+        swin = torch.where(win[:, None, :, :], swin, neg)
+        # One softmax over pool + in-window columns: masked columns
+        # underflow to exact 0.0 weight, and a fully masked (invalid)
+        # row degrades to a uniform distribution over garbage the
+        # collect path never reads.
+        attn = torch.softmax(torch.cat([scores, swin], dim=-1), dim=-1)
+        vfull = torch.cat([vals, v], dim=1)
+        o = torch.einsum("shct,sthd->schd", attn, vfull).reshape(
+            S, C, H * dh)
+        y = x + o @ self.wo
+        y = y + torch.relu(y @ self.w1) @ self.w2
+        return kpool, kscale, vpool, vscale, self._argmax_rows(y)
+
+    def take_prev(self, out, n_app, prev) -> torch.Tensor:
+        """The pipelined-speculation chain gather: the NEXT verify
+        window's base row chains on the trunk LEAF's output (the
+        window's bonus under full acceptance), row ``n_app - 1`` of the
+        per-position argmax. Rows that planned nothing keep their
+        previous chain value."""
+        n = n_app.long()
+        idx = torch.clamp(n - 1, 0, self.chunk - 1)
+        leaf = torch.gather(out, 1, idx[:, None])[:, 0]
+        return torch.where(n > 0, leaf, prev).to(torch.int32)
 

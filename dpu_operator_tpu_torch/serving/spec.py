@@ -33,8 +33,8 @@ unspeculated run would have.
 This module is the jax-free plane of the contract (numpy only — the
 scheduler imports it): the sentinel + emit-masking idiom shared by
 both collect paths, the acceptance math, the bookkeeping, and the two
-shipped drafts. ``TruncatedDraft`` lazy-imports jax in its
-constructor only.
+shipped drafts. ``TruncatedDraft`` imports torch in its methods
+only.
 
 Draft contract
 --------------
@@ -233,6 +233,201 @@ class SpecConfig:
         return self.tree_width
 
 
+class OracleDraft:
+    """Controlled-acceptance draft for the synthetic token plane: it
+    KNOWS the target recurrence (synthetic_next_token) and corrupts
+    each proposal with a deterministic hash of (token, position) so
+    the per-position hit rate is ``accept_rate`` — the dial the bench
+    and the equivalence tests turn. Pure function of (last, ctx):
+    byte-identical streams across runs, loop shapes, and resumes."""
+
+    def __init__(self, k: int, accept_rate: float = 0.7,
+                 vocab: int = 64, target_seed: int = 0,
+                 seed: int = 0, tree_width: int = 1,
+                 sib_rate: float = 0.5):
+        if not 0.0 <= accept_rate <= 1.0:
+            raise ValueError(f"accept_rate must be in [0, 1], got "
+                             f"{accept_rate}")
+        if tree_width < 1:
+            raise ValueError(f"tree_width must be >= 1, got "
+                             f"{tree_width}")
+        if not 0.0 <= sib_rate <= 1.0:
+            raise ValueError(f"sib_rate must be in [0, 1], got "
+                             f"{sib_rate}")
+        self.k = int(k)
+        self.accept_rate = float(accept_rate)
+        self.vocab = int(vocab)
+        self.target_seed = int(target_seed)
+        self.seed = int(seed)
+        self.tree_width = int(tree_width)
+        self.sib_rate = float(sib_rate)  # P(some sibling recovers a
+        #                                  trunk first-position miss)
+
+    def _hit(self, tok: int, pos: int) -> bool:
+        # LCG-style mix: deterministic, position- and token-sensitive,
+        # cheap. The 23-bit hash compares against a threshold in the
+        # SAME domain (no modulo fold — a `% 1e6` over 2^23 residues
+        # would bias mid rates by ~1.4 points), so the per-position
+        # rate is accept_rate to within 2^-23 and 0.0/1.0 are exact.
+        h = (1103515245 * (tok * 131 + pos * 7919 + self.seed)
+             + 12345) & 0x7FFFFFFF
+        return (h >> 8) < int(round(self.accept_rate * (1 << 23)))
+
+    def propose(self, last, ctx) -> np.ndarray:
+        last = np.asarray(last, np.int64)
+        ctx = np.asarray(ctx, np.int64)
+        out = np.zeros((len(last), self.k), np.int32)
+        for s in range(len(last)):
+            t = int(last[s])
+            for j in range(self.k):
+                pos = int(ctx[s]) + j
+                nxt = synthetic_next_token(t, pos, self.target_seed,
+                                           self.vocab)
+                if not self._hit(t, pos):
+                    nxt = (nxt + 1) % self.vocab  # deliberate miss
+                out[s, j] = nxt
+                t = nxt  # chain on own proposal (dead past a miss)
+        return out
+
+    def _sib_hit(self, tok: int, pos: int) -> bool:
+        # Second, independent mix (different multiplier/increment)
+        # dialing the SIBLING recovery rate: given the trunk missed
+        # at the first position, does some sibling carry the true
+        # token? Independence from _hit keeps the two dials
+        # orthogonal in the equivalence matrix.
+        h = (1664525 * (tok * 131 + pos * 7919 + self.seed + 17)
+             + 1013904223) & 0x7FFFFFFF
+        return (h >> 8) < int(round(self.sib_rate * (1 << 23)))
+
+    def propose_sibs(self, last, ctx) -> np.ndarray:
+        """Alternative candidates for the FIRST draft position (the
+        tree's branch point). Pure function of (last, ctx) like
+        propose, so the plan-ahead / resume determinism arguments
+        carry over. When the trunk's first proposal missed and the
+        sib hash fires, sibling 0 carries the TRUE next token —
+        the dial the tree-path tests and bench turn; the remaining
+        siblings are deliberate distinct misses."""
+        last = np.asarray(last, np.int64)
+        ctx = np.asarray(ctx, np.int64)
+        w = self.tree_width - 1
+        out = np.zeros((len(last), max(w, 0)), np.int32)
+        for s in range(len(last)):
+            t = int(last[s])
+            pos = int(ctx[s])
+            true = synthetic_next_token(t, pos, self.target_seed,
+                                        self.vocab)
+            trunk_hit = self._hit(t, pos)
+            recover = (not trunk_hit) and self._sib_hit(t, pos)
+            for i in range(w):
+                if i == 0 and recover:
+                    out[s, i] = true
+                else:
+                    # distinct from the trunk's proposal AND the true
+                    # token, so a non-recovering sibling never
+                    # matches by accident
+                    out[s, i] = (true + 2 + i) % self.vocab
+        return out
+
+
+class TruncatedDraft:
+    """The serving step's cheap draft: a TRUNCATED-STAGE variant of the
+    target PagedDecodeStep — the SAME embed/positional/output weights
+    with the attention and MLP stages cut, so the draft is
+    attention-free (no KV, no block tables, no gather) and one call
+    proposes all k tokens for every slot:
+
+        x_j = embed[t_j] + wpos[pos_j];  t_{j+1} = argmax(x_j @ wout)
+
+    Acceptance against the full target is whatever the truncation
+    earns — correctness never depends on it (a 0%-accept draft still
+    yields byte-identical streams at one bonus token per step); the
+    CONTROLLED-rate measurements use OracleDraft on the synthetic plane
+    instead.
+
+    The weights are tensors on the step's device, read only. On a CUDA
+    device the draft runs on a stream of its own: its proposals end in
+    a copy to the host, which on the executor's stream would wait for
+    the verify window in flight and serialize pipelined speculation.
+    ``argmax`` takes the first maximum and the sibling ranks come from
+    a stable descending sort, so ties break toward the lower index on
+    both."""
+
+    def __init__(self, embed, wpos, wout, k: int, slots: int,
+                 tree_width: int = 1):
+        import torch
+
+        self.k = int(k)
+        self.tree_width = int(tree_width)
+        self.embed, self.wpos, self.wout = embed, wpos, wout
+        self.device = embed.device
+        self._T = int(wpos.shape[0])
+        self._stream = None
+        if self.device.type == "cuda":
+            # The weights may still be in flight on the stream that
+            # made them: the draft's stream starts after it.
+            self._stream = torch.cuda.Stream(device=self.device)
+            self._stream.wait_stream(
+                torch.cuda.current_stream(self.device))
+
+    @classmethod
+    def from_paged(cls, paged_step, k: int,
+                   tree_width: int = 1) -> "TruncatedDraft":
+        """Build from a kvcache/paged.PagedDecodeStep — the weights are
+        the step's own buffers, so draft and target can never disagree
+        on the token space."""
+        embed, wpos, wout = paged_step.draft_params
+        return cls(embed, wpos, wout, k, paged_step.slots,
+                   tree_width=tree_width)
+
+    def _run(self, fn, last, ctx) -> np.ndarray:
+        import contextlib
+
+        import torch
+
+        ctxm = (torch.cuda.stream(self._stream) if self._stream
+                is not None else contextlib.nullcontext())
+        with ctxm:
+            t = torch.from_numpy(np.asarray(last, np.int64)).to(
+                self.device)
+            c = torch.from_numpy(np.asarray(ctx, np.int64)).to(
+                self.device)
+            out = fn(t, c)
+            return out.to(torch.int32).cpu().numpy()
+
+    def propose(self, last, ctx) -> np.ndarray:
+        import torch
+
+        def chain(t, c):
+            cols = []
+            for j in range(self.k):
+                pos = torch.clamp(c + j, 0, self._T - 1)
+                x = self.embed[t] + self.wpos[pos]
+                t = torch.argmax(x @ self.wout, dim=-1)
+                cols.append(t)
+            return torch.stack(cols, dim=1)
+
+        return self._run(chain, last, ctx)
+
+    def propose_sibs(self, last, ctx) -> np.ndarray:
+        import torch
+
+        W = self.tree_width
+        if W <= 1:
+            return np.zeros((len(np.asarray(last)), 0), np.int32)
+
+        def sibs(t, c):
+            # ranks 2..W of the first-position logits: the trunk
+            # already carries rank 1, so siblings are the next most
+            # probable alternatives at the branch point
+            pos = torch.clamp(c, 0, self._T - 1)
+            x = self.embed[t] + self.wpos[pos]
+            _, idx = torch.sort(x @ self.wout, dim=-1, descending=True,
+                                stable=True)
+            return idx[:, 1:W]
+
+        return self._run(sibs, last, ctx)
+
+
 def propose_full(draft, last, ctx) -> np.ndarray:
     """``[S, k+1]`` proposals: the draft's k-chain PLUS one more
     chained step — the draft's own prediction of the verify window's
@@ -308,8 +503,10 @@ def clamp_spec_k(k: int, ctx: int, max_total: int, chunk: int) -> int:
 
 __all__ = [
     "NO_TOKEN",
+    "OracleDraft",
     "SpecConfig",
     "SpecStats",
+    "TruncatedDraft",
     "accept_length",
     "accept_tree",
     "clamp_spec_k",

@@ -88,7 +88,7 @@ COPIES = {
     "serving/queue.py": (),
     "serving/scheduler.py": (),
     "serving/server.py": (),
-    "serving/spec.py": ("__all__",),
+    "serving/spec.py": ("TruncatedDraft",),
     "utils/metrics.py": (),
 }
 

@@ -157,10 +157,30 @@ def test_sync_and_pipelined_streams_equal(pool_dtype):
     assert sync == pipe
 
 
-def test_speculative_modes_not_ported_yet():
+def test_speculative_modes_construct_and_unknown_mode_raises():
+    """Both speculative modes build on the CPU with the reference's
+    defaults (a truncated draft over the step's weights, chain windows);
+    tests/test_torch_spec.py holds what they decode."""
+    from dpu_operator_tpu_torch.serving import TruncatedDraft
+
     for mode in ("speculative", "speculative-pipelined"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            PagedKVExecutor(**DIMS, mode=mode, device="cpu")
+        ex = PagedKVExecutor(**DIMS, mode=mode, spec_k=3, device="cpu")
+        assert ex.speculative and isinstance(ex.spec.draft, TruncatedDraft)
+        assert ex.pipelined == (mode == "speculative-pipelined")
+        assert ex.spec.tree_width == 1 and not ex.spec.adaptive
+        assert ex._paged.per_pos and not ex._paged.tree
+    ex = PagedKVExecutor(**DIMS, mode="speculative", spec_k=2,
+                         spec_tree_width=2, spec_adaptive=True,
+                         device="cpu")
+    assert ex._paged.tree and ex.spec.adaptive
+    # the default spec_k=4 needs a window of 5 rows, over the chunk of 4
+    with pytest.raises(ValueError, match="prefill_chunk"):
+        PagedKVExecutor(**DIMS, mode="speculative", device="cpu")
+    with pytest.raises(ValueError, match="mode must be"):
+        PagedKVExecutor(**DIMS, mode="lookahead", device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        PagedKVExecutor(**DIMS, mode="speculative", spec_k=3,
+                        kernel="cuda", device="cpu")
 
 
 def test_page_export_import_round_trip_is_byte_exact():
