@@ -145,12 +145,33 @@ Phases, each of which raises on failure:
                tokens/s, ms a step. Then the draft's host time idle and
                behind queued verify steps, from its own stream and from
                the executor's, and one profiled speculative-pipelined run.
+ 13. shard   — context-parallel paged KV at full width. A direct step:
+               one window through ``PagedDecodeStep`` and the rank steps
+               (head world 1, 2 and 4, page world 2 and 3) on copies of
+               one pre-filled pool, int8 and fp32: every rank's pools
+               bitwise the single pool's slice, a head rank's ``o_r``
+               bitwise those heads of the kernel's output at H = 32 and
+               within phase 3's bar of its ``kernel="torch"`` output, the
+               page ranks' merged ``o`` within the stated bar of the
+               kernel's. Then 8 HTTP requests through
+               ``ShardedPagedKVExecutor`` (rank threads sharing the card,
+               each on its own stream): head world 2 int8 sync and
+               pipelined, fp32 sync, world 4 int8 sync and world 2 fp32
+               ``speculative`` must decode the single worker's streams
+               (phase 4's int8, phase 12's fp32 sync) token for token
+               with ``world`` kernel launches a step; page world 2 int8
+               and world 3 fp32 on the first 3 requests launch no kernel,
+               and their first difference from the single worker's
+               streams is logged, not checked. A line a lane: steps,
+               wall, ms a step, each rank's resident pool bytes against
+               the single worker's.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
 its path, max error, times, bound; the collective matmuls' records give
 f32 under the contract's keys and bf16 under the same keys prefixed
-``bf16_``); the last line is
+``bf16_``; the paged-attention record adds ``sharded_launches``, phase
+13's head lanes' launches); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -820,7 +841,7 @@ def phase_serve(torch, card):
     check(len({tuple(s) for s in base}) == len(base), "identical streams")
     log(f"serve: streams identical across pipelined/sync and cuda/torch; "
         f"distinct tokens per stream {distinct}")
-    return launches
+    return launches, base
 
 
 def phase_profile(torch, card, label="pipelined", **kw):
@@ -2500,6 +2521,268 @@ def phase_spec(torch, card):
     draft_overlap(torch, card)
     phase_profile(torch, card, "speculative-pipelined",
                   mode="speculative-pipelined", spec_k=SPEC_K)
+    return gold
+
+
+# -- phase 13: context-parallel paged KV --------------------------------------
+
+
+# Head-axis lanes, all 8 requests: (world, pool dtype, mode). World 4 has
+# 8 heads a rank.
+SHARD_HEAD_LANES = ((2, "int8", "sync"), (2, "int8", "pipelined"),
+                    (2, "fp32", "sync"), (4, "int8", "sync"))
+# Page-axis lanes: (world, pool dtype), sync, on the first
+# SHARD_PAGE_REQUESTS requests (a page rank gathers and decodes its
+# [slots, 4096, 32, 128] f32 keys and values over the whole table a
+# step). 8192 blocks split unevenly over 3, and 32 heads do not divide by
+# 3.
+SHARD_PAGE_LANES = ((2, "int8"), (3, "fp32"))
+SHARD_PAGE_REQUESTS = 3
+# The direct step's page-axis merged o against the kernel at H = 32: both
+# fold f32 softmax sums over up to 4096 positions, in other orders (a
+# rank's one softmax and the rank-ordered fold vs the kernel's chunks of
+# 32 table entries): phase 3's bar for kernel against plain.
+PAGE_O_RTOL, PAGE_O_ATOL = O_RTOL, O_ATOL
+
+
+def shard_close(ex):
+    """Close a sharded executor and wait for its threads, so that its
+    pools and partials are freed before the next lane."""
+    ex.close()
+    for t in list(ex.shards._threads) + [ex.shards._coord]:
+        t.join(timeout=10)
+
+
+def pool_bytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def shard_run(torch, card, label, prompts, pool_dtype, world, axis, gold,
+              check_gold, **kw):
+    """Serve ``prompts`` over HTTP through ``ServingServer`` on a fresh
+    ``ShardedPagedKVExecutor`` at full width; count the paged-attention
+    kernel's launches over the run; log a line (steps, wall, ms a step,
+    each rank's resident pool bytes against the single worker's). Head
+    lanes must launch the kernel ``world`` times a step and, with
+    ``check_gold``, decode ``gold`` token for token; page lanes must
+    launch it never, and their first difference from ``gold`` is logged.
+    Returns (streams, launches)."""
+    from dpu_operator_tpu_torch.parallel import paged_attn as pa
+    from dpu_operator_tpu_torch.serving import ShardedPagedKVExecutor
+
+    t0 = time.monotonic()
+    ex = ShardedPagedKVExecutor(**dict(SERVE, pool_dtype=pool_dtype),
+                                world=world, shard_axis=axis,
+                                kernel="cuda" if axis == "head" else None,
+                                device="cuda", **kw)
+    setup = time.monotonic() - t0
+    ranks = [pool_bytes((st.kpool, st.kscale, st.vpool, st.vscale))
+             for st in ex.shards._states]
+    item = 1 if pool_dtype == "int8" else 4
+    N = SERVE["num_blocks"]
+    single = 2 * (N * SERVE["block_size"] * SERVE["d"] * item + 4 * N)
+    pa.paged_attn_step_cuda.launches = 0
+    streams, st = serve_once(torch, ex, prompts, card)
+    launches = pa.paged_attn_step_cuda.launches
+    check(ex.shards.outstanding() == 0, f"shard {label}: leaked steps")
+    spec = ""
+    if ex.spec is not None:
+        kv = ex.kv_stats()
+        check(kv["spec_verify_steps"] > 0, f"shard {label}: no verify step")
+        spec = (f"{kv['spec_verify_steps']} verify steps, accept rate "
+                f"{kv['spec_accept_rate']}, ")
+    shard_close(ex)
+    if axis == "head":
+        check(launches == world * st["steps"] > 0,
+              f"shard {label}: {launches} kernel launches for "
+              f"{st['steps']} steps of {world} ranks")
+    else:
+        check(launches == 0, f"shard {label}: a page lane launched the "
+              f"kernel {launches} times")
+    at = first_diff(streams, gold[:len(streams)])
+    if check_gold:
+        check(at is None, f"shard {label}: streams differ from the single "
+              f"worker's first at request {at and at[0]}, token "
+              f"{at and at[1]}")
+        agree = "== the single worker's token for token"
+    elif at is None:
+        agree = "== the single worker's (logged, not checked)"
+    else:
+        agree = (f"first differ from the single worker's at request "
+                 f"{at[0]}, token {at[1]} (logged, not checked: the "
+                 f"rank-ordered fold reassociates the softmax otherwise "
+                 f"than the kernel's chunk combine)")
+    log(f"shard {label}: {len(prompts)} requests x {MAX_TOKENS} tokens, "
+        f"{st['steps']} steps, {spec}kernel launches {launches}, wall "
+        f"{st['wall_s']:.3f} s -> {st['gen_tok_per_s']:.1f} generated "
+        f"tok/s, {st['step_ms']:.3f} ms/step (setup {setup:.1f} s); "
+        f"resident pool bytes a rank {ranks} vs the single worker's "
+        f"{single} ({', '.join(f'{b / single:.4f}' for b in ranks)} of "
+        f"it); streams {agree} [{card}]")
+    del ex
+    torch.cuda.empty_cache()
+    return streams, launches
+
+
+def shard_direct(torch, card, pool_dtype):
+    """One window through ``PagedDecodeStep`` and through the rank steps of
+    every lane's partition, each on its own copy of one pre-filled pool
+    (random codes or rows and per-block scales over all 8192 blocks;
+    phase 3's tables, contexts and prefill/decode mix; host-fed tokens).
+    Each rank's pools must be bitwise the single pool's slice; the
+    world-1 head rank's ``o`` is ``paged_attn_step_cuda`` at H = 32 on
+    the single worker's inputs, and its pools must be the single
+    worker's; a head rank's ``o_r`` must be bitwise those heads of it and
+    hold against the rank's ``kernel="torch"`` output within phase 3's
+    bar; the page axis's merged ``o`` must hold against it on the
+    appended rows within PAGE_O_RTOL / PAGE_O_ATOL."""
+    from dpu_operator_tpu_torch.parallel.ring_attention import (
+        merge_partial_softmax)
+    from dpu_operator_tpu_torch.serving.disagg.spec import KVSpec
+    from dpu_operator_tpu_torch.serving.kvcache.paged import (
+        PagedDecodeStep, PagedRankStep, build_paged_params,
+        params_from_numpy)
+
+    S, C, H, dh, N = KS, KC, KH, KDH, KN
+    dims = dict(slots=S, vocab=SERVE["vocab"], d=SERVE["d"], heads=H,
+                block_size=KBS, num_blocks=N, max_blocks_per_req=KB,
+                chunk=C, seed=SERVE["seed"], pool_dtype=pool_dtype,
+                device="cuda")
+    params = params_from_numpy(build_paged_params(
+        SERVE["seed"], SERVE["vocab"], SERVE["d"], KB * KBS), "cuda")
+    args, ctx, n_new = kernel_inputs(torch, pool_dtype, False)
+    tables, ctx_t, n_new_t = args[0], args[1], args[2]
+    kpool, vpool = args[10], args[11]
+    del args
+    rng = np.random.RandomState(7)
+    if pool_dtype == "int8":
+        kscale, vscale = (torch.from_numpy(rng.uniform(
+            0.01, 0.03, N).astype(np.float32)).cuda() for _ in range(2))
+    else:
+        kscale, vscale = (torch.ones(N, device="cuda") for _ in range(2))
+    base = (kpool, kscale, vpool, vscale)
+    step_in = (torch.from_numpy(rng.randint(0, SERVE["vocab"], S).astype(
+                   np.int32)).cuda(),
+               torch.from_numpy(rng.randint(0, SERVE["vocab"], (S, C))
+                                .astype(np.int32)).cuda(),
+               torch.ones(S, dtype=torch.bool, device="cuda"),
+               ctx_t, n_new_t, tables)
+    single = [t.clone() for t in base]
+    PagedDecodeStep(**dims, params=params, kernel="cuda")(*single,
+                                                          *step_in)
+
+    def rank(axis, world, r, kernel=None):
+        spec = KVSpec(model="paged", block_size=KBS, heads=H, d_head=dh,
+                      vocab=SERVE["vocab"], max_blocks_per_req=KB,
+                      pool_dtype=pool_dtype, seed=SERVE["seed"],
+                      shard_axis=axis if world > 1 else "none",
+                      world=world)
+        (h_lo, h_hi), (b_lo, b_hi) = spec.rank_heads(r), spec.rank_blocks(
+            r, N)
+        kp, ks, vp, vs = base
+        if axis == "head":
+            pools = [kp[:, :, h_lo:h_hi].contiguous(), ks.clone(),
+                     vp[:, :, h_lo:h_hi].contiguous(), vs.clone()]
+        else:
+            pools = [t[b_lo:b_hi].clone() for t in base]
+        # kernel=None: the kernel for a head rank, plain for a page rank.
+        step = PagedRankStep(**dict(dims, kernel=kernel), shard_axis=axis,
+                             head_bounds=(h_lo, h_hi),
+                             block_bounds=(b_lo, b_hi), params=params)
+        out = step(*pools, *step_in)
+        return out[:4], out[4:], (h_lo, h_hi), (b_lo, b_hi)
+
+    def same(a, b):
+        return torch.equal(bits(torch, a), bits(torch, b))
+
+    pools1, (o_full,), _, _ = rank("head", 1, 0)
+    for name, a, b in zip(("kpool", "kscale", "vpool", "vscale"), pools1,
+                          single):
+        check(same(a, b), f"shard direct {pool_dtype}: the world-1 head "
+              f"rank's {name} differs from PagedDecodeStep's")
+    del pools1
+    rows = [(s, int(n_new[s])) for s in range(S) if n_new[s]]
+    for axis, world in (("head", 2), ("head", 4), ("page", 2),
+                        ("page", 3)):
+        parts = []
+        for r in range(world):
+            pools, out, (h_lo, h_hi), (b_lo, b_hi) = rank(axis, world, r)
+            for name, a, b in zip(("kpool", "kscale", "vpool", "vscale"),
+                                  pools, single):
+                want = (b[b_lo:b_hi] if axis == "page" else
+                        b[:, :, h_lo:h_hi] if name.endswith("pool") else b)
+                check(same(a, want), f"shard direct {pool_dtype} {axis} "
+                      f"world {world} rank {r}: {name} is not the single "
+                      f"pool's slice")
+            if axis == "head":
+                o_r = out[0]
+                check(same(o_r, o_full[:, :, h_lo:h_hi].contiguous()),
+                      f"shard direct {pool_dtype} head world {world} rank "
+                      f"{r}: o_r is not bitwise heads {h_lo}..{h_hi} of "
+                      f"the kernel's output at H = {H}")
+                if world == 2:
+                    _, (o_t,), _, _ = rank(axis, world, r, "torch")
+                    err = float((o_r - o_t).abs().max())
+                    check(torch.allclose(o_r, o_t, rtol=O_RTOL,
+                                         atol=O_ATOL),
+                          f"shard direct {pool_dtype} head rank {r}: cuda "
+                          f"vs torch o_r by {err}")
+                    log(f"shard direct {pool_dtype} head world 2 rank {r}:"
+                        f" kernel vs plain o_r max |err| {err:.3e} (rtol "
+                        f"{O_RTOL}, atol {O_ATOL})")
+                    del o_t
+            else:
+                parts.append(tuple(t.cpu().numpy() for t in out))
+            del pools, out
+            torch.cuda.empty_cache()
+        if axis == "page":
+            o = np.transpose(merge_partial_softmax(parts), (0, 2, 1, 3))
+            want = o_full.cpu().numpy()
+            err = max(float(np.abs(o[s, :n] - want[s, :n]).max())
+                      for s, n in rows)
+            ok = all(np.allclose(o[s, :n], want[s, :n], rtol=PAGE_O_RTOL,
+                                 atol=PAGE_O_ATOL) for s, n in rows)
+            check(ok, f"shard direct {pool_dtype} page world {world}: "
+                  f"merged o off the kernel's by {err}")
+            log(f"shard direct {pool_dtype} page world {world}: pools "
+                f"bitwise the single pool's slices, merged o vs the kernel "
+                f"at H = {H} on the appended rows max |err| {err:.3e} "
+                f"(bar rtol {PAGE_O_RTOL}, atol {PAGE_O_ATOL}) [{card}]")
+        else:
+            log(f"shard direct {pool_dtype} head world {world}: pools "
+                f"bitwise the single pool's slices, o_r bitwise the "
+                f"kernel's heads at H = {H} [{card}]")
+        del parts
+    del base, single, o_full, params
+    torch.cuda.empty_cache()
+
+
+def phase_shard(torch, card, gold):
+    """Context-parallel paged KV at the served model's full width, through
+    the entry point (HTTP -> batcher -> ShardedPagedKVExecutor, rank
+    threads sharing the card, each on its own stream). ``gold`` holds the
+    single worker's streams by pool dtype (phase 4's int8, phase 12's
+    fp32 sync). Returns the kernel launches of the head lanes."""
+    prompts = serve_prompts()
+    for pool_dtype in ("int8", "fp32"):
+        shard_direct(torch, card, pool_dtype)
+    launches = 0
+    for world, pool_dtype, mode in SHARD_HEAD_LANES:
+        _, n = shard_run(torch, card, f"head world {world} {pool_dtype} "
+                         f"{mode}", prompts, pool_dtype, world, "head",
+                         gold[pool_dtype], True, mode=mode)
+        launches += n
+    _, n = shard_run(torch, card, "head world 2 fp32 speculative", prompts,
+                     "fp32", 2, "head", gold["fp32"], True,
+                     mode="speculative", spec_k=SPEC_K)
+    launches += n
+    for world, pool_dtype in SHARD_PAGE_LANES:
+        shard_run(torch, card, f"page world {world} {pool_dtype} sync",
+                  prompts[:SHARD_PAGE_REQUESTS], pool_dtype, world, "page",
+                  gold[pool_dtype], False, mode="sync")
+    log(f"shard: head lanes == the single worker's streams, {launches} "
+        f"kernel launches == world x steps; page lanes launch none")
+    return launches
 
 
 def main() -> int:
@@ -2538,7 +2821,7 @@ def main() -> int:
 
     record = phase_kernel(torch, card)
     phase_small(torch)
-    record["launches"] = phase_serve(torch, card)
+    record["launches"], serve_streams = phase_serve(torch, card)
     phase_profile(torch, card)
     tiles = phase_tiles(torch, card)
     launches = phase_health(torch, card, name)
@@ -2548,7 +2831,9 @@ def main() -> int:
     collectives = phase_collectives(torch, card)
     a2a = phase_ulysses(torch, card)
     tp_mlp = phase_tp_mlp(torch, card)
-    phase_spec(torch, card)
+    spec_gold = phase_spec(torch, card)
+    record["sharded_launches"] = phase_shard(
+        torch, card, {"int8": serve_streams, "fp32": spec_gold})
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

@@ -24,10 +24,13 @@ library modules just log.
 
 from __future__ import annotations
 
+import json
 import logging
+import sys
 import threading
 from contextlib import contextmanager
-from typing import Iterator
+from datetime import datetime, timezone
+from typing import Iterator, Optional
 
 CONTEXT_FIELDS = ("request_id", "replica", "component", "rank")
 
@@ -63,3 +66,49 @@ class ContextFilter(logging.Filter):
                 if getattr(record, k, None) is None:
                     setattr(record, k, v)
         return True
+
+
+class JsonLinesFormatter(logging.Formatter):
+    """One JSON object per line; context fields included only when
+    present (absent != empty — a replica-lifecycle line has no
+    request_id and shouldn't pretend otherwise)."""
+
+    def __init__(self, component: Optional[str] = None):
+        super().__init__()
+        self.component = component
+
+    def format(self, record: logging.LogRecord) -> str:
+        out = {
+            "ts": datetime.fromtimestamp(
+                record.created, timezone.utc).isoformat(),
+            "level": record.levelname,
+            "logger": record.name,
+            "msg": record.getMessage(),
+        }
+        if self.component is not None:
+            out["component"] = self.component
+        for k in CONTEXT_FIELDS:
+            v = getattr(record, k, None)
+            if v is not None:
+                out[k] = v
+        if record.exc_info and record.exc_info[0] is not None:
+            out["exc"] = self.formatException(record.exc_info)
+        return json.dumps(out, default=str)
+
+
+def setup(component: str, level: int = logging.INFO,
+          stream=None) -> logging.Handler:
+    """Install JSON-lines logging on the root logger (replacing any
+    handler a previous setup() installed — idempotent for the daemon's
+    restart-in-process tests). Returns the installed handler."""
+    root = logging.getLogger()
+    for h in list(root.handlers):
+        if getattr(h, "_dpu_obs_handler", False):
+            root.removeHandler(h)
+    handler = logging.StreamHandler(stream or sys.stderr)
+    handler.setFormatter(JsonLinesFormatter(component=component))
+    handler.addFilter(ContextFilter())
+    handler._dpu_obs_handler = True
+    root.addHandler(handler)
+    root.setLevel(level)
+    return handler

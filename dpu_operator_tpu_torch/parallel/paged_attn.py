@@ -327,9 +327,13 @@ def paged_attn_step_cuda(tables, ctx, n_new, q, k_new, v_new, kscale_rows,
     if err:
         raise RuntimeError(f"paged_attn kernel launch failed: CUDA error "
                            f"{err}")
-    paged_attn_step_cuda.launches += 1
+    with _launches_lock:
+        paged_attn_step_cuda.launches += 1
     return o
 
 
-#: Kernel launches so far (CPU calls of the wrapper do not count).
+#: Kernel launches so far (CPU calls of the wrapper do not count). The
+#: ranks of a context-parallel replica launch from threads of their
+#: own, so the count is raised under a lock.
 paged_attn_step_cuda.launches = 0
+_launches_lock = threading.Lock()

@@ -33,6 +33,11 @@ reference where there is no card.
 
 ``make_ring_attention`` is the entry point: ``fn(q, k, v)`` on whole
 ``[S, D*]`` tensors, cut into ``mesh[axis]`` shards, giving ``[S, dv]``.
+
+``merge_partial_softmax`` (numpy, a copy of the reference's) folds the
+same recurrence's partials on the host: the coordinator of a
+page-sharded paged-KV replica (``serving/kvcache/sharded.py``) merges
+its ranks' attention with it.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import ctypes
 import math
 from typing import Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .ring_probe import MAX_RANKS, _launch, _ring_setup
@@ -318,3 +324,45 @@ def make_ring_attention(mesh: Mapping[str, int], axis: str = "sp",
         return impl(q, k, v, n, causal)
 
     return fn
+
+
+# -- serving fusion (context-parallel paged KV) -------------------------------
+
+
+def merge_partial_softmax(parts):
+    """Fold per-shard flash-attention partials in shard order — the
+    `_online_update` recurrence with the per-hop RDMA replaced by a
+    host-side gather. Each part is ``(m, l, o)`` for ONE shard's key
+    range: running max ``m [...]``, un-normalized denominator ``l
+    [...]`` and un-normalized accumulator ``o [..., dv]`` (numpy or
+    jax arrays, any leading batch shape). A shard that owns no valid
+    keys for a row contributes ``(m=-1e30, l=0, o=0)``, the fold
+    identity. Returns the NORMALIZED attention output ``o / l``
+    (rows with no keys anywhere come back 0).
+
+    This is how the serving plane's page-sharded paged-KV replicas
+    (serving/kvcache/sharded.py) compose their per-rank attention
+    over long prefill chunks: each rank scans only its own pages
+    (``PagedRankStep``), the coordinator folds here."""
+    if not parts:
+        raise ValueError("merge_partial_softmax needs >= 1 partial")
+    m0, l0, o0 = parts[0]
+    m = np.asarray(m0, np.float32)
+    l = np.asarray(l0, np.float32)
+    o = np.asarray(o0, np.float32)
+    for m_r, l_r, o_r in parts[1:]:
+        m_r = np.asarray(m_r, np.float32)
+        l_r = np.asarray(l_r, np.float32)
+        o_r = np.asarray(o_r, np.float32)
+        m_new = np.maximum(m, m_r)
+        # exp(-1e30 - (-1e30)) would be exp(0)=1 — but its l/o are 0,
+        # so the identity still folds as the identity (the _NEG_INF
+        # rationale: never produce a NaN rescale, let the zero
+        # weights carry the truth).
+        alpha = np.exp(m - m_new)
+        beta = np.exp(m_r - m_new)
+        l = l * alpha + l_r * beta
+        o = o * alpha[..., None] + o_r * beta[..., None]
+        m = m_new
+    denom = np.where(l > 0.0, l, 1.0)[..., None]
+    return (o / denom).astype(np.float32)

@@ -12,6 +12,10 @@ Speculative decoding (spec.py: the draft contract, greedy-verify
 acceptance and the two drafts) is the KV executors' third mode:
 ``PagedKVExecutor(mode="speculative" | "speculative-pipelined")`` and
 ``SyntheticKVExecutor(spec=SpecConfig(...))``.
+
+Context-parallel paged KV (kvcache/sharded.py): ``ShardedPagedKVExecutor``
+splits one replica's pools across ``world`` ranks along the head or the
+page axis, behind the same submit/collect seam.
 """
 
 from .api import (PRIORITIES, Draining, GenerateRequest, QueueFull,
@@ -19,8 +23,10 @@ from .api import (PRIORITIES, Draining, GenerateRequest, QueueFull,
                   encode_prompt_tokens)
 from .executor import Executor, ReplicaPool
 from .kvcache import (HostKVTier, KVBlockAllocator, KVCacheOOM, KVLease,
-                      PagedDecodeStep, PagedKVExecutor, ParkedKV,
-                      PrefixTree, SyntheticKVExecutor)
+                      KVShardProcessSet, PagedDecodeStep, PagedKVExecutor,
+                      ParkedKV, PrefixTree, ShardedPagedKVExecutor,
+                      SyntheticKVExecutor, SyntheticKVShardSet,
+                      resolve_shard_axis)
 from .queue import AdmissionQueue, TenantBudget
 from .scheduler import ContinuousBatcher
 from .server import ServingServer
@@ -36,6 +42,7 @@ __all__ = [
     "KVBlockAllocator",
     "KVCacheOOM",
     "KVLease",
+    "KVShardProcessSet",
     "NO_TOKEN",
     "OracleDraft",
     "PRIORITIES",
@@ -47,11 +54,14 @@ __all__ = [
     "ReplicaPool",
     "ServingError",
     "ServingServer",
+    "ShardedPagedKVExecutor",
     "SpecConfig",
     "SyntheticKVExecutor",
+    "SyntheticKVShardSet",
     "TenantBudget",
     "TenantOverBudget",
     "TruncatedDraft",
     "encode_prompt",
     "encode_prompt_tokens",
+    "resolve_shard_axis",
 ]

@@ -52,7 +52,8 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "parallel.ring_attention", "parallel.ring_probe",
                 "parallel.ulysses_attention", "parallel.collective_matmul",
                 "parallel.mesh", "device",
-                "cuda_build"):
+                "cuda_build", "serving.kvcache.sharded",
+                "serving.disagg.spec", "serving.sharded.shard_worker"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
 
@@ -69,25 +70,50 @@ def test_executor_without_device_needs_cuda():
 
 
 # Copied jax-free modules (path under either package) -> definitions the
-# port adds or rewrites there on top of the reference's.
+# port adds or rewrites there on top of the reference's: a whole
+# definition by its name, or one method as ``Class.method``.
 COPIES = {
     "faults.py": (),
     "obs/flight.py": (),
     "obs/logging.py": (),
     "obs/trace.py": (),
+    "parallel/fabric_collectives.py": (),
+    "parallel/fabric_worker.py": (),
     "parallel/mesh.py": ("ring_is_ici_adjacent",),
+    "parallel/ring_attention.py": ("MAX_DIM", "KERNEL_DTYPES",
+                                   "_online_update", "_scores", "_pack_kv",
+                                   "_shards", "_ring_fold",
+                                   "ring_attention_plain", "key_tile",
+                                   "tf32_split", "split_matmul",
+                                   "ring_attention_split", "_launcher",
+                                   "ring_attention_cuda",
+                                   "make_ring_attention"),
     "parallel/ulysses_attention.py": ("_heads_to_rows", "_seq_to_head_shard",
                                       "_full_attention", "_ulysses_body",
                                       "make_ulysses_attention",
                                       "dense_attention_reference"),
     "serving/api.py": (),
+    "serving/disagg/spec.py": (),
     "serving/executor.py": (),
     "serving/kvcache/allocator.py": (),
     "serving/kvcache/executor.py": ("PagedKVExecutor",),
+    "serving/kvcache/sharded.py": ("_on_stream", "_dev", "_after",
+                                   "_new_stream", "_write_pages",
+                                   "_RankState.__init__",
+                                   "SyntheticKVShardSet.__init__",
+                                   "SyntheticKVShardSet._rank_loop",
+                                   "SyntheticKVShardSet._merge_and_finish",
+                                   "SyntheticKVShardSet.export_rank_pages",
+                                   "SyntheticKVShardSet.import_rank_pages",
+                                   "KVShardProcessSet.__init__",
+                                   "serve_kv_rank",
+                                   "ShardedPagedKVExecutor.__init__"),
     "serving/kvcache/tiering.py": (),
     "serving/queue.py": (),
     "serving/scheduler.py": (),
     "serving/server.py": (),
+    "serving/sharded/protocol.py": (),
+    "serving/sharded/synthetic.py": (),
     "serving/spec.py": ("TruncatedDraft",),
     "utils/metrics.py": (),
 }
@@ -127,7 +153,7 @@ def test_copied_module_keeps_the_reference_code(rel):
     ref = _definitions(os.path.join(ROOT, "dpu_operator_tpu", rel))
     port = _definitions(os.path.join(ROOT, "dpu_operator_tpu_torch", rel))
     own = COPIES[rel]
-    kept = [n for n in port if n.split(".")[0] not in own]
+    kept = [n for n in port if n not in own and n.split(".")[0] not in own]
     assert kept, rel
     for name in kept:
         assert name in ref, f"{rel}: {name} is not in the reference"
