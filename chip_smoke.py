@@ -165,20 +165,49 @@ Phases, each of which raises on failure:
                streams is logged, not checked. A line a lane: steps,
                wall, ms a step, each rank's resident pool bytes against
                the single worker's.
+ 14. rows    — row-plane decode (``LocalExecutor`` -> ``DecodeStep`` ->
+               the forward stage stack of ``train_step`` with its top-1
+               Switch MoE) at Mixtral-8x7B's widths (d 4096, FFN width
+               14336 for the dense pair and each expert, 8 experts, ep =
+               8 ranks sharing the card), depth cut to 4 of its 32
+               layers, 64 slots, random weights (16.91 GB f32, one set
+               shared by every ep = 8 lane). A direct step at capacity
+               factor 1 (C = 1, rows dropped): kernel 10 for the two
+               expert exchanges a stage against the plain exchange bit
+               for bit, 2 x 4 launches a step, 20 repeats bitwise, one
+               row alone in slot 0 and in slot 63 within rtol 1e-5, atol
+               1e-6 with idle rows exactly zero; at capacity factor 8
+               within the stated bar of the dense composition
+               (``moe.dense_reference`` for each stage's MoE). Kernel 10
+               at the MoE's shape ([512, 4096] f32, blocks of 8 rows)
+               against plain, timed. Then 64 HTTP requests of 32 tokens
+               at capacity factor 8 (dropless) through ``ServingServer``:
+               ep = 8 pipelined, sync and pipelined with the plain
+               exchange must decode identical streams, the kernel lanes
+               launching kernel 10 2 x 4 times a step; at least half of
+               the pipelined submits return before their step's end
+               event; ep = 1 pipelined (its own 3.76 GB weights) launches
+               none. A line a lane (steps, wall, ms a step, tokens/s,
+               launches, peak device memory), then one profiled
+               pipelined run: the idle share and device time by kernel.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
 its path, max error, times, bound; the collective matmuls' records give
 f32 under the contract's keys and bf16 under the same keys prefixed
 ``bf16_``; the paged-attention record adds ``sharded_launches``, phase
-13's head lanes' launches); the last line is
+13's head lanes' launches, and the all-to-all's adds ``moe_launches``,
+phase 14's ep = 8 kernel lanes' launches, with its ``moe_`` times at the
+MoE's shape); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import bisect
 import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -674,6 +703,27 @@ def post(url, body, timeout):
         return r.status, json.loads(r.read())
 
 
+def post_all(url, bodies, timeout=900, sent=None):
+    """POST every body to ``url`` at once, a thread each; returns the
+    (status, body) of each, or None where a request got no answer. A
+    ``sent`` list gets each request's ``time.monotonic()`` just before its
+    POST."""
+    results = [None] * len(bodies)
+
+    def one(i):
+        if sent is not None:
+            sent[i] = time.monotonic()
+        results[i] = post(url, bodies[i], timeout)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results
+
+
 def serve_prompts():
     rng = np.random.RandomState(1)
     vocab = SERVE["vocab"]
@@ -689,22 +739,13 @@ def serve_once(torch, ex, prompts, card):
 
     srv = ServingServer([ex], max_tokens_cap=MAX_TOKENS,
                         pool_opts={"watchdog_s": 300.0}).start()
-    results = [None] * len(prompts)
-
-    def one(i):
-        results[i] = post(srv.url, {"prompt_tokens": prompts[i],
-                                    "max_tokens": MAX_TOKENS,
-                                    "deadline_ms": 600000}, timeout=900)
-
     steps0 = ex._step_no
     t0 = time.monotonic()
     try:
-        threads = [threading.Thread(target=one, args=(i,))
-                   for i in range(len(prompts))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        results = post_all(srv.url, [{"prompt_tokens": p,
+                                      "max_tokens": MAX_TOKENS,
+                                      "deadline_ms": 600000}
+                                     for p in prompts])
     finally:
         srv.stop()
     wall = time.monotonic() - t0
@@ -844,6 +885,22 @@ def phase_serve(torch, card):
     return launches, base
 
 
+def device_rows(prof):
+    """([(device us, launches, kernel name)] by time, device busy ms) of a
+    ``torch.profiler`` run."""
+    rows = []
+    for evt in prof.key_averages():
+        if not str(evt.device_type).endswith("CUDA"):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            rows.append((us, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return rows, sum(r[0] for r in rows) / 1e3
+
+
 def phase_profile(torch, card, label="pipelined", **kw):
     """Where a served run's device time goes: ``torch.profiler`` over one
     run with the kernel (phase 5: pipelined mode; phase 12 passes a
@@ -859,17 +916,7 @@ def phase_profile(torch, card, label="pipelined", **kw):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, st = serve_once(torch, ex, serve_prompts(), card)
-    rows = []
-    for evt in prof.key_averages():
-        if not str(evt.device_type).endswith("CUDA"):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0:
-            rows.append((us, evt.count, evt.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
+    rows, busy_ms = device_rows(prof)
     wall_ms = st["wall_s"] * 1e3
     log(f"profile {label}: {st['steps']} steps, device busy {busy_ms:.1f} "
         f"ms of {wall_ms:.1f} ms wall (idle share "
@@ -2785,6 +2832,438 @@ def phase_shard(torch, card, gold):
     return launches
 
 
+# -- phase 14: row-plane decode with the Switch MoE ---------------------------
+
+# The repo's row-plane model (S stages of a dense pair and a top-1 Switch
+# MoE, as train_step._stage_fn routes) at Mixtral-8x7B's widths
+# (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
+# intermediate_size 14336 for the dense pair and each expert,
+# num_local_experts 8): ep = 8, one expert a rank, the ranks sharing the
+# card. Depth cut to 4 of its 32 layers: one f32 stage is 4.228 GB, 32
+# would be 135 GB. dp = tp = 1; 64 slots, 8 rows a rank; random weights.
+ROW_MODEL = dict(S=4, d=4096, h=14336, E=8)
+ROW_SLOTS = 64
+ROW_REQUESTS = 64
+ROW_TOKENS = 32
+# capacity_factor 8: C equals a rank's rows, so serving is dropless (as
+# Mixtral inference is) and the three ep = 8 lanes' streams must agree.
+ROW_SERVE_CF = 8.0
+ROW_IDLE_VECTORS = 4
+ROW_REPEATS = 20
+# The cf = 8 direct step against the dense composition (every expert on
+# every row, moe.dense_reference): the same f32 products in other GEMM
+# shapes, 4 stages deep, values of order 1.
+ROW_DENSE_ATOL = 1e-4
+
+
+def row_bodies(prompts):
+    return [{"prompt": p, "max_tokens": ROW_TOKENS, "deadline_ms": 600000}
+            for p in prompts]
+
+
+def row_updates(d):
+    """The direct steps' 64 admitted rows, as the server encodes prompts."""
+    from dpu_operator_tpu_torch.serving import encode_prompt
+
+    return [(i, encode_prompt(f"rows direct {i}", d))
+            for i in range(ROW_SLOTS)]
+
+
+def row_dense(torch, moe, params, x):
+    """The stage stack with each stage's MoE computed densely (every
+    expert on every row: ``moe.dense_reference``), capacity unbounded."""
+    for s in range(params["router"].shape[0]):
+        y = torch.tanh(torch.relu(x @ params["w1"][s]) @ params["w2"][s])
+        x = y + moe.dense_reference(y, params["router"][s],
+                                    params["moe_w1"][s], params["moe_w2"][s])
+    return x
+
+
+def row_direct(torch, card, params):
+    """Direct DecodeStep checks at full width: kernel 10 against the plain
+    exchange bitwise at cf = 1 (rows dropped), 2·S launches a step, 20
+    repeats bitwise, the idle-slot check in slots 0 and 63; at cf = 8
+    within ``ROW_DENSE_ATOL`` of the dense composition. Returns the cf = 8
+    step's device ms, kernel and plain exchange."""
+    from dpu_operator_tpu_torch.parallel import moe
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.serving import infer
+
+    S, d, E = ROW_MODEL["S"], ROW_MODEL["d"], ROW_MODEL["E"]
+    mesh = infer.serving_mesh(shape={"ep": E})
+    ups = row_updates(d)
+    steps = {k: infer.DecodeStep(mesh, params, ROW_SLOTS, 1.0, kernel=k,
+                                 device="cuda") for k in ("cuda", "torch")}
+    dk = steps["cuda"]
+    before = rp.all_to_all_cuda.launches
+    yk, tk = dk(dk.init_state(), ups)
+    torch.cuda.synchronize()
+    launches = rp.all_to_all_cuda.launches - before
+    check(launches == 2 * S, f"rows cf=1: {launches} all-to-all launches "
+          f"in a step of {S} stages")
+    yt, tt = steps["torch"](steps["torch"].init_state(), ups)
+    torch.cuda.synchronize()
+    check(rp.all_to_all_cuda.launches - before == 2 * S,
+          "rows cf=1: the plain exchange launched the kernel")
+    check(same_bits(torch, yk, yt) and torch.equal(tk, tt),
+          "rows cf=1: kernel 10 and the plain exchange differ")
+    check(torch.isfinite(yk).all() and yk.shape == (ROW_SLOTS, d),
+          f"rows cf=1: y {tuple(yk.shape)} not finite")
+    # Drops at C = 1 in the first stage: assignments whose keep is 0.
+    x0 = torch.stack([torch.from_numpy(r) for _, r in ups]).cuda()
+    y0 = torch.tanh(torch.relu(x0 @ params["w1"][0]) @ params["w2"][0])
+    rt = moe.route(y0.view(E, ROW_SLOTS // E, d), params["router"][0],
+                   capacity_factor=1.0)
+    dropped = int((rt["keep"] == 0).sum())
+    check(dropped > 0, "rows cf=1: no assignment dropped at C = 1")
+    for i in range(ROW_REPEATS):
+        again, tok = dk(dk.init_state(), ups)
+        check(same_bits(torch, again, yk) and torch.equal(tok, tk),
+              f"rows cf=1 repeat {i}: differs from the first step's bits")
+    gen = np.random.RandomState(14)
+    worst = 0.0
+    for _ in range(ROW_IDLE_VECTORS):
+        r = gen.randn(d).astype(np.float32)
+        y_first, _ = dk(dk.init_state(), [(0, r)])
+        y_last, _ = dk(dk.init_state(), [(ROW_SLOTS - 1, r)])
+        check(torch.allclose(y_first[0], y_last[-1], rtol=1e-5, atol=1e-6),
+              "rows idle slots: slot 0 and slot 63 decode differently")
+        check(not y_first[1:].any() and not y_last[:-1].any(),
+              "rows idle slots: an idle row is not exactly zero")
+        worst = max(worst, float((y_first[0] - y_last[-1]).abs().max()))
+    log(f"rows direct cf=1 (C = 1, {dropped} of {ROW_SLOTS} first-stage "
+        f"assignments dropped): kernel 10 == plain exchange bit for bit, "
+        f"{launches} launches a step (2 x {S} stages), {ROW_REPEATS} "
+        f"repeats bitwise; one row alone in slot 0 and in slot "
+        f"{ROW_SLOTS - 1} (ranks 0 and {E - 1}) within rtol 1e-5, atol "
+        f"1e-6 (max |diff| {worst:.3e}), idle rows exactly zero [{card}]")
+    del steps, dk, yk, yt, again, y_first, y_last
+
+    d8 = {k: infer.DecodeStep(mesh, params, ROW_SLOTS, ROW_SERVE_CF,
+                              kernel=k, device="cuda")
+          for k in ("cuda", "torch")}
+    y8, _ = d8["cuda"](d8["cuda"].init_state(), ups)
+    dense = row_dense(torch, moe, params, x0)
+    err = float((y8 - dense).abs().max())
+    check(err <= ROW_DENSE_ATOL, f"rows cf=8: max |y - dense| {err:.3e} > "
+          f"{ROW_DENSE_ATOL}")
+    times = {k: time_ms(torch, lambda k=k: d8[k](y8, ()), n=5, warm=2,
+                        batch=4) for k in d8}
+    host = {}
+    for k, step in d8.items():  # the host's time to queue one step
+        samples = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(y8, ())
+            samples.append((time.perf_counter() - t0) * 1e3)
+        host[k] = statistics.median(samples)
+    torch.cuda.synchronize()
+    log(f"rows direct cf={ROW_SERVE_CF:g}: y within {ROW_DENSE_ATOL} of the "
+        f"dense composition (max |err| {err:.3e}); a step {times['cuda']:.3f} "
+        f"ms with kernel 10, {times['torch']:.3f} ms with the plain "
+        f"exchange; the host queues a step in {host['cuda']:.3f} / "
+        f"{host['torch']:.3f} ms [{card}]")
+    del d8, y8, dense
+    torch.cuda.empty_cache()
+    return times
+
+
+def row_arrival(label, results, sent, accepted, reqs, starts):
+    """Log where each served request's time went before its admission and
+    after: its POST to its ``GenerateRequest``'s creation in the handler
+    (the front door), that to its entry in the admission queue (the
+    handler), that to its admission to a slot (the batcher), the step
+    that admitted it and the steps it then decoded for, from the
+    requests' own monotonic stamps and the lane's step starts; and when
+    the HTTP server accepted the connections (``accepted``), from the
+    first POST, split at the longest pause between two accepts. Returns
+    the largest of each wait and the last admitting step."""
+    door, handler, queue, admit_step, decode_steps = [], [], [], [], []
+    for i, (_, body) in enumerate(results):
+        req = reqs[body["id"]]
+        door.append((req.arrival - sent[i]) * 1e3)
+        handler.append((req.enqueued_at - req.arrival) * 1e3)
+        queue.append((req.admitted_at - req.enqueued_at) * 1e3)
+        first = bisect.bisect_left(starts, req.admitted_at)
+        admit_step.append(first + 1)
+        decode_steps.append(bisect.bisect_left(starts, req.finished_at)
+                            - first)
+
+    def spread(v, fmt="{:.1f}"):
+        return (f"median {fmt.format(statistics.median(v))}, "
+                f"{fmt.format(min(v))}-{fmt.format(max(v))}")
+
+    def gaps(v):
+        return spread([(b - a) * 1e3 for a, b in zip(v, v[1:])] or [0.0])
+
+    last = max(admit_step)
+    t0 = min(sent)
+    acc = sorted((a - t0) * 1e3 for a in accepted)
+    k = max(range(1, len(acc)), key=lambda n: acc[n] - acc[n - 1])
+    log(f"rows {label} arrival: POSTs sent over {(max(sent) - t0) * 1e3:.1f}"
+        f" ms; connections accepted: {k} at +{acc[0]:.0f}..+{acc[k - 1]:.0f}"
+        f" ms, then {len(acc) - k} at +{acc[k]:.0f}..+{acc[-1]:.0f} ms; "
+        f"POST -> created {spread(door)} ms; created -> queued "
+        f"{spread(handler)} ms; queued -> admitted {spread(queue)} ms; "
+        f"admitted at step {spread(admit_step, '{:g}')} of {len(starts)}; "
+        f"steps from admission to finish {spread(decode_steps, '{:g}')}; "
+        f"step starts {gaps(starts[:last])} ms apart up to the last "
+        f"admission, {gaps(starts[last - 1:])} ms after it")
+    return dict(door_ms=max(door), handler_ms=max(handler),
+                queue_ms=max(queue), last_admit_step=last)
+
+
+def row_lane(torch, card, label, params, mesh, mode, kernel, prompts):
+    """Serve ``prompts`` over HTTP through ``ServingServer`` on a fresh
+    ``LocalExecutor`` sharing ``params``; count kernel-10 launches, steps
+    (submits) and the submits that returned before their step's end event
+    completed; log a line and each request's arrival (``row_arrival``).
+    Returns (streams, stats)."""
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.serving import LocalExecutor, ServingServer
+
+    t0 = time.monotonic()
+    ex = LocalExecutor(params=params, mesh=mesh, slots=ROW_SLOTS,
+                       capacity_factor=ROW_SERVE_CF, mode=mode,
+                       kernel=kernel, device="cuda")
+    setup = time.monotonic() - t0
+    stats = {"steps": 0, "early": 0}
+    starts, late = [], []
+    inner_submit, inner_step = ex.submit, ex.step
+
+    def submit(updates, step=None, request_ids=None, occupants=None):
+        starts.append(time.monotonic())
+        handle = inner_submit(updates, step=step, request_ids=request_ids,
+                              occupants=occupants)
+        stats["steps"] += 1
+        if not handle.done.query():
+            stats["early"] += 1
+        else:  # the step, its updates and the host time its submit took
+            late.append((stats["steps"], len(updates),
+                         time.monotonic() - starts[-1]))
+        return handle
+
+    def step(x):  # the sync loop's seam
+        starts.append(time.monotonic())
+        stats["steps"] += 1
+        return inner_step(x)
+
+    if mode == "pipelined":
+        ex.submit = submit
+    else:
+        ex.step = step
+    srv = ServingServer([ex], max_queue_depth=2 * len(prompts),
+                        max_tokens_cap=ROW_TOKENS,
+                        pool_opts={"watchdog_s": 300.0}).start()
+    reqs, accepted = {}, []
+    inner_enqueue = srv.queue.submit
+    inner_accept = srv._httpd.process_request
+
+    def enqueue(req):
+        reqs[req.request_id] = req
+        return inner_enqueue(req)
+
+    def accept(request, client_address):
+        accepted.append(time.monotonic())
+        return inner_accept(request, client_address)
+
+    srv.queue.submit = enqueue
+    srv._httpd.process_request = accept
+    # One short request first: the HTTP path's first-call costs stay out
+    # of the lane's numbers.
+    post(srv.url, {"prompt": "rows warm-up", "max_tokens": 2,
+                   "deadline_ms": 600000}, timeout=900)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats.update(steps=0, early=0)
+    starts.clear()
+    late.clear()
+    reqs.clear()
+    accepted.clear()
+    sent = [0.0] * len(prompts)
+    rp.all_to_all_cuda.launches = 0
+    t0 = time.monotonic()
+    try:
+        results = post_all(srv.url, row_bodies(prompts), sent=sent)
+    finally:
+        srv.stop()
+    wall = time.monotonic() - t0
+    torch.cuda.synchronize()
+    stats["launches"] = rp.all_to_all_cuda.launches
+    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    stats["wall_s"] = wall
+    streams = []
+    for i, res in enumerate(results):
+        check(res is not None, f"rows {label} request {i}: no response")
+        code, body = res
+        check(code == 200, f"rows {label} request {i}: HTTP {code} {body}")
+        toks = body["tokens"]
+        check(len(toks) == ROW_TOKENS and not body["truncated"],
+              f"rows {label} request {i}: {len(toks)} tokens")
+        check(all(0 <= t < ROW_MODEL["d"] for t in toks),
+              f"rows {label} request {i}: token out of range")
+        streams.append(toks)
+    steps = stats["steps"]
+    stats["step_ms"] = wall / max(steps, 1) * 1e3
+    gaps = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    stats["median_ms"] = statistics.median(gaps) if gaps else 0.0
+    early = (f", {stats['early']} of {steps} submits returned before their "
+             f"step's end ({stats['early'] / max(steps, 1):.3f}"
+             + "".join(f"; step {k} not: {n} updates, its submit "
+                       f"{t * 1e3:.3f} ms" for k, n, t in late) + ")"
+             if mode == "pipelined" else "")
+    log(f"rows {label}: {len(prompts)} requests x {ROW_TOKENS} tokens, "
+        f"{steps} steps in {wall:.3f} s -> {stats['step_ms']:.3f} ms a step "
+        f"(median {stats['median_ms']:.3f} ms between step starts), "
+        f"{ROW_TOKENS * len(prompts) / wall:.1f} generated tok/s, kernel-10 "
+        f"launches {stats['launches']}, peak device memory "
+        f"{stats['peak_gb']:.3f} GB{early} (setup {setup:.1f} s) [{card}]")
+    stats.update(row_arrival(label, results, sent, accepted, reqs, starts))
+    return streams, stats, ex
+
+
+def row_profile(torch, card, ex, prompts):
+    """One more served run of the ep = 8 pipelined executor under
+    ``torch.profiler``: device time by kernel and the device's idle share
+    (an upper bound: the profiler's host cost inflates the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpu_operator_tpu_torch.serving import ServingServer
+
+    srv = ServingServer([ex], max_queue_depth=2 * len(prompts),
+                        max_tokens_cap=ROW_TOKENS,
+                        pool_opts={"watchdog_s": 300.0}).start()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        try:
+            post_all(srv.url, row_bodies(prompts))
+        finally:
+            srv.stop()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    rows, busy_ms = device_rows(prof)
+    check(busy_ms > 0, "rows profile: no device time recorded")
+    a2a = [r for r in rows if "all_to_all" in r[2]]
+    a2a_ms = sum(r[0] for r in a2a) / 1e3
+    log(f"rows profile pipelined ep=8: device busy {busy_ms:.1f} ms of "
+        f"{wall_ms:.1f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}, "
+        f"profiled); kernel 10 {a2a_ms:.3f} ms over "
+        f"{sum(r[1] for r in a2a)} launches [{card}]")
+    for us, count, key in rows[:10]:
+        log(f"  {us / 1e3:10.3f} ms {us / 1e3 / busy_ms:6.3f}  x{count:<6d} "
+            f"{key[:90]}")
+
+
+def phase_rows(torch, card, record):
+    """Row-plane decode at Mixtral-8x7B's widths through the entry point
+    (HTTP -> batcher -> LocalExecutor -> DecodeStep -> the stage stack and
+    its Switch MoE, whose two exchanges a stage launch kernel 10 at ep =
+    8): the direct checks, kernel 10 at the MoE's shape, four served lanes
+    and one profiled run. Adds the MoE's numbers to kernel 10's
+    ``record``; returns the served lanes' kernel-10 launches."""
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.parallel import train_step as ts
+    from dpu_operator_tpu_torch.serving import ServingServer, infer
+
+    S, d, h, E = (ROW_MODEL[k] for k in ("S", "d", "h", "E"))
+    # Earlier phases' stopped ServingServers are unreachable but not yet
+    # freed: each sits in a reference cycle (the server -> its HTTP
+    # server -> the handler class -> the handlers' closure cell -> the
+    # server; ROADMAP.md queue 3, Q3-2) that holds its pool's executors
+    # and their device tensors until the cycle collector runs. Collect
+    # them, so that the lanes' peaks are this phase's.
+    def servers():
+        return sum(isinstance(o, ServingServer) for o in gc.get_objects())
+
+    held, before = torch.cuda.memory_allocated() / 1e9, servers()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"rows: {held:.3f} GB allocated on entry with {before} stopped "
+        f"ServingServers alive in cycles, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB and {servers()} "
+        f"after gc.collect() [{card}]")
+    t0 = time.monotonic()
+    params = ts.init_params(S, d, h, E, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    log(f"rows: weights {nbytes / 1e9:.3f} GB f32 ({S} stages of d {d}, "
+        f"h {h}, {E} experts) drawn on the card in "
+        f"{time.monotonic() - t0:.1f} s [{card}]")
+    step_ms = row_direct(torch, card, params)
+
+    # Kernel 10 at the MoE's shape: [E·E·C, d] f32, C = 8 at cf = 8.
+    C = math.ceil(ROW_SLOTS // E / E * ROW_SERVE_CF)
+    x = coll_payload(torch, E * E * C, d, torch.float32, seed=41)
+    check(same_bits(torch, rp.all_to_all_cuda(x, E),
+                    rp.all_to_all_plain(x, E)),
+          "rows all-to-all: kernel != plain")
+    ms = time_ms(torch, lambda: rp.all_to_all_cuda(x, E), n=10, warm=2)
+    plain_ms = time_ms(torch, lambda: rp.all_to_all_plain(x, E), n=5,
+                       warm=1, batch=2)
+    library_ms = time_ms(torch, lambda: x.view(E, E, C, d).transpose(
+        0, 1).contiguous(), n=10, warm=2)
+    launch_ms, host_ms, seen = device_ms(
+        torch, lambda: rp.all_to_all_cuda(x, E), "all_to_all_kernel")
+    xbytes = x.numel() * x.element_size()
+    bound = 2 * xbytes / HBM_BYTES_PER_S * 1e3
+    log(f"rows all_to_all [{E * E * C}, {d}] f32 n={E} (blocks of {C} rows, "
+        f"{C * d * 4} B): kernel {ms:.4f} ms ({launch_ms:.4f} ms a launch on "
+        f"the card, {seen}; {host_ms:.4f} ms of host time to queue a call), "
+        f"plain {plain_ms:.4f} ms, view().transpose().contiguous() "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({xbytes} B read and "
+        f"written) [{card}]")
+    del x
+
+    mesh = infer.serving_mesh(shape={"ep": E})
+    prompts = [f"rows request {i}" for i in range(ROW_REQUESTS)]
+    lanes = {}
+    profiled = None
+    for label, mode, kernel in (("ep=8 pipelined", "pipelined", "cuda"),
+                                ("ep=8 sync", "sync", "cuda"),
+                                ("ep=8 pipelined torch", "pipelined",
+                                 "torch")):
+        streams, st, ex = row_lane(torch, card, label, params, mesh, mode,
+                                   kernel, prompts)
+        want = 2 * S * st["steps"] if kernel == "cuda" else 0
+        check(st["launches"] == want and st["steps"] > 0,
+              f"rows {label}: {st['launches']} kernel-10 launches for "
+              f"{st['steps']} steps (want {want})")
+        lanes[label] = (streams, st)
+        if profiled is None:
+            profiled = ex
+        else:
+            del ex
+    base, first = lanes["ep=8 pipelined"]
+    check(first["early"] >= first["steps"] / 2,
+          f"rows: only {first['early']} of {first['steps']} pipelined "
+          f"submits returned before their step's end")
+    for label, (streams, _) in lanes.items():
+        check(streams == base, f"rows {label}: streams differ from ep=8 "
+              f"pipelined first at {first_diff(streams, base)}")
+    distinct = [len(set(s)) for s in base]
+    check(len({tuple(s) for s in base}) > 1, "rows: identical streams")
+    log(f"rows: the three ep=8 lanes' streams identical; distinct tokens "
+        f"a stream {min(distinct)}-{max(distinct)}")
+    row_profile(torch, card, profiled, prompts)
+    served = first["launches"] + lanes["ep=8 sync"][1]["launches"]
+    del profiled
+    torch.cuda.empty_cache()
+
+    p1 = ts.init_params(S, d, h, 1, seed=1, device="cuda")
+    _, st1, ex1 = row_lane(torch, card, "ep=1 pipelined", p1,
+                           infer.serving_mesh(), "pipelined", None, prompts)
+    check(st1["launches"] == 0, f"rows ep=1: {st1['launches']} kernel-10 "
+          f"launches (a ring of one launches none)")
+    del ex1, p1, params
+    torch.cuda.empty_cache()
+    record.update(moe_launches=served, moe_ms=ms, moe_bound_ms=bound,
+                  moe_plain_ms=plain_ms, moe_library_ms=library_ms,
+                  moe_step_ms=step_ms["cuda"])
+    return served
+
+
 def main() -> int:
     try:
         import torch
@@ -2834,6 +3313,7 @@ def main() -> int:
     spec_gold = phase_spec(torch, card)
     record["sharded_launches"] = phase_shard(
         torch, card, {"int8": serve_streams, "fp32": spec_gold})
+    phase_rows(torch, card, a2a)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

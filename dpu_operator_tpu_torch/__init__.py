@@ -22,7 +22,12 @@ Ported so far:
   * sequence-parallel ring attention (``parallel/ring_attention.py``:
     ``make_ring_attention``), all ranks of the ring on one card in one
     cooperative launch of ``csrc/ring_attn.cu``, whose ring protocol is
-    the shared template ``csrc/ring_stream.cuh``.
+    the shared template ``csrc/ring_stream.cuh``;
+  * row-plane decode — ``LocalExecutor`` -> ``serving/infer.py``'s
+    ``DecodeStep`` over the forward stage stack of
+    ``parallel/train_step.py`` and its Switch MoE (``parallel/moe.py``),
+    whose expert exchanges are the all-to-all kernel
+    (``csrc/all_to_all.cu``, wrapped in ``parallel/ring_probe.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (``device.resolve_device``).

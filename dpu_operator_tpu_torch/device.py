@@ -3,6 +3,8 @@ asks for the CPU."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -25,3 +27,16 @@ def resolve_device(device, owner: str) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def pick_kernel(kernel: Optional[str], device: torch.device) -> str:
+    """``None`` means the hand-written kernel on a CUDA device and its
+    plain version on the CPU; ``"cuda"`` anywhere else raises."""
+    if kernel is None:
+        kernel = "cuda" if device.type == "cuda" else "torch"
+    if kernel not in ("cuda", "torch"):
+        raise ValueError(f"kernel must be cuda|torch, got {kernel!r}")
+    if kernel == "cuda" and device.type != "cuda":
+        raise ValueError(f"kernel='cuda' needs a CUDA device, got "
+                         f"{device}")
+    return kernel

@@ -10,4 +10,6 @@ reduce-scatter, all-to-all), Ulysses attention (``ulysses_attention``),
 whose four exchanges are the all-to-all, and the tensor-parallel
 collective matmuls (``collective_matmul``: ``make_allgather_matmul``,
 ``make_matmul_reduce_scatter``), whose kernels run the tile product of
-``csrc/tile_product.cuh`` inside the ring protocols."""
+``csrc/tile_product.cuh`` inside the ring protocols, and the row-plane
+model: the forward stage (``train_step``) and its Switch MoE (``moe``),
+whose two expert exchanges a stage are the all-to-all."""

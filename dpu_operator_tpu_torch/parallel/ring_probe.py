@@ -93,7 +93,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import pick_kernel, resolve_device
 from .mesh import ring_is_ici_adjacent
 
 #: Largest ring the kernels take.
@@ -573,13 +573,7 @@ def _ring_setup(mesh: Mapping[str, int], axis: str, kernel: Optional[str],
     if axis not in mesh:
         raise ValueError(f"axis {axis!r} is not in the mesh {dict(mesh)}")
     device = resolve_device(device, owner)
-    if kernel is None:
-        kernel = "cuda" if device.type == "cuda" else "torch"
-    if kernel not in ("cuda", "torch"):
-        raise ValueError(f"kernel must be 'cuda' or 'torch', got {kernel!r}")
-    if kernel == "cuda" and device.type != "cuda":
-        raise ValueError(f"kernel='cuda' needs a CUDA device, got {device}")
-    return int(mesh[axis]), device, kernel
+    return int(mesh[axis]), device, pick_kernel(kernel, device)
 
 
 def _on(device: torch.device, owner: str, **tensors: torch.Tensor) -> None:

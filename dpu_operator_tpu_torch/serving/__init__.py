@@ -16,12 +16,17 @@ acceptance and the two drafts) is the KV executors' third mode:
 Context-parallel paged KV (kvcache/sharded.py): ``ShardedPagedKVExecutor``
 splits one replica's pools across ``world`` ranks along the head or the
 page axis, behind the same submit/collect seam.
+
+The row plane: ``LocalExecutor`` (executor.py) -> ``DecodeStep``
+(infer.py) over the forward stage stack of ``parallel/train_step.py``
+with its Switch MoE (``parallel/moe.py``), whose expert exchanges launch
+the CUDA all-to-all kernel (``parallel/ring_probe.py``) at ep > 1.
 """
 
 from .api import (PRIORITIES, Draining, GenerateRequest, QueueFull,
                   ServingError, TenantOverBudget, encode_prompt,
                   encode_prompt_tokens)
-from .executor import Executor, ReplicaPool
+from .executor import Executor, LocalExecutor, ReplicaPool
 from .kvcache import (HostKVTier, KVBlockAllocator, KVCacheOOM, KVLease,
                       KVShardProcessSet, PagedDecodeStep, PagedKVExecutor,
                       ParkedKV, PrefixTree, ShardedPagedKVExecutor,
@@ -43,6 +48,7 @@ __all__ = [
     "KVCacheOOM",
     "KVLease",
     "KVShardProcessSet",
+    "LocalExecutor",
     "NO_TOKEN",
     "OracleDraft",
     "PRIORITIES",

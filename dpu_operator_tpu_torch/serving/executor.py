@@ -22,8 +22,9 @@ That seam is what lets replicas be swapped:
   * LocalExecutor — the in-process replica: a device-resident
     infer.DecodeStep (pipelined, the default) or infer.make_infer_step
     (mode="sync", the original loop kept as the measured baseline) on a
-    jax mesh (CPU/TPU), params from train_step.init_params or a
-    checkpoint. The bench and smoke tests run this one.
+    serving mesh whose ep ranks share one device (the CUDA card, or the
+    CPU when asked), params from train_step.init_params or carried
+    across. The bench and smoke tests run this one.
   * SyntheticExecutor — a jax-free replica with a CONTROLLED per-step
     cost: the scheduler/backpressure plane's test double (the
     RecordingDataplane idiom from bench.py), and the knob that makes
@@ -218,6 +219,131 @@ class Executor:
 
     def close(self) -> None:
         pass
+
+
+class LocalExecutor(Executor):
+    """In-process replica: the forward-only train_step model on a serving
+    mesh whose ep ranks share one device.
+
+    mode="pipelined" (default) builds a device-resident infer.DecodeStep:
+    slot state lives on the device across steps, submit() stages the
+    admitted rows in pinned buffers, queues the step and an asynchronous
+    copy of its [slots] token ids into pinned host memory, and returns
+    while the card runs; collect() waits for that copy alone. mode="sync"
+    keeps the original shape (make_infer_step + a host copy of the whole
+    batch a step) as the comparison baseline.
+
+    Builds demo params when none are given (``train_step.init_params``
+    from ``seed``); otherwise takes params in init_params layout, numpy
+    arrays (``train_step.params_from_numpy``) or tensors; a float32 dict
+    already on ``device`` is shared, not copied. All of a replica's work
+    runs on its own CUDA stream. ``device=None`` means ``"cuda"``: the
+    executor runs on the card unless the caller asks for the CPU, and
+    with no CUDA device it raises. ``kernel=None`` means the all-to-all
+    kernel (``"cuda"``) for the expert exchanges on a CUDA device and its
+    plain version (``"torch"``) on the CPU; ``kernel="cuda"`` on the CPU
+    raises. First-call costs are paid in the constructor (the decode
+    step's warm-up, and ``warmup=True``'s dispatched step) so admission
+    latency never includes them."""
+
+    def __init__(self, params=None, mesh=None, slots: int = 8,
+                 capacity_factor: float = 4.0, S: int = 1, d: int = 16,
+                 h: int = 32, E: int = 1, seed: int = 0,
+                 warmup: bool = True, mode: str = "pipelined",
+                 device=None, kernel: Optional[str] = None):
+        import contextlib
+
+        import torch
+
+        from ..device import resolve_device
+        from ..parallel.train_step import init_params, shard_params
+        from .infer import (TokenHandle, make_decode_step, make_infer_step,
+                            serving_mesh)
+
+        if mode not in ("pipelined", "sync"):
+            raise ValueError(f"mode must be pipelined|sync, got {mode!r}")
+        self.pipelined = mode == "pipelined"
+        self.device = resolve_device(device, "LocalExecutor")
+        self.mesh = mesh if mesh is not None else serving_mesh()
+        cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(device=self.device) if cuda else None
+        if cuda:
+            # Weights handed in were written on the caller's stream.
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._on_stream = ((lambda: torch.cuda.stream(self._stream)) if cuda
+                           else contextlib.nullcontext)
+        with self._on_stream():
+            if params is None:
+                if E != self.mesh["ep"]:
+                    raise ValueError(
+                        f"demo params need E == ep axis size "
+                        f"{self.mesh['ep']}, got {E}")
+                params = init_params(S=S, d=d, h=h, E=E, seed=seed,
+                                     device=self.device)
+            shard = self.mesh["dp"] * self.mesh["ep"]
+            if slots % shard:
+                raise ValueError(
+                    f"slots={slots} must divide over dp*ep={shard} "
+                    f"(batch rows shard over both)")
+            self.slots = slots
+            self.params = shard_params(params, self.mesh, self.device)
+            self.d = int(self.params["w1"].shape[1])
+            if self.pipelined:
+                self._decode = make_decode_step(
+                    self.mesh, self.params, slots, capacity_factor,
+                    kernel=kernel, device=self.device)
+                self.kernel = self._decode.kernel
+                self._handle = TokenHandle
+                self._xdev = self._decode.init_state()
+            else:
+                self._infer = make_infer_step(
+                    self.mesh, capacity_factor, kernel=kernel,
+                    device=self.device)
+                self.kernel = self._infer.kernel
+        if warmup:
+            if self.pipelined:
+                # One dispatched step so the first request also skips
+                # any first-execution lazy initialization.
+                self.collect(self.submit([]))
+                self.reset()
+            else:
+                self.step(np.zeros((self.slots, self.d), np.float32))
+
+    def step(self, x: np.ndarray) -> np.ndarray:
+        with self._on_stream():
+            if not self.pipelined:
+                return self._infer(self.params, x).cpu().numpy()
+            # Compat adapter over the resident path: load x wholesale,
+            # run one step, materialize the full next state — round-trips
+            # the batch and exists for debugging, not the hot loop.
+            rows = np.asarray(x, np.float32)
+            self._xdev, _tokens = self._decode(
+                self._xdev, list(enumerate(rows)))
+            return self._xdev.cpu().numpy()
+
+    def reset(self) -> None:
+        if self.pipelined:
+            with self._on_stream():
+                self._xdev = self._decode.init_state()
+        else:
+            super().reset()
+
+    def submit(self, updates: Sequence[Update], step=None,
+               request_ids=None, occupants=None):
+        if not self.pipelined:
+            return super().submit(updates)
+        # Both the state and the tokens stay in flight: the step and the
+        # copy of its ids to pinned host memory are queued, not waited.
+        with self._on_stream():
+            self._xdev, tokens = self._decode(self._xdev, updates,
+                                              step=step,
+                                              request_ids=request_ids)
+            return self._handle(tokens)
+
+    def collect(self, handle) -> np.ndarray:
+        if not self.pipelined:
+            return handle
+        return handle.wait()
 
 
 REPLICA_LIVE = "live"

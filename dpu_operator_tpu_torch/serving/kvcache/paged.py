@@ -60,7 +60,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...device import resolve_device
+from ...device import pick_kernel, resolve_device
 from ...parallel.paged_attn import (NEG, _quantize_rows,
                                     _scatter_rows_drop,
                                     paged_attn_step_cuda,
@@ -128,19 +128,6 @@ def paged_kv_error_bound(scale: float, amax: float) -> float:
     exceeds the block's first-write range by (it clips at
     ``127 * scale``)."""
     return scale / 2.0 + max(0.0, amax - 127.0 * scale)
-
-
-def _pick_kernel(kernel: Optional[str], device: torch.device) -> str:
-    """``None`` means the hand-written kernel on a CUDA device and its
-    plain version on the CPU; ``"cuda"`` anywhere else raises."""
-    if kernel is None:
-        kernel = "cuda" if device.type == "cuda" else "torch"
-    if kernel not in ("cuda", "torch"):
-        raise ValueError(f"kernel must be cuda|torch, got {kernel!r}")
-    if kernel == "cuda" and device.type != "cuda":
-        raise ValueError(f"kernel='cuda' needs a CUDA device, got "
-                         f"{device}")
-    return kernel
 
 
 class _PagedModel(nn.Module):
@@ -290,7 +277,7 @@ class PagedDecodeStep(_PagedModel):
                              "(per-position argmax is the verify "
                              "contract)")
         device = resolve_device(device, "PagedDecodeStep")
-        kernel = _pick_kernel(kernel, device)
+        kernel = pick_kernel(kernel, device)
         if pool_dtype not in ("int8", "fp32"):
             raise ValueError(f"pool_dtype must be int8|fp32, got "
                              f"{pool_dtype!r}")
@@ -504,7 +491,7 @@ class PagedRankStep(_PagedModel):
                 "the fused cuda kernel normalizes its softmax; "
                 "page-sharded ranks return flash partials (kernel="
                 "'torch')")
-        kernel = _pick_kernel(kernel, device)
+        kernel = pick_kernel(kernel, device)
         super().__init__(slots, vocab, d, heads, block_size,
                          max_blocks_per_req, chunk, hidden, seed, params,
                          device, False, scale_margin)

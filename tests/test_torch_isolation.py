@@ -53,7 +53,8 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "parallel.ulysses_attention", "parallel.collective_matmul",
                 "parallel.mesh", "device",
                 "cuda_build", "serving.kvcache.sharded",
-                "serving.disagg.spec", "serving.sharded.shard_worker"):
+                "serving.disagg.spec", "serving.sharded.shard_worker",
+                "serving.infer", "parallel.moe", "parallel.train_step"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
 
@@ -94,7 +95,7 @@ COPIES = {
                                       "dense_attention_reference"),
     "serving/api.py": (),
     "serving/disagg/spec.py": (),
-    "serving/executor.py": (),
+    "serving/executor.py": ("LocalExecutor",),
     "serving/kvcache/allocator.py": (),
     "serving/kvcache/executor.py": ("PagedKVExecutor",),
     "serving/kvcache/sharded.py": ("_on_stream", "_dev", "_after",
