@@ -190,6 +190,22 @@ Phases, each of which raises on failure:
                none. A line a lane (steps, wall, ms a step, tokens/s,
                launches, peak device memory), then one profiled
                pipelined run: the idle share and device time by kernel.
+ 15. train   — the GPipe training step (``make_train_step``: 4 stages
+               pipelined over M = 4 microbatches, the dense pair cut over
+               tp = 2, each stage's Switch MoE over ep = 8 ranks sharing
+               the card, the loss, its gradient by autograd, SGD) at
+               phase 14's widths and seed, microbatches of 2 sequences of
+               64 tokens, capacity factor 1 (rows dropped): kernel-10
+               launches 2 x S x M in a forward and 4 x S x M in a step
+               (each exchange's backward is one more launch), loss and
+               every gradient leaf with kernel 10 == the plain
+               exchange's bit for bit, the loss within the stated bar of
+               the port's dense twin (``dense_loss_reference``), 5
+               repeated steps bitwise, the loss descending over 3 steps;
+               kernel 10 forward and backward at the step's exchange
+               shape against plain; step time by events (kernel and
+               plain exchange in turns), the host's time, peak memory,
+               and one profiled step.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -198,7 +214,9 @@ f32 under the contract's keys and bf16 under the same keys prefixed
 ``bf16_``; the paged-attention record adds ``sharded_launches``, phase
 13's head lanes' launches, and the all-to-all's adds ``moe_launches``,
 phase 14's ep = 8 kernel lanes' launches, with its ``moe_`` times at the
-MoE's shape); the last line is
+MoE's shape, and ``train_launches``, phase 15's launches in one training
+step, with its ``train_`` times at the step's exchange shape); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -218,6 +236,7 @@ import sys
 import threading
 import time
 import urllib.request
+import weakref
 
 import numpy as np
 
@@ -2855,6 +2874,23 @@ ROW_REPEATS = 20
 # shapes, 4 stages deep, values of order 1.
 ROW_DENSE_ATOL = 1e-4
 
+# Phase 15: the GPipe training step at phase 14's widths and seed: pp = 4
+# stages (the same 4 of 32 layers), tp = 2 (w1 cut on its columns, w2 on
+# its rows), ep = 8; M = 4 microbatches of 2 sequences of 64 tokens, so a
+# rank routes 16 rows (2 sequences x 8 tokens) and the exchanges carry
+# [8 x 8 x C, 4096] f32; capacity factor 1: C = 2, rows dropped.
+TRAIN_MESH = {"dp": 1, "pp": 4, "sp": 1, "tp": 2, "ep": 8}
+TRAIN_BATCH = (4, 2, 64)  # M, mb, seq
+TRAIN_CF = 1.0
+TRAIN_LR = 0.05
+TRAIN_STEPS = 3
+TRAIN_REPEATS = 5
+TRAIN_TIMED = 3
+# The kernel step's loss against the port's dense twin on the card (every
+# expert on every row, each piece's capacity reproduced): the bar of the
+# reference's own test of its distributed loss against its twin.
+TRAIN_DENSE_RTOL = 2e-5
+
 
 def row_bodies(prompts):
     return [{"prompt": p, "max_tokens": ROW_TOKENS, "deadline_ms": 600000}
@@ -3088,6 +3124,12 @@ def row_lane(torch, card, label, params, mesh, mode, kernel, prompts):
         results = post_all(srv.url, row_bodies(prompts), sent=sent)
     finally:
         srv.stop()
+        # Each seam above holds the bound method it wraps, a cycle through
+        # its object: undo them, so that dropping the executor frees its
+        # device memory without the cycle collector.
+        for obj, name in ((ex, "submit"), (ex, "step"), (srv.queue, "submit"),
+                          (srv._httpd, "process_request")):
+            vars(obj).pop(name, None)
     wall = time.monotonic() - t0
     torch.cuda.synchronize()
     stats["launches"] = rp.all_to_all_cuda.launches
@@ -3143,13 +3185,18 @@ def row_profile(torch, card, ex, prompts):
             srv.stop()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
+    log_a2a_profile(card, "rows profile pipelined ep=8", prof, wall_ms)
+
+
+def log_a2a_profile(card, label, prof, wall_ms):
+    """Log a profiled run's device busy time against its wall, kernel 10's
+    share and the ten kernels that took the most device time."""
     rows, busy_ms = device_rows(prof)
-    check(busy_ms > 0, "rows profile: no device time recorded")
+    check(busy_ms > 0, f"{label}: no device time recorded")
     a2a = [r for r in rows if "all_to_all" in r[2]]
-    a2a_ms = sum(r[0] for r in a2a) / 1e3
-    log(f"rows profile pipelined ep=8: device busy {busy_ms:.1f} ms of "
-        f"{wall_ms:.1f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}, "
-        f"profiled); kernel 10 {a2a_ms:.3f} ms over "
+    log(f"{label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}, profiled); kernel 10 "
+        f"{sum(r[0] for r in a2a) / 1e3:.3f} ms over "
         f"{sum(r[1] for r in a2a)} launches [{card}]")
     for us, count, key in rows[:10]:
         log(f"  {us / 1e3:10.3f} ms {us / 1e3 / busy_ms:6.3f}  x{count:<6d} "
@@ -3168,22 +3215,20 @@ def phase_rows(torch, card, record):
     from dpu_operator_tpu_torch.serving import ServingServer, infer
 
     S, d, h, E = (ROW_MODEL[k] for k in ("S", "d", "h", "E"))
-    # Earlier phases' stopped ServingServers are unreachable but not yet
-    # freed: each sits in a reference cycle (the server -> its HTTP
-    # server -> the handler class -> the handlers' closure cell -> the
-    # server; ROADMAP.md queue 3, Q3-2) that holds its pool's executors
-    # and their device tensors until the cycle collector runs. Collect
-    # them, so that the lanes' peaks are this phase's.
-    def servers():
-        return sum(isinstance(o, ServingServer) for o in gc.get_objects())
-
-    held, before = torch.cuda.memory_allocated() / 1e9, servers()
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"rows: {held:.3f} GB allocated on entry with {before} stopped "
-        f"ServingServers alive in cycles, "
-        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB and {servers()} "
-        f"after gc.collect() [{card}]")
+    # What earlier phases leave allocated, with no collect: a stopped,
+    # dropped ServingServer is freed by reference counting (its HTTP
+    # handler holds it weakly), with its pool's executors and their device
+    # tensors, so none should be alive here.
+    objs = gc.get_objects()
+    servers = sum(type(o) is ServingServer for o in objs)
+    held = sorted(((o.numel() * o.element_size(), tuple(o.shape), o.dtype)
+                   for o in objs if type(o) is torch.Tensor and o.is_cuda),
+                  key=lambda t: t[0], reverse=True)
+    del objs
+    log(f"rows: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated on "
+        f"entry with {servers} ServingServers alive; Python's tensors on "
+        f"the card: {len(held)}, {sum(t[0] for t in held) / 1e9:.3f} GB, the "
+        f"largest {[t[1:] for t in held[:4]]} [{card}]")
     t0 = time.monotonic()
     params = ts.init_params(S, d, h, E, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -3220,12 +3265,14 @@ def phase_rows(torch, card, record):
     prompts = [f"rows request {i}" for i in range(ROW_REQUESTS)]
     lanes = {}
     profiled = None
+    executors = []
     for label, mode, kernel in (("ep=8 pipelined", "pipelined", "cuda"),
                                 ("ep=8 sync", "sync", "cuda"),
                                 ("ep=8 pipelined torch", "pipelined",
                                  "torch")):
         streams, st, ex = row_lane(torch, card, label, params, mesh, mode,
                                    kernel, prompts)
+        executors.append(weakref.ref(ex))
         want = 2 * S * st["steps"] if kernel == "cuda" else 0
         check(st["launches"] == want and st["steps"] > 0,
               f"rows {label}: {st['launches']} kernel-10 launches for "
@@ -3256,12 +3303,246 @@ def phase_rows(torch, card, record):
                            infer.serving_mesh(), "pipelined", None, prompts)
     check(st1["launches"] == 0, f"rows ep=1: {st1['launches']} kernel-10 "
           f"launches (a ring of one launches none)")
+    executors.append(weakref.ref(ex1))
     del ex1, p1, params
+    alive = sum(r() is not None for r in executors)
+    check(not alive, f"rows: {alive} of {len(executors)} served "
+          f"LocalExecutors outlive their stopped servers and their last "
+          f"reference")
     torch.cuda.empty_cache()
+    log(f"rows: the {len(executors)} served LocalExecutors freed with their "
+        f"stopped servers, no collect; {torch.cuda.memory_allocated() / 1e9:.3f}"
+        f" GB left allocated [{card}]")
     record.update(moe_launches=served, moe_ms=ms, moe_bound_ms=bound,
                   moe_plain_ms=plain_ms, moe_library_ms=library_ms,
                   moe_step_ms=step_ms["cuda"])
     return served
+
+
+def train_step_times(torch, step, params, x, tgt):
+    """(device ms by events, host ms to return, peak GB) of ``step(params,
+    x, tgt)``: medians of ``TRAIN_TIMED`` steps, each between a
+    synchronisation and two CUDA events, and the largest step's peak (the
+    peak statistics reset before each); the new weights are dropped at
+    once."""
+    dev, host, peak = [], [], 0.0
+    for _ in range(TRAIN_TIMED):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        _, new = step(params, x, tgt)
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b))
+        del new
+        peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+    return statistics.median(dev), statistics.median(host), peak
+
+
+def train_exchange(torch, card, moe, rp, E, rows, width):
+    """Kernel 10 at the training step's exchange shape, forward and
+    backward through ``moe.kernel_exchange``: the gradient equals the
+    plain exchange of the incoming one bit for bit; each direction timed
+    (one launch), the plain version and the library's transpose beside
+    them. Returns the numbers for kernel 10's record."""
+    x = coll_payload(torch, rows, width, torch.float32, seed=43)
+    g = coll_payload(torch, rows, width, torch.float32, seed=44)
+    xr = x.clone().requires_grad_()
+    y = moe.kernel_exchange(xr, E)
+    (gx,) = torch.autograd.grad(y, xr, g, retain_graph=True)
+    check(same_bits(torch, y.detach(), rp.all_to_all_plain(x, E))
+          and same_bits(torch, gx, rp.all_to_all_plain(g, E)),
+          "train all-to-all: kernel forward or backward != plain")
+    fwd = time_ms(torch, lambda: moe.kernel_exchange(xr, E), n=10, warm=2)
+    bwd = time_ms(torch, lambda: torch.autograd.grad(
+        y, xr, g, retain_graph=True), n=10, warm=2)
+    plain = time_ms(torch, lambda: rp.all_to_all_plain(x, E), n=5, warm=1,
+                    batch=2)
+    library = time_ms(torch, lambda: x.view(E, E, rows // E // E, width)
+                      .transpose(0, 1).contiguous(), n=10, warm=2)
+    nbytes = x.numel() * x.element_size()
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"train all_to_all [{rows}, {width}] f32 n={E} (blocks of "
+        f"{rows // E // E} rows): forward {fwd:.4f} ms, backward (autograd, "
+        f"one launch on the gradient) {bwd:.4f} ms, gradient == plain "
+        f"exchange of the cotangent bit for bit; plain {plain:.4f} ms, "
+        f"view().transpose().contiguous() {library:.4f} ms, bound "
+        f"{bound:.4f} ms ({nbytes} B read and written) [{card}]")
+    return dict(train_ms=fwd, train_bwd_ms=bwd, train_plain_ms=plain,
+                train_library_ms=library, train_bound_ms=bound)
+
+
+def train_profile(torch, card, step, params, x, tgt):
+    """One kernel step under ``torch.profiler``: device busy time against
+    the wall, and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        _, new = step(params, x, tgt)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    del new
+    log_a2a_profile(card, "train profile, one kernel step", prof, wall_ms)
+
+
+def phase_train(torch, card, record):
+    """The GPipe training step (``make_train_step``: the pipelined forward
+    over 4 stages, the tp = 2 dense pair, each stage's Switch MoE over 8
+    ep ranks with its two exchanges on kernel 10, the loss, its gradient,
+    SGD) at phase 14's widths and seed: launches in a step against 4 x the
+    step's MoE calls, loss and every gradient leaf with kernel 10 == the
+    plain exchange's bit for bit, the loss against the dense twin,
+    repeats bitwise, the loss descending over three steps, step time and
+    peak memory. Adds the training numbers to kernel 10's ``record``."""
+    from dpu_operator_tpu_torch.parallel import moe
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.parallel import train_step as ts
+
+    S, d, h, E = (ROW_MODEL[k] for k in ("S", "d", "h", "E"))
+    mesh = dict(TRAIN_MESH)
+    check(mesh["pp"] == S and mesh["ep"] == E, "train mesh != phase 14's")
+    M, mb, seq = TRAIN_BATCH
+    torch.cuda.empty_cache()  # earlier phases' cached blocks, fragmented
+    log(f"train: {torch.cuda.memory_allocated() / 1e9:.3f} GB allocated on "
+        f"entry [{card}]")
+    peaks = []
+
+    def peak():  # the peak since the last call, in GB
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        return peaks[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = ts.init_params(S, d, h, E, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((M, mb, seq, d), generator=gen, device="cuda")
+    tgt = torch.randn((M, mb, seq, d), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    log(f"train: weights {nbytes / 1e9:.3f} GB f32 (phase 14's, seed 0), x "
+        f"and target [{M}, {mb}, {seq}, {d}], mesh {mesh}, capacity factor "
+        f"{TRAIN_CF:g}, drawn in {time.monotonic() - t0:.1f} s [{card}]")
+    step_k, loss_k = ts.make_train_step(mesh, capacity_factor=TRAIN_CF,
+                                        lr=TRAIN_LR, kernel="cuda",
+                                        device="cuda")
+    step_p, loss_p = ts.make_train_step(mesh, capacity_factor=TRAIN_CF,
+                                        lr=TRAIN_LR, kernel="torch",
+                                        device="cuda")
+    sizes = ts._mesh_sizes(mesh)
+    rows = mb * seq // E
+    C = math.ceil(rows / E * TRAIN_CF)
+    with torch.no_grad():  # the first stage's routing of microbatch 0
+        x0 = ts._token_groups(x, sizes, True)[0]
+        y0 = torch.tanh(torch.relu(x0 @ params["w1"][0]) @ params["w2"][0])
+        dropped = int((moe.route(y0, params["router"][0],
+                                 capacity_factor=TRAIN_CF)["keep"] == 0)
+                      .sum())
+    check(dropped > 0, f"train: no assignment dropped at C = {C}")
+
+    # The main path's counts: a forward, then a step's value and gradient.
+    rp.all_to_all_cuda.launches = 0
+    with torch.no_grad():
+        loss_fwd = loss_k(params, x, tgt)
+    torch.cuda.synchronize()
+    fwd = rp.all_to_all_cuda.launches
+    rp.all_to_all_cuda.launches = 0
+    t0 = time.monotonic()
+    lk, gk = ts.value_and_grad(loss_k, params, x, tgt)
+    torch.cuda.synchronize()
+    first_s = time.monotonic() - t0
+    launches = rp.all_to_all_cuda.launches
+    calls = S * M
+    check(fwd == 2 * calls and launches == 4 * calls,
+          f"train: {fwd} kernel-10 launches in a forward, {launches} in a "
+          f"step (want 2 and 4 x {calls} MoE calls)")
+    lp, gp = ts.value_and_grad(loss_p, params, x, tgt)
+    torch.cuda.synchronize()
+    check(rp.all_to_all_cuda.launches == launches,
+          "train: the plain exchange launched the kernel")
+    check(same_bits(torch, lk, loss_fwd), "train: the loss under autograd "
+          "differs from the forward's bits")
+    check(same_bits(torch, lk, lp), f"train: loss {float(lk)!r} with kernel "
+          f"10, {float(lp)!r} with the plain exchange")
+    differ = [k for k in gk if not same_bits(torch, gk[k], gp[k])]
+    check(not differ, f"train: gradients differ between kernel 10 and the "
+          f"plain exchange in {differ}")
+    for k, g in gk.items():
+        check(g.shape == params[k].shape and bool(torch.isfinite(g).all()),
+              f"train: gradient {k} {tuple(g.shape)} not finite")
+    norms = ", ".join(f"{k} {float(g.norm()):.4e}" for k, g in gk.items())
+    del gk, gp
+    check_gb = peak()
+    log(f"train: C = {C} ({dropped} of {E * rows} first-stage assignments "
+        f"of microbatch 0 dropped); kernel-10 launches {fwd} in a forward "
+        f"and {launches} in a step (4 x {calls} MoE calls, the backward "
+        f"one launch an exchange); loss {float(lk)!r} and all "
+        f"{len(params)} gradient leaves == the plain exchange's bit for "
+        f"bit (gradient norms: {norms}); first step {first_s:.2f} s; peak "
+        f"{check_gb:.3f} GB with both gradient sets [{card}]")
+    with torch.no_grad():
+        dense = ts.dense_loss_reference(params, x, tgt,
+                                        capacity_factor=TRAIN_CF,
+                                        shards=mesh)
+    rel = abs(float(lk) - float(dense)) / abs(float(dense))
+    check(rel <= TRAIN_DENSE_RTOL, f"train: loss {float(lk)!r} against the "
+          f"dense twin's {float(dense)!r}: rel {rel:.3e} > "
+          f"{TRAIN_DENSE_RTOL}")
+    log(f"train: the dense twin's loss {float(dense)!r}, relative "
+        f"difference {rel:.3e} (bar {TRAIN_DENSE_RTOL}) [{card}]")
+    record.update(train_exchange(torch, card, moe, rp, E, E * E * C, d))
+
+    times = {}
+    for kernel in ("cuda", "torch", "torch", "cuda"):
+        step = step_k if kernel == "cuda" else step_p
+        times.setdefault(kernel, []).append(
+            train_step_times(torch, step, params, x, tgt))
+    peaks.extend(r[2] for runs in times.values() for r in runs)
+    for kernel, runs in times.items():
+        log(f"train step ({'kernel 10' if kernel == 'cuda' else 'plain'} "
+            f"exchange), two turns: device "
+            + ", ".join(f"{r[0]:.3f}" for r in runs) + " ms by events; the "
+            f"host returns in " + ", ".join(f"{r[1]:.3f}" for r in runs)
+            + " ms; peak " + ", ".join(f"{r[2]:.3f}" for r in runs)
+            + f" GB [{card}]")
+    train_profile(torch, card, step_k, params, x, tgt)
+
+    torch.cuda.empty_cache()
+    first_loss, first = step_k(params, x, tgt)
+    for i in range(TRAIN_REPEATS):
+        again_loss, again = step_k(params, x, tgt)
+        check(same_bits(torch, again_loss, first_loss)
+              and all(same_bits(torch, again[k], first[k]) for k in first),
+              f"train repeat {i}: the step differs from the first's bits")
+        del again
+    del params
+    losses, current = [float(first_loss)], first
+    for _ in range(TRAIN_STEPS - 1):
+        loss, current = step_k(current, x, tgt)
+        losses.append(float(loss))
+    with torch.no_grad():
+        losses.append(float(loss_k(current, x, tgt)))
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"train: the loss does not descend: {losses}")
+    del first, current
+    peak()
+    torch.cuda.empty_cache()
+    log(f"train: {TRAIN_REPEATS} repeated steps bitwise the first; loss over "
+        f"{TRAIN_STEPS} steps (lr {TRAIN_LR}) and after: "
+        + " > ".join(repr(v) for v in losses)
+        + f"; peak device memory in the phase {max(peaks):.3f} GB "
+        f"[{card}]")
+    record.update(train_launches=launches,
+                  train_step_ms=statistics.median(
+                      r[0] for r in times["cuda"]),
+                  train_peak_gb=max(peaks))
 
 
 def main() -> int:
@@ -3314,6 +3595,7 @@ def main() -> int:
     record["sharded_launches"] = phase_shard(
         torch, card, {"int8": serve_streams, "fp32": spec_gold})
     phase_rows(torch, card, a2a)
+    phase_train(torch, card, a2a)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

@@ -13,9 +13,22 @@ index r). The ranks' ``[E, C, d]`` dispatch buckets, stacked, are one
 ``[E·E·C, d]`` tensor: rank s's shard its ``[E·C, d]``, cut into E blocks
 of C rows, block r for expert r. That is exactly the all-to-all's input,
 so each of the two exchanges is one call over all ranks:
-``ring_probe.all_to_all_cuda`` (one launch of ``csrc/all_to_all.cu``, the
-counterpart of the reference's ``lax.all_to_all(disp, "ep", 0, 0,
-tiled=True)``) or ``all_to_all_plain``, each with ``n = E``.
+``kernel_exchange`` (one launch of ``csrc/all_to_all.cu`` through
+``ring_probe.all_to_all_cuda``, the counterpart of the reference's
+``lax.all_to_all(disp, "ep", 0, 0, tiled=True)``) or ``all_to_all_plain``,
+each with ``n = E``. The training step stacks G further row groups (its dp
+and sp ranks) in front: y ``[G, E, rows, d]``, each group routing its own
+tokens into its own buckets. The groups fold into the exchange's width:
+laid out ``[E·E·C, G·d]``, one call moves every group's blocks, since the
+all-to-all permutes row blocks and each row carries all G groups.
+
+Differentiated, the tiled all-to-all's adjoint is the same all-to-all: its
+block map (source s, block r) -> (rank r, block s) is its own inverse.
+``kernel_exchange`` carries that as a ``torch.autograd.Function``, one
+launch forward and one backward; autograd differentiates the plain version
+directly. The routing (experts, positions, keep, slots) carries no
+gradient; the gate value, the dispatch scatter-add, the expert products
+and the combine's gather do, as under ``jax.grad`` in the reference.
 
 The routing is the reference's, step for step: the capacity ``C =
 ceil(top_k·rows/E·cf)`` a source rank; one priority-ordered assignment
@@ -26,8 +39,10 @@ scatter-add into the buckets, the expert FFN, the gather and the combine.
 
 Every bucket cell receives at most one live value (kept positions are
 unique within an expert's bucket) plus exact zeros, so the scatter-add is
-bitwise the same in any order. The combine sums a token's k ranks in rank
-order, so repeats are bitwise equal on the card for every ``top_k``.
+bitwise the same in any order; so is the combine gather's gradient, a
+scatter-add into the same cells whose dropped assignments carry zero. The
+combine sums a token's k ranks in rank order, so repeats are bitwise equal
+on the card for every ``top_k``.
 
 The expert and router products are plain float32 matmuls, as the
 reference leaves them to XLA: they are no kernel of the reference and
@@ -49,18 +64,41 @@ from .ring_probe import (MAX_RANKS, _ring_setup, all_to_all_cuda,
 Exchange = Callable[[torch.Tensor, int], torch.Tensor]
 
 
+class _KernelExchange(torch.autograd.Function):
+    """Kernel 10 with its gradient: the adjoint of the tiled all-to-all is
+    the same all-to-all of the incoming gradient."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return all_to_all_cuda(x, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all_cuda(grad, ctx.n), None
+
+
+def kernel_exchange(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``all_to_all_cuda(x, n)``, differentiable: one launch forward and,
+    where a gradient is asked for, one launch backward. A ring of one is
+    the identity (no launch either way)."""
+    if n == 1:
+        return all_to_all_cuda(x, n)
+    return _KernelExchange.apply(x, n)
+
+
 def pick_exchange(kernel: str, E: int) -> Exchange:
     """The expert exchange of ``kernel``: ``"cuda"`` launches kernel 10
-    (``all_to_all_cuda``, which takes the plain version itself for a CPU
-    tensor: ``device.pick_kernel`` is what keeps ``"cuda"`` off the CPU),
-    ``"torch"`` runs its plain version. The kernel holds at most
-    ``ring_probe.MAX_RANKS`` ranks: more raise here, at build time."""
+    (``kernel_exchange``, whose ``all_to_all_cuda`` takes the plain version
+    itself for a CPU tensor: ``device.pick_kernel`` is what keeps ``"cuda"``
+    off the CPU), ``"torch"`` runs its plain version. The kernel holds at
+    most ``ring_probe.MAX_RANKS`` ranks: more raise here, at build time."""
     if kernel == "cuda":
         if E > MAX_RANKS:
             raise ValueError(
                 f"ep={E}: the all-to-all kernel holds at most "
                 f"{MAX_RANKS} ranks in one launch")
-        return all_to_all_cuda
+        return kernel_exchange
     return all_to_all_plain
 
 
@@ -77,30 +115,30 @@ def top_k_experts(gate: torch.Tensor, top_k: int):
 
 def route(y: torch.Tensor, router_w: torch.Tensor, *,
           capacity_factor: float, top_k: int = 1, row_mask=None) -> dict:
-    """The routing of ``switch_moe_local`` for ranks stacked as y [E, rows,
-    d]: ``C``; the priority-ordered stream's ``expert`` [E, k·rows]
-    (rank r of token i at ``r·rows + i``), ``gate`` (raw for k = 1,
-    renormalized over the chosen k otherwise), ``pos`` (int32 position in
-    the expert's bucket), ``keep`` (y's dtype) and ``slot`` (``pos``
-    clipped to C - 1)."""
+    """The routing of ``switch_moe_local`` for ranks stacked as y [..., E,
+    rows, d] (each leading index a source rank of its own): ``C``; the
+    priority-ordered stream's ``expert`` [..., E, k·rows] (rank r of token
+    i at ``r·rows + i``), ``gate`` (raw for k = 1, renormalized over the
+    chosen k otherwise), ``pos`` (int32 position in the expert's bucket),
+    ``keep`` (y's dtype) and ``slot`` (``pos`` clipped to C - 1)."""
     E = router_w.shape[1]
-    rows = y.shape[1]
+    lead, rows = y.shape[:-2], y.shape[-2]
     C = int(math.ceil(top_k * rows / E * capacity_factor))
-    gate = torch.softmax(y @ router_w, dim=-1)               # [E, rows, E]
-    gvals, experts = top_k_experts(gate, top_k)              # [E, rows, k]
+    gate = torch.softmax(y @ router_w, dim=-1)             # [..., rows, E]
+    gvals, experts = top_k_experts(gate, top_k)            # [..., rows, k]
     if top_k > 1:
         gvals = gvals / gvals.sum(dim=-1, keepdim=True)
-    expert_all = experts.transpose(1, 2).reshape(y.shape[0], -1)
-    gate_all = gvals.transpose(1, 2).reshape(y.shape[0], -1)
+    expert_all = experts.transpose(-1, -2).reshape(*lead, -1)
+    gate_all = gvals.transpose(-1, -2).reshape(*lead, -1)
     onehot = (expert_all[..., None] == torch.arange(
-        E, device=y.device)).to(y.dtype)                     # [E, k·rows, E]
+        E, device=y.device)).to(y.dtype)                   # [..., k·rows, E]
     mask_all = None
     if row_mask is not None:
         # Masked rows take no position (consume no capacity) and, with
         # keep zeroed below, leave dispatch and combine.
-        mask_all = row_mask.to(y.dtype).repeat(1, top_k)
+        mask_all = row_mask.to(y.dtype).repeat(*[1] * len(lead), top_k)
         onehot = onehot * mask_all[..., None]
-    pos = torch.cumsum(onehot, dim=1) - onehot
+    pos = torch.cumsum(onehot, dim=-2) - onehot
     pos_a = (pos * onehot).sum(dim=-1).to(torch.int32)
     keep = (pos_a < C).to(y.dtype)
     if mask_all is not None:
@@ -115,33 +153,40 @@ def switch_moe_local(y: torch.Tensor, router_w: torch.Tensor,
                      row_mask: Optional[torch.Tensor] = None,
                      exchange: Exchange = all_to_all_plain) -> torch.Tensor:
     """The MoE block of E ranks stacked on one device: y [E, rows, d] (rank
-    r's local tokens at ``y[r]``), router_w [d, E], w1 [E, d, h] and w2
-    [E, h, d] (rank r's expert at index r); returns [E, rows, d].
-    ``row_mask`` ([E, rows] 0/1, optional) drops rows from routing
-    entirely: no bucket position, zero output. ``exchange(x, n)`` is the
-    all-to-all of n ranks on x [n·rows, W] (``pick_exchange``)."""
-    R, rows, d = y.shape
+    r's local tokens at ``y[r]``), or [G, E, rows, d] for G groups of E
+    ranks, each group routing its own tokens; router_w [d, E], w1 [E, d, h]
+    and w2 [E, h, d] (rank r's expert at index r, shared by the groups);
+    returns y's shape. ``row_mask`` (y's shape without d, 0/1, optional)
+    drops rows from routing entirely: no bucket position, zero output.
+    ``exchange(x, n)`` is the all-to-all of n ranks on x [n·rows, W]
+    (``pick_exchange``), called twice whatever G."""
+    R, rows, d = y.shape[-3:]
+    G = math.prod(y.shape[:-3])
+    yg = y.reshape(G, R, rows, d)
     E = router_w.shape[1]
-    rt = route(y, router_w, capacity_factor=capacity_factor, top_k=top_k,
-               row_mask=row_mask)
+    rt = route(yg, router_w, capacity_factor=capacity_factor, top_k=top_k,
+               row_mask=None if row_mask is None
+               else row_mask.reshape(G, R, rows))
     C = rt["C"]
     tok_all = torch.arange(rows, device=y.device).repeat(top_k)
-    # Linear bucket cell of each assignment in the stacked [R, E, C]
-    # buckets of every source rank.
+    # Linear bucket cell of each assignment: row (source, expert, slot) of
+    # the stacked [R·E·C] buckets, column block g of the exchange's G·d.
     base = torch.arange(R, device=y.device)[:, None] * (E * C)
-    cell = (base + rt["expert"] * C + rt["slot"]).reshape(-1)
-    sent = (y[:, tok_all] * rt["keep"][..., None]).reshape(-1, d)
-    disp = y.new_zeros((R * E * C, d)).index_add_(0, cell, sent)
-    recv = exchange(disp, E)            # rank r: [E sources, C, d]
-    hid = torch.relu(torch.bmm(recv.view(R, E * C, d), w1))
-    out = torch.bmm(hid, w2).reshape(R * E * C, d)
-    back = exchange(out, E)             # rank r: [E experts, C, d]
-    contrib = (back.index_select(0, cell).view(R, top_k * rows, d)
+    row = base + rt["expert"] * C + rt["slot"]
+    cell = (row * G + torch.arange(G, device=y.device)[:, None, None]
+            ).reshape(-1)
+    sent = (yg[:, :, tok_all] * rt["keep"][..., None]).reshape(-1, d)
+    disp = y.new_zeros((R * E * C * G, d)).index_add_(0, cell, sent)
+    recv = exchange(disp.view(R * E * C, G * d), E)  # rank r: [E srcs, C]
+    hid = torch.relu(torch.bmm(recv.view(R, E * C * G, d), w1))
+    out = torch.bmm(hid, w2).reshape(R * E * C, G * d)
+    back = exchange(out, E).view(R * E * C * G, d)   # rank r: [E experts]
+    contrib = (back.index_select(0, cell).view(G, R, top_k * rows, d)
                * (rt["gate"] * rt["keep"])[..., None])
-    moe = torch.zeros_like(y)
+    moe = torch.zeros_like(yg)
     for r in range(top_k):  # ranks summed in order: repeats are bitwise
-        moe = moe + contrib[:, r * rows:(r + 1) * rows]
-    return moe
+        moe = moe + contrib[:, :, r * rows:(r + 1) * rows]
+    return moe.view(y.shape)
 
 
 def _check_experts(E: int, axis: str, w1: torch.Tensor, w2: torch.Tensor,

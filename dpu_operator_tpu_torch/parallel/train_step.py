@@ -1,43 +1,65 @@
-"""The five-axis model's forward stage: the part of the training step that
-the serving plane runs.
+"""The five-axis training step: dp × pp × sp × tp × ep in one program.
 
-Counterpart of the forward half of the JAX package's
-``parallel/train_step.py``: the axis names, the stage-stacked parameters
-(a dense pair sharded over ``tp``, a router, and ``ep`` experts a stage),
-which axis shards each weight, and ``_stage_fn``, one stage's arithmetic:
-``relu(x @ w1) @ w2``, ``tanh``, then a Switch MoE over ``ep``
-(``moe.switch_moe_local``), plus the residual.
+Counterpart of the JAX package's ``parallel/train_step.py``: the axis
+names, the stage-stacked parameters (a dense pair sharded over ``tp``, a
+router, and ``ep`` experts a stage), which axis shards each weight,
+``_stage_fn`` (one stage: ``relu(x @ w1) @ w2`` closed by the tp sum,
+``tanh``, a Switch MoE over ``ep`` (``moe.switch_moe_local``), the
+residual), the GPipe training step (``make_train_step``: the pipelined
+forward, the loss, its gradient, one SGD update) and its single-device
+twin, ``dense_loss_reference``. The serving plane runs ``_stage_fn``
+forward (``serving/infer.py``).
 
-Ranks are stacked on one card, as every multi-rank path of the port runs
-them: a stage's activations are ``[E, rows_local, d]``, one row block a
-``ep`` rank, and its experts are stacked ``[E, d, h]`` / ``[E, h, d]``.
-With ``tp = 1`` the reference's ``psum`` over ``tp`` is the identity. The
-dense products are plain float32 matmuls, as the reference leaves them to
-XLA (hold the two with TF32 off).
+The ranks of every axis are stacked on one card, as every multi-rank path
+of the port runs them:
+
+  pp  the S stages run in GPipe's tick order (``pipeline.run_gpipe``):
+      the reference's ``ppermute`` along the line is a shift along the
+      stage index;
+  tp  w1 is cut on its columns and w2 on its rows into tp shards; each
+      shard's partial ``relu(x @ w1_t) @ w2_t`` is computed and the
+      partials are summed in rank order (the reference's ``psum``). The
+      tp replicas of the rest of the stage are computed once;
+  dp, sp  further row groups: a stage's activations are ``[G, E, rows,
+      d]`` for the G = dp·sp groups of E ``ep`` ranks, each group routing
+      its own tokens through its own MoE buckets. The groups fold into the
+      expert exchanges' width, so each stays one all-to-all (``moe.py``);
+  ep  rank r's tokens at ``[:, r]`` and its expert at index r of the
+      stacked ``[E, d, h]`` / ``[E, h, d]``; each stage's two exchanges
+      launch the CUDA all-to-all on the card, forward and backward.
+
+The dp/sp gradient sync that the reference gets from ``shard_map``'s
+transpose (a replicated input's cotangent is the sum over the axes its
+spec omits) is autograd summing the uses of one shared weight. The dense
+products are plain float32 matmuls, as the reference leaves them to XLA
+(hold the two with TF32 off).
 
 Still to port: the attention branch (``attention=True``: the stage opens
-with causal ring attention over the token axes), the training steps
-(``make_train_step``, ``make_train_step_1f1b``), ``dense_loss_reference``
-and the 1F1B interleaving of the stage stack (``interleave_params``,
-``uninterleave_params``); all wait for the training stack (queue 1 #8).
+with causal ring attention over the token axes), the 1F1B step
+(``make_train_step_1f1b``) and its interleaving of the stage stack
+(``interleave_params``, ``uninterleave_params``); they come with the
+next slice of the training stack.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from .moe import Exchange, _local_chunk, all_to_all_plain, switch_moe_local
+from ..device import pick_kernel, resolve_device
+from .moe import (Exchange, _local_chunk, all_to_all_plain, pick_exchange,
+                  switch_moe_local)
+from .pipeline import run_gpipe
 
 AXES = ("dp", "pp", "sp", "tp", "ep")
 
 _ATTENTION_LATER = (
     "the stage's attention branch (wq/wk/wv) is not ported yet: it comes "
-    "with the training and sequence-parallel stack (queue 1 #8)")
+    "with the next slice of the training stack, the 1F1B schedule and "
+    "causal ring attention over the token axes (queue 1 #8)")
 
 
 def init_params(S: int, d: int, h: int, E: int, seed: int = 0,
@@ -94,13 +116,14 @@ def params_from_numpy(params: Dict[str, np.ndarray], device
 
 def shard_params(params: Dict, mesh: Mapping[str, int], device=None
                  ) -> Dict[str, torch.Tensor]:
-    """Check the weights' shapes against a serving mesh (every dimension
-    a spec shards divides by its axis size, the router is ``ep`` wide)
-    and place them on ``device`` (None means the CUDA card) as float32.
-    A float32 tensor already there is kept, not copied, so executors
-    built from one dict share one set of weights."""
+    """Check the weights' shapes against the five-axis mesh (every
+    dimension a spec shards divides by its axis size, the router is
+    ``ep`` wide) and place them on ``device`` (None means the CUDA card)
+    as float32. A float32 tensor already there is kept, not copied, so
+    executors built from one dict share one set of weights."""
     if "wq" in params:
         raise NotImplementedError(_ATTENTION_LATER)
+    _mesh_sizes(mesh)
     device = resolve_device(device, "shard_params")
     specs = param_specs()
     out = {}
@@ -124,19 +147,30 @@ def shard_params(params: Dict, mesh: Mapping[str, int], device=None
     return out
 
 
+def _mesh_sizes(mesh: Mapping[str, int]) -> Dict[str, int]:
+    """The five axis sizes of ``mesh``; an axis missing raises."""
+    missing = [a for a in AXES if a not in mesh]
+    if missing:
+        raise ValueError(f"mesh {dict(mesh)} lacks the axes {missing}: the "
+                         f"step's mesh names all of {AXES}")
+    return {a: int(mesh[a]) for a in AXES}
+
+
 def _stage_fn(p, x, *, E: int, tp_axis: str, ep_axis: str,
               capacity_factor: float, seq_shape=None, attn_axes=None,
               attn_ring: int = 1, row_mask=None,
-              exchange: Exchange = all_to_all_plain):
-    """One stage over the E ``ep`` ranks stacked on one device: the
-    Megatron-paired dense block (tp = 1, so its closing psum is the
-    identity), then a Switch MoE over the ranks (moe.switch_moe_local,
-    the one copy of the bucketing math), plus the residual. x: [E,
-    rows_local, d]; p: one stage's weights, experts stacked [E, d, h];
-    ``exchange`` is the MoE's all-to-all (``moe.pick_exchange``).
-    ``tp_axis``, ``ep_axis``, ``seq_shape``, ``attn_axes`` and
-    ``attn_ring`` keep the reference's signature; a ``p`` that carries
-    the attention branch raises."""
+              exchange: Exchange = all_to_all_plain, tp: int = 1):
+    """One stage over the ranks stacked on one device: the Megatron-paired
+    dense block (w1 cut on its columns and w2 on its rows into ``tp``
+    shards, the shards' partials summed in rank order: the reference's
+    psum; tp = 1 is one product), then a Switch MoE over the E ``ep``
+    ranks (moe.switch_moe_local, the one copy of the bucketing math), plus
+    the residual. x: [E, rows_local, d], or [G, E, rows_local, d] for G
+    row groups (the training step's dp and sp ranks); p: one stage's
+    weights, experts stacked [E, d, h]; ``exchange`` is the MoE's
+    all-to-all (``moe.pick_exchange``). ``tp_axis``, ``ep_axis``,
+    ``seq_shape``, ``attn_axes`` and ``attn_ring`` keep the reference's
+    signature; a ``p`` that carries the attention branch raises."""
     experts = p["moe_w1"].shape[0]
     if experts != E or p["moe_w2"].shape[0] != E:
         raise ValueError(
@@ -149,10 +183,194 @@ def _stage_fn(p, x, *, E: int, tp_axis: str, ep_axis: str,
             f"tokens routed past the mesh would silently drop")
     if "wq" in p:
         raise NotImplementedError(_ATTENTION_LATER)
-    h = torch.relu(x @ p["w1"])             # [E, rows, h]
-    y = torch.tanh(h @ p["w2"])
+    width = p["w1"].shape[1]
+    if width % tp:
+        raise ValueError(f"w1 width {width} does not shard over "
+                         f"{tp_axis}={tp}")
+    dense = None
+    for w1, w2 in zip(p["w1"].split(width // tp, dim=1),
+                      p["w2"].split(width // tp, dim=0)):
+        part = torch.relu(x @ w1) @ w2      # this tp rank's partial
+        dense = part if dense is None else dense + part
+    y = torch.tanh(dense)
     moe_out = switch_moe_local(
         y, p["router"], p["moe_w1"], p["moe_w2"],
         capacity_factor=capacity_factor, row_mask=row_mask,
         exchange=exchange)
     return y + moe_out  # residual keeps gradients flowing past drops
+
+
+def _token_groups(t: torch.Tensor, sizes: Mapping[str, int],
+                  token_shard_ep: bool) -> torch.Tensor:
+    """x or target [M, mb, seq, d] as the stacked ranks hold it: [M, G, E,
+    rows, d]. mb splits over dp and seq over ("sp", "ep"), sp-major (over
+    sp alone, each ep rank holding its sp shard whole, when not
+    ``token_shard_ep``); group g = dp_rank·sp + sp_rank; a rank's rows are
+    its microbatch rows, each its sequence piece in order (the
+    reference's ``x_loc.reshape(M, rows, d)``)."""
+    M, mb, seq, d = t.shape
+    dp, sp, E = sizes["dp"], sizes["sp"], sizes["ep"]
+    cuts = sp * (E if token_shard_ep else 1)
+    if mb % dp or seq % cuts:
+        raise ValueError(
+            f"x {tuple(t.shape)}: mb {mb} must split over dp={dp} and seq "
+            f"{seq} over {cuts} token shards")
+    g = t.reshape(M, dp, mb // dp, cuts, seq // cuts, d)
+    g = g.permute(0, 1, 3, 2, 4, 5).reshape(
+        M, dp * sp, cuts // sp, (mb // dp) * (seq // cuts), d)
+    if not token_shard_ep:  # every ep rank routes all its sp shard's tokens
+        g = g.expand(M, dp * sp, E, *g.shape[3:])
+    return g
+
+
+def value_and_grad(loss_fn: Callable, params: Mapping[str, torch.Tensor],
+                   x, tgt):
+    """``(loss, grads)`` of ``loss_fn(params, x, tgt)``, the gradient by
+    ``torch.autograd.grad``: ``jax.value_and_grad`` over the params."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        loss = loss_fn(leaves, x, tgt)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def make_train_step(mesh: Mapping[str, int], capacity_factor: float = 4.0,
+                    lr: float = 0.05, token_shard_ep: bool = True,
+                    attention: bool = False, *,
+                    kernel: Optional[str] = None, device=None):
+    """Returns (train_step, loss_fn) on ``device``.
+
+    ``loss_fn(params, x, tgt)`` runs the GPipe forward over the pp stages
+    and returns ``sum((out - tgt)²) / n_global / d`` (n_global = M·mb·seq
+    rows) summed over ("pp", "dp", "sp", "ep"), or ("pp", "dp", "sp") when
+    not ``token_shard_ep``: the tp replicas are counted once. x and target
+    are [M, mb, seq, d] microbatches, mb split over dp and seq over ("sp",
+    "ep"), so every ep rank routes distinct tokens; ``token_shard_ep=False``
+    keeps the reference's replicated-ep program, where each ep rank routes
+    every token of its sp shard. ``train_step(params, x, tgt)`` returns
+    ``(loss, new_params)``: the gradient by autograd (every expert
+    exchange differentiated as the same exchange) and ``new = p − lr·g``.
+
+    Params are the stage-stacked ``init_params`` layout on ``device``
+    (``shard_params``) with S == mesh["pp"] stages. ``mesh`` maps all five
+    axis names to sizes. ``kernel`` is ``"cuda"`` (the default on a CUDA
+    device: the expert exchanges launch the all-to-all kernel, forward and
+    backward, at ep > 1) or ``"torch"`` (the default on the CPU: its plain
+    version); ``device`` None means the CUDA card, and raises without one.
+    ``attention=True`` raises: the attention branch comes with the next
+    slice."""
+    if attention:
+        raise NotImplementedError(_ATTENTION_LATER)
+    sizes = _mesh_sizes(mesh)
+    device = resolve_device(device, "make_train_step")
+    kernel = pick_kernel(kernel, device)
+    loss_fn = _make_loss(sizes, capacity_factor, token_shard_ep,
+                         pick_exchange(kernel, sizes["ep"]), device)
+
+    def train_step(params, x, tgt):
+        loss, grads = value_and_grad(loss_fn, params, x, tgt)
+        # p − lr·g, written over g's own storage (lr·g rounded, then the
+        # difference, as the reference computes it): the update needs no
+        # memory beyond the weights and their gradients.
+        new = {k: torch.sub(params[k].detach(), g.mul_(lr), out=g)
+               for k, g in grads.items()}
+        return loss, new
+
+    return train_step, loss_fn
+
+
+def _make_loss(sizes: Mapping[str, int], capacity_factor: float,
+               token_shard_ep: bool, exchange: Exchange,
+               device: torch.device):
+    """``make_train_step``'s loss_fn with its expert exchange given."""
+    S, E, tp = sizes["pp"], sizes["ep"], sizes["tp"]
+
+    def loss_fn(params, x, tgt):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+        tgt = torch.as_tensor(tgt, dtype=torch.float32, device=device)
+        for name, t in params.items():
+            if t.device != device:
+                raise ValueError(f"{name} is on {t.device}; this step runs "
+                                 f"on {device}")
+            if t.shape[0] != S:
+                raise ValueError(
+                    f"{name} stacks {t.shape[0]} stages; the GPipe step "
+                    f"runs one a pp rank, pp={S}")
+        M, mb, seq, d = x.shape
+        x_g = _token_groups(x, sizes, token_shard_ep)
+        t_g = _token_groups(tgt, sizes, token_shard_ep)
+        # Each stage's weights cut from the stacks once: the M uses of a
+        # stage then sum their gradients at the stage's size, and one
+        # stack a weight makes the stacked gradient.
+        stages = [dict(zip(params, vals)) for vals in
+                  zip(*(v.unbind(0) for v in params.values()))]
+
+        def stage(s, h):
+            return _stage_fn(stages[s], h, E=E, tp_axis="tp", ep_axis="ep",
+                             capacity_factor=capacity_factor,
+                             exchange=exchange, tp=tp)
+
+        out = torch.stack(run_gpipe(stage, list(x_g), S))
+        if not token_shard_ep:  # the ep replicas are counted once
+            out, t_g = out[:, :, :1], t_g[:, :, :1]
+        # Each (group, rank)'s sum over its rows, then the sum of those:
+        # the reference's per-device local loss and its psum.
+        n_global = M * mb * seq
+        local = ((out - t_g) ** 2).sum(dim=(0, 3, 4)) / n_global / d
+        return local.sum()
+
+    return loss_fn
+
+
+def _dense_moe_piece(h, p, E: int, C: int):
+    """Dense (non-distributed) twin of one seq piece's Megatron block +
+    Switch MoE with per-source capacity C. h: [..., rows, d], each leading
+    index a piece of its own."""
+    dense = torch.tanh(torch.relu(h @ p["w1"]) @ p["w2"])
+    gate = torch.softmax(dense @ p["router"], dim=-1)
+    expert = gate.argmax(dim=-1)          # the first maximum, as jnp's
+    gval = gate.max(dim=-1).values
+    onehot = torch.nn.functional.one_hot(expert, E).to(dense.dtype)
+    pos = torch.cumsum(onehot, dim=-2) - onehot
+    pos_tok = (pos * onehot).sum(dim=-1).to(torch.int32)
+    keep = (pos_tok < C).to(dense.dtype)
+    eo = torch.stack([
+        torch.relu(dense @ p["moe_w1"][e]) @ p["moe_w2"][e]
+        for e in range(E)])               # [E, ..., rows, d]
+    moe = torch.take_along_dim(eo, expert[None, ..., None], dim=0)[0]
+    return dense + moe * (gval * keep)[..., None]
+
+
+def dense_loss_reference(params: Dict, x, tgt,
+                         capacity_factor: float = 4.0,
+                         shards: Optional[Dict[str, int]] = None,
+                         token_shard_ep: bool = True):
+    """Single-device ground truth of the same math, shard-faithfully: the
+    per-shard MoE capacity and per-source bucketing are reproduced, so the
+    comparison is exact, not merely approximate. With ``token_shard_ep``
+    the sequence dim splits over sp·ep pieces, sp-major; otherwise over sp.
+    Every piece of a stage (each dp shard, microbatch and sequence piece)
+    goes through ``_dense_moe_piece`` at once, each with its own routing,
+    so a stage's weights are read once. x and tgt: [M, mb, seq, d] tensors
+    on the params' device. Params carrying the attention branch raise."""
+    if "wq" in params:
+        raise NotImplementedError(_ATTENTION_LATER)
+    S, E = params["router"].shape[0], params["router"].shape[2]
+    dp = (shards or {}).get("dp", 1)
+    sp = (shards or {}).get("sp", 1)
+    seq_cuts = sp * ((shards or {}).get("ep", 1) if token_shard_ep else 1)
+    M, mb, seq, d = x.shape
+    mb_loc = mb // dp
+    piece = seq // seq_cuts
+    rows = mb_loc * piece
+    C = int(math.ceil(rows / E * capacity_factor))
+
+    def pieces(t):  # [M, dp, seq_cuts, rows, d]
+        return t.reshape(M, dp, mb_loc, seq_cuts, piece, d).permute(
+            0, 1, 3, 2, 4, 5).reshape(M, dp, seq_cuts, rows, d)
+
+    hm = pieces(x)
+    for s in range(S):
+        hm = _dense_moe_piece(hm, {k: v[s] for k, v in params.items()}, E, C)
+    n_global = M * mb * seq
+    return ((hm - pieces(tgt)) ** 2).sum() / n_global / d

@@ -252,6 +252,7 @@ class LocalExecutor(Executor):
                  warmup: bool = True, mode: str = "pipelined",
                  device=None, kernel: Optional[str] = None):
         import contextlib
+        import functools
 
         import torch
 
@@ -270,8 +271,11 @@ class LocalExecutor(Executor):
         if cuda:
             # Weights handed in were written on the caller's stream.
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        self._on_stream = ((lambda: torch.cuda.stream(self._stream)) if cuda
-                           else contextlib.nullcontext)
+        # Bound to the stream, not to self: a closure over self would be a
+        # cycle that keeps a dropped executor's device memory until the
+        # cycle collector runs.
+        self._on_stream = (functools.partial(torch.cuda.stream, self._stream)
+                           if cuda else contextlib.nullcontext)
         with self._on_stream():
             if params is None:
                 if E != self.mesh["ep"]:

@@ -14,7 +14,8 @@ batch is ``[E, slots/E, d]``, rank r's rows ``r·slots/E ..``, and each
 stage's two expert exchanges are one all-to-all over all ranks
 (``parallel/moe.py``): the CUDA all-to-all kernel on the card (one launch
 each at ep > 1; a ring of one launches nothing), its plain version on the
-CPU. dp and tp stay 1 until the multi-process harness (queue 1 #7).
+CPU. dp and tp stay 1 until the one-card mesh (queue 1 #7); the training
+step (``parallel/train_step.py``) already stacks them.
 
 ``DecodeStep`` keeps the slot state on the device. A step's slot updates
 are staged at fixed shapes in pinned host memory and copied with
@@ -63,8 +64,8 @@ def _check_ported_axes(mesh: Mapping[str, int]) -> None:
         if int(mesh.get(axis, 1)) != 1:
             raise ValueError(
                 f"serving mesh {axis}={mesh[axis]} is not ported yet: dp "
-                f"and tp > 1 come with the multi-process harness (queue 1 "
-                f"#7)")
+                f"and tp > 1 on the stacked ranks come with the one-card "
+                f"mesh (queue 1 #7)")
 
 
 def _check_serving_axes(mesh: Mapping[str, int]) -> None:

@@ -46,6 +46,7 @@ import math
 import signal
 import threading
 import time
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
 from urllib.parse import parse_qs, urlparse
@@ -186,7 +187,12 @@ class ServingServer:
         self._drain_ok = False
         self._stopped = False
 
-        server_ref = self
+        # The handler class is held by the HTTP server, which the server
+        # holds, and lives until the cycle collector runs (a class is its
+        # own cycle): a strong reference back from it would keep a
+        # stopped, dropped server (its pool, executors and their device
+        # memory) alive as long. A request holds the server for its span.
+        server_weak = weakref.ref(self)
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -206,6 +212,9 @@ class ServingServer:
                 self.wfile.write(data)
 
             def do_GET(self):
+                server_ref = server_weak()
+                if server_ref is None:  # dropped after stop()
+                    return self._send(503, {"status": "stopped"})
                 if self.path == "/healthz":
                     # Liveness goes red ONLY when zero replicas are
                     # live AND none is coming back (every breaker
@@ -317,6 +326,9 @@ class ServingServer:
                 raw = self.rfile.read(length) if length > 0 else b""
                 if self.path != "/v1/generate":
                     return self._send(404, {"error": "not found"})
+                server_ref = server_weak()
+                if server_ref is None:  # dropped after stop()
+                    return self._send(503, {"error": "server stopped"})
                 server_ref.handle_generate(self, raw)
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)

@@ -54,7 +54,8 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "parallel.mesh", "device",
                 "cuda_build", "serving.kvcache.sharded",
                 "serving.disagg.spec", "serving.sharded.shard_worker",
-                "serving.infer", "parallel.moe", "parallel.train_step"):
+                "serving.infer", "parallel.moe", "parallel.train_step",
+                "parallel.pipeline"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
 
@@ -112,7 +113,7 @@ COPIES = {
     "serving/kvcache/tiering.py": (),
     "serving/queue.py": (),
     "serving/scheduler.py": (),
-    "serving/server.py": (),
+    "serving/server.py": ("ServingServer.__init__",),
     "serving/sharded/protocol.py": (),
     "serving/sharded/synthetic.py": (),
     "serving/spec.py": ("TruncatedDraft",),

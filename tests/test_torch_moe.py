@@ -284,7 +284,8 @@ def test_make_moe_checks_experts_router_and_device():
         moe.make_moe({"ep": E}, kernel="cuda", **CPU)
     with pytest.raises(ValueError, match="at most 8 ranks"):
         moe.pick_exchange("cuda", 16)
-    assert moe.pick_exchange("cuda", 8) is rp.all_to_all_cuda
+    # Kernel 10 with its gradient (one launch each way).
+    assert moe.pick_exchange("cuda", 8) is moe.kernel_exchange
     assert moe.pick_exchange("torch", 16) is rp.all_to_all_plain
     assert moe.shard_expert_params(w1, {"ep": E}) is w1
     r, a, b = moe.demo_moe_params(4, 8, 16, seed=3, **CPU)

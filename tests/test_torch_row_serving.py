@@ -255,6 +255,63 @@ def test_local_executor_over_http():
     assert all(0 <= t < D for t in body["tokens"])
 
 
+def _paged_executor():
+    from dpu_operator_tpu_torch.serving import PagedKVExecutor
+
+    return PagedKVExecutor(slots=2, vocab=16, d=8, heads=2, block_size=4,
+                           num_blocks=32, max_blocks_per_req=4,
+                           prefill_chunk=4, **CPU)
+
+
+def _serve_once_and_drop(make, body):
+    """Serve one request through a fresh server on ``make()``'s executor,
+    stop the server and drop both; returns weak references to them and
+    what the stopped server still reports."""
+    import weakref
+
+    ex = make()
+    srv = ServingServer([ex]).start()
+    try:
+        req = urllib.request.Request(srv.url + "/v1/generate",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert r.status == 200
+    finally:
+        srv.stop()
+    after = (srv.port, srv.url, srv.draining)
+    return weakref.ref(ex), weakref.ref(srv), after
+
+
+@pytest.mark.parametrize("plane", ["paged", "rows"])
+def test_stopped_server_frees_its_executor_without_the_cycle_collector(
+        plane):
+    """A stopped and dropped ServingServer and its executor are freed by
+    reference counting alone: nothing of the server refers back to it
+    through its HTTP handler (on a card, an executor kept until the cycle
+    collector runs keeps its device memory)."""
+    import gc
+
+    if plane == "paged":
+        make, body = _paged_executor, {"prompt_tokens": [1, 2, 3],
+                                       "max_tokens": 2}
+    else:
+        def make():
+            return LocalExecutor(params=_params(1, 2, seed=4),
+                                 mesh=infer.serving_mesh(shape={"ep": 2}),
+                                 slots=4, **CPU)
+        body = {"prompt": "hello", "max_tokens": 2}
+    gc.collect()
+    gc.disable()
+    try:
+        ex_ref, srv_ref, (port, url, draining) = _serve_once_and_drop(
+            make, body)
+        assert srv_ref() is None, "the stopped server is still alive"
+        assert ex_ref() is None, "its executor is still alive"
+    finally:
+        gc.enable()
+    assert port > 0 and url.endswith(f":{port}") and draining
+
+
 def test_local_executor_step_adapter_and_readback():
     """The pipelined executor's step() adapter equals the sync one's, and
     a step's token handle stays its own however many later steps are
