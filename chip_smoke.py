@@ -206,6 +206,28 @@ Phases, each of which raises on failure:
                shape against plain; step time by events (kernel and
                plain exchange in turns), the host's time, peak memory,
                and one profiled step.
+ 16. 1f1b    — the hand-scheduled 1F1B training step
+               (``make_train_step_1f1b``: ``pipeline_1f1b.run_schedule``
+               over the reference's instruction tables, F units without a
+               graph, B units rematerialized) on phase 15's model, batch
+               and seed with the attention branch (each stage opens with
+               causal ring attention over the token ranks, plain torch),
+               in two lanes of the same 4 stages: pp 4 with v 1, and pp 2
+               with v 2 (interleaved). Each lane's schedule (ticks,
+               bubble against GPipe's, microbatches in flight, stash
+               slots); kernel-10 launches 2 x S x M in the F units and 6 x
+               S x M in a step; loss and every gradient leaf with kernel
+               10 == the plain exchange's bit for bit in each lane; the
+               loss within the stated bar of the dense twin, and loss and
+               gradients within the stated bars of the GPipe step with
+               attention on the same weights; step time by events, the
+               host's time and peak memory of lane a, lane b and GPipe
+               with attention in turns; one profiled lane-a step; the
+               memory lane: one step each of GPipe, lane a and lane b on
+               a batch of 16 x 2 x 512 tokens, where the activations are
+               a real share of the card (launches, losses against
+               GPipe's, step time, peak memory); 3 repeated steps
+               bitwise; the loss descending over 3 steps.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -214,9 +236,12 @@ f32 under the contract's keys and bf16 under the same keys prefixed
 ``bf16_``; the paged-attention record adds ``sharded_launches``, phase
 13's head lanes' launches, and the all-to-all's adds ``moe_launches``,
 phase 14's ep = 8 kernel lanes' launches, with its ``moe_`` times at the
-MoE's shape, and ``train_launches``, phase 15's launches in one training
-step, with its ``train_`` times at the step's exchange shape); the last
-line is
+MoE's shape, ``train_launches``, phase 15's launches in one training
+step, with its ``train_`` times at the step's exchange shape, and
+``train_1f1b_launches`` / ``train_1f1b_v2_launches``, phase 16's launches
+in one 1F1B step of lane a / b, with its ``train_1f1b_`` step times and
+peaks, the memory lane's under ``train_1f1b_memory_peak_gb`` and
+``train_gpipe_memory_peak_gb``); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -2891,6 +2916,33 @@ TRAIN_TIMED = 3
 # reference's own test of its distributed loss against its twin.
 TRAIN_DENSE_RTOL = 2e-5
 
+# Phase 16: the 1F1B training step on phase 15's model and batch with the
+# attention branch (wq/wk/wv [4, 4096, 4096] f32 after the other weights,
+# seed 0): two lanes, each the same 4-stage model, and the GPipe step at
+# pp = 4 with attention beside them.
+TRAIN_1F1B_LANES = (("a", {"dp": 1, "pp": 4, "sp": 1, "tp": 2, "ep": 8}, 1),
+                    ("b", {"dp": 1, "pp": 2, "sp": 1, "tp": 2, "ep": 8}, 2))
+TRAIN_1F1B_REPEATS = 3
+# The memory lane: M, mb, seq of a batch whose activations fill a real
+# share of the card (16 384 tokens, 128 rows a rank, sequences of 512):
+# GPipe keeps every microbatch's graph until its backward, 1F1B at most
+# the scheduler's stash slots' inputs and one B unit's graph.
+TRAIN_1F1B_MEMORY_BATCH = (16, 2, 512)
+# 1F1B against GPipe on the same weights: each unit's forward is the same
+# stage on the same inputs, so the activations and the routing are the same
+# bits; what differs is the order of sums. The loss: per microbatch here,
+# per (rank, all microbatches) there, each a tree sum of 2^18-2^19 positive
+# terms, within log2(N)·u ≈ 19·2^-24 ≈ 1.1e-6 of its value, so the two
+# within ~2.4e-6. A gradient element: the loss cotangent rounded once (one
+# division by M·mb·seq·d) against twice (by M·mb·seq, then by d), 2 ulp,
+# carried linearly through each microbatch's backward, and its M = 4
+# contributions added in another order, 3 ulp of their magnitudes: each
+# leaf's largest difference within ~5·4·2^-24 ≈ 1.2e-6 of its largest
+# magnitude. Bars ~2x and ~8x those. The memory lane's losses: 2^22 and
+# 2^23 terms, within ~2.8e-6 of each other, under the same bar.
+TRAIN_1F1B_LOSS_RTOL = 5e-6
+TRAIN_1F1B_GRAD_RTOL = 1e-5  # of each leaf's largest magnitude
+
 
 def row_bodies(prompts):
     return [{"prompt": p, "max_tokens": ROW_TOKENS, "deadline_ms": 600000}
@@ -3195,7 +3247,8 @@ def log_a2a_profile(card, label, prof, wall_ms):
     check(busy_ms > 0, f"{label}: no device time recorded")
     a2a = [r for r in rows if "all_to_all" in r[2]]
     log(f"{label}: device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
-        f"(idle share {1 - busy_ms / wall_ms:.3f}, profiled); kernel 10 "
+        f"(idle share {1 - busy_ms / wall_ms:.3f}, profiled) in "
+        f"{sum(r[1] for r in rows)} device operations; kernel 10 "
         f"{sum(r[0] for r in a2a) / 1e3:.3f} ms over "
         f"{sum(r[1] for r in a2a)} launches [{card}]")
     for us, count, key in rows[:10]:
@@ -3376,7 +3429,8 @@ def train_exchange(torch, card, moe, rp, E, rows, width):
                 train_library_ms=library, train_bound_ms=bound)
 
 
-def train_profile(torch, card, step, params, x, tgt):
+def train_profile(torch, card, step, params, x, tgt,
+                  label="train profile, one kernel step"):
     """One kernel step under ``torch.profiler``: device busy time against
     the wall, and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
@@ -3389,7 +3443,7 @@ def train_profile(torch, card, step, params, x, tgt):
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     del new
-    log_a2a_profile(card, "train profile, one kernel step", prof, wall_ms)
+    log_a2a_profile(card, label, prof, wall_ms)
 
 
 def phase_train(torch, card, record):
@@ -3545,6 +3599,324 @@ def phase_train(torch, card, record):
                   train_peak_gb=max(peaks))
 
 
+def restack_(torch, params, order):
+    """Reorder every stacked weight's leading dim in place, ``t[i] =
+    t_old[order[i]]``, one stage's copy at a time (cycles of the
+    permutation), so a second stack of the weights is never held."""
+    for t in params.values():
+        done = [False] * len(order)
+        for start in range(len(order)):
+            if done[start] or order[start] == start:
+                continue
+            held, i = t[start].clone(), start
+            while True:
+                done[i] = True
+                if order[i] == start:
+                    t[i].copy_(held)
+                    break
+                t[i].copy_(t[order[i]])
+                i = order[i]
+            del held
+
+
+def inverse(order):
+    """The permutation that undoes ``restack_(.., order)``."""
+    return [order.index(i) for i in range(len(order))]
+
+
+def counted_exchange(torch, kernel_exchange, rp, seen):
+    """``kernel_exchange``, adding to ``seen`` the kernel-10 launches made
+    in graph-free forwards (the F units': ``seen["f"]``) and in forwards
+    that record a graph (the B units' rematerialized ones:
+    ``seen["b"]``)."""
+
+    def exchange(x, n):
+        before = rp.all_to_all_cuda.launches
+        y = kernel_exchange(x, n)
+        seen["b" if torch.is_grad_enabled() else "f"] += (
+            rp.all_to_all_cuda.launches - before)
+        return y
+
+    return exchange
+
+
+def leaf_diff(torch, got, want, positions=None):
+    """The largest |got - want| of a stacked leaf over its largest |want|;
+    ``positions[i]`` is the stage of want that got's position i holds."""
+    worst, scale = 0.0, 0.0
+    for i in range(got.shape[0]):
+        w = want[positions[i] if positions is not None else i]
+        worst = max(worst, float((got[i] - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    return worst / scale
+
+
+def train_memory_lane(torch, card, rp, ts, params, gpipe_step, lanes):
+    """One step each of GPipe with attention and 1F1B lanes a and b (built
+    for its M) on ``TRAIN_1F1B_MEMORY_BATCH``: kernel-10 launches (4 and 6
+    x S x M), each 1F1B loss against GPipe's within
+    ``TRAIN_1F1B_LOSS_RTOL``, device ms by events, the host's ms and the
+    step's peak. Returns {name: (loss, ms, host ms, peak GB)}."""
+    S, d = ROW_MODEL["S"], ROW_MODEL["d"]
+    M, mb, seq = TRAIN_1F1B_MEMORY_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((M, mb, seq, d), generator=gen, device="cuda")
+    tgt = torch.randn((M, mb, seq, d), generator=gen, device="cuda")
+    steps = {"gpipe": (gpipe_step, None, 4)}
+    for name, mesh, v in TRAIN_1F1B_LANES:
+        steps[name] = (ts.make_train_step_1f1b(
+            mesh, capacity_factor=TRAIN_CF, lr=TRAIN_LR, M=M, v=v,
+            attention=True, kernel="cuda", device="cuda"), lanes[name][2], 6)
+    out = {}
+    for name, (step, order, per_call) in steps.items():
+        if order is not None:
+            restack_(torch, params, order)
+        torch.cuda.empty_cache()
+        rp.all_to_all_cuda.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        loss, new = step(params, x, tgt)
+        host = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        del new
+        launches = rp.all_to_all_cuda.launches
+        out[name] = (float(loss), a.elapsed_time(b), host,
+                     torch.cuda.max_memory_allocated() / 1e9)
+        if order is not None:
+            restack_(torch, params, inverse(order))
+        check(launches == per_call * S * M and math.isfinite(out[name][0]),
+              f"train 1f1b memory lane {name}: {launches} kernel-10 "
+              f"launches (want {per_call} x {S * M}), loss {out[name][0]!r}")
+    ref = out["gpipe"][0]
+    rels = {n: abs(r[0] - ref) / abs(ref) for n, r in out.items()}
+    check(max(rels.values()) <= TRAIN_1F1B_LOSS_RTOL,
+          f"train 1f1b memory lane: losses against GPipe's {rels} (bar "
+          f"{TRAIN_1F1B_LOSS_RTOL})")
+    del x, tgt
+    torch.cuda.empty_cache()
+    log(f"train 1f1b memory lane, x and target [{M}, {mb}, {seq}, {d}] "
+        f"({M * mb * seq} tokens, {mb * seq // ROW_MODEL['E']} rows a rank): "
+        + "; ".join(
+            f"{'GPipe' if n == 'gpipe' else '1F1B lane ' + n} loss {r[0]!r}"
+            f" (rel to GPipe {rels[n]:.3e}), device {r[1]:.3f} ms by events,"
+            f" host returns in {r[2]:.3f} ms, peak {r[3]:.3f} GB"
+            for n, r in out.items())
+        + f" (bar {TRAIN_1F1B_LOSS_RTOL}) [{card}]")
+    return out
+
+
+def phase_train_1f1b(torch, card, record):
+    """The hand-scheduled 1F1B training step (``make_train_step_1f1b``:
+    ``pipeline_1f1b.run_schedule`` over the reference's tables, each B unit
+    rematerialized, every expert exchange on kernel 10) at phase 15's
+    widths, batch and seed with the attention branch, in two lanes: (a) pp
+    4, v 1 and (b) pp 2, v 2, the same 4-stage model. Checks launches (2·S·M
+    in the F units, 6·S·M a step), kernel 10 == the plain exchange bit for
+    bit in each lane, the loss against the dense twin, loss and gradients
+    against the GPipe step with attention, repeats bitwise, the loss
+    descending; logs the schedules, step times, peaks, a profiled step and
+    the memory lane (``train_memory_lane``). Adds the 1F1B numbers to
+    kernel 10's ``record``."""
+    from dpu_operator_tpu_torch.parallel import moe
+    from dpu_operator_tpu_torch.parallel import pipeline_1f1b as pf
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.parallel import train_step as ts
+
+    S, d, h, E = (ROW_MODEL[k] for k in ("S", "d", "h", "E"))
+    M, mb, seq = TRAIN_BATCH
+    gpipe_mesh = dict(TRAIN_MESH)
+    torch.cuda.empty_cache()  # phase 15's cached blocks, fragmented
+    log(f"train 1f1b: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated on entry [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    params = ts.init_params(S, d, h, E, seed=0, attention=True,
+                            device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((M, mb, seq, d), generator=gen, device="cuda")
+    tgt = torch.randn((M, mb, seq, d), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    log(f"train 1f1b: weights {nbytes / 1e9:.3f} GB f32 (phase 15's, seed 0, "
+        f"with wq/wk/wv), x and target [{M}, {mb}, {seq}, {d}], capacity "
+        f"factor {TRAIN_CF:g} [{card}]")
+    gpipe_k, gpipe_loss = ts.make_train_step(
+        gpipe_mesh, capacity_factor=TRAIN_CF, lr=TRAIN_LR, attention=True,
+        kernel="cuda", device="cuda")
+    seen = {"f": 0, "b": 0}
+    lanes = {}
+    for name, mesh, v in TRAIN_1F1B_LANES:
+        check(mesh["pp"] * v == S, f"1f1b lane {name}: not {S} stages")
+        kw = dict(capacity_factor=TRAIN_CF, lr=TRAIN_LR, M=M, v=v,
+                  attention=True, device="cuda")
+        plain = ts.make_train_step_1f1b(mesh, kernel="torch", **kw)
+        # The factory picks its exchange itself (moe.pick_exchange); for
+        # kernel="cuda" that is moe.kernel_exchange, here counted by grad
+        # mode while the step is built, so the split of the launches
+        # below is that of the step's own choice.
+        original = moe.kernel_exchange
+        moe.kernel_exchange = counted_exchange(torch, original, rp, seen)
+        try:
+            kernel = ts.make_train_step_1f1b(mesh, kernel="cuda", **kw)
+        finally:
+            moe.kernel_exchange = original
+        order = [int(i) for i in pf.interleave_order(mesh["pp"], v)]
+        lanes[name] = (kernel, plain, order, v)
+        sc = kernel.schedule
+        log(f"train 1f1b lane {name} ({mesh}, v {v}): {sc.T} ticks, bubble "
+            f"{sc.bubble:.4f} (GPipe at pp {S}: "
+            f"{pf.gpipe_bubble(S, M):.4f}; pp {mesh['pp']}: "
+            f"{pf.gpipe_bubble(mesh['pp'], M):.4f}), max in flight "
+            f"{sc.max_inflight.tolist()} (GPipe: {M} a stage), stash slots "
+            f"Kf {sc.Kf} Kb {sc.Kb} Ks {sc.Ks}, chunk order {order}")
+
+    with torch.no_grad():
+        dense = float(ts.dense_loss_reference(
+            params, x, tgt, capacity_factor=TRAIN_CF, shards=gpipe_mesh))
+    rp.all_to_all_cuda.launches = 0
+    lg, gg = ts.value_and_grad(gpipe_loss, params, x, tgt)
+    torch.cuda.synchronize()
+    check(rp.all_to_all_cuda.launches == 4 * S * M,
+          f"train 1f1b: the GPipe step launched kernel 10 "
+          f"{rp.all_to_all_cuda.launches} times, not 4 x {S * M}")
+    rel = abs(float(lg) - dense) / abs(dense)
+    check(rel <= TRAIN_DENSE_RTOL, f"train 1f1b: GPipe loss {float(lg)!r} "
+          f"against the dense twin's {dense!r}: rel {rel:.3e}")
+    log(f"train 1f1b: GPipe with attention loss {float(lg)!r}, dense twin "
+        f"{dense!r} (rel {rel:.3e}, bar {TRAIN_DENSE_RTOL}) [{card}]")
+
+    # The main path's counts and the comparisons with GPipe, lane by lane:
+    # the weights, GPipe's gradients and one lane's accumulating at once.
+    launches = {}
+    for name, (kernel, _, order, v) in lanes.items():
+        restack_(torch, params, order)
+        seen.update(f=0, b=0)
+        rp.all_to_all_cuda.launches = 0
+        t0 = time.monotonic()
+        loss, grads = kernel.loss_and_grads(params, x, tgt)
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        launches[name] = rp.all_to_all_cuda.launches
+        check(seen["f"] == 2 * S * M and launches[name] == 6 * S * M
+              and seen["f"] + 2 * seen["b"] == launches[name],
+              f"train 1f1b lane {name}: {seen['f']} kernel-10 launches in "
+              f"the F units, {launches[name]} in a step (want 2 and 6 x "
+              f"{S * M})")
+        for k, g in grads.items():
+            check(g.shape == params[k].shape and bool(torch.isfinite(g).all()),
+                  f"train 1f1b lane {name}: gradient {k} not finite")
+        rel = abs(float(loss) - dense) / abs(dense)
+        check(rel <= TRAIN_DENSE_RTOL, f"train 1f1b lane {name}: loss "
+              f"{float(loss)!r} against the dense twin's {dense!r}: rel "
+              f"{rel:.3e}")
+        rel_g = abs(float(loss) - float(lg)) / abs(float(lg))
+        diffs = {k: leaf_diff(torch, grads[k], gg[k], order) for k in grads}
+        check(rel_g <= TRAIN_1F1B_LOSS_RTOL
+              and max(diffs.values()) <= TRAIN_1F1B_GRAD_RTOL,
+              f"train 1f1b lane {name}: against GPipe loss rel {rel_g:.3e} "
+              f"(bar {TRAIN_1F1B_LOSS_RTOL}), gradients {diffs} (bar "
+              f"{TRAIN_1F1B_GRAD_RTOL})")
+        del grads
+        log(f"train 1f1b lane {name}: kernel-10 launches {seen['f']} in the "
+            f"F units, {launches[name]} in a step (6 x {S * M}); loss "
+            f"{float(loss)!r}, dense twin rel {rel:.3e}; against GPipe: loss "
+            f"rel {rel_g:.3e} (bar {TRAIN_1F1B_LOSS_RTOL}), largest gradient "
+            f"difference over the leaf's largest magnitude "
+            + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items())
+            + f" (bar {TRAIN_1F1B_GRAD_RTOL}); first step {first_s:.2f} s "
+            f"[{card}]")
+        restack_(torch, params, inverse(order))
+    del gg
+
+    # Kernel 10 against the plain exchange, bit for bit, in each lane.
+    for name, (kernel, plain, order, v) in lanes.items():
+        restack_(torch, params, order)
+        lk, gk = kernel.loss_and_grads(params, x, tgt)
+        before = rp.all_to_all_cuda.launches
+        lp, gp = plain.loss_and_grads(params, x, tgt)
+        torch.cuda.synchronize()
+        check(rp.all_to_all_cuda.launches == before,
+              f"train 1f1b lane {name}: the plain exchange launched kernel 10")
+        differ = [k for k in gk if not same_bits(torch, gk[k], gp[k])]
+        check(same_bits(torch, lk, lp) and not differ,
+              f"train 1f1b lane {name}: kernel 10 against the plain "
+              f"exchange: loss {float(lk)!r} / {float(lp)!r}, gradients "
+              f"differ in {differ}")
+        del gk, gp
+        log(f"train 1f1b lane {name}: loss and all {len(params)} gradient "
+            f"leaves with kernel 10 == the plain exchange's bit for bit; "
+            f"peak so far {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+            f"[{card}]")
+        restack_(torch, params, inverse(order))
+
+    # Step times in turns: a, b, GPipe, GPipe, b, a (each resets the peak).
+    peaks = [torch.cuda.max_memory_allocated() / 1e9]
+    times = {}
+    for name in ("a", "b", "gpipe", "gpipe", "b", "a"):
+        if name == "gpipe":
+            step, order = gpipe_k, None
+        else:
+            step, order = lanes[name][0], lanes[name][2]
+            restack_(torch, params, order)
+        times.setdefault(name, []).append(
+            train_step_times(torch, step, params, x, tgt))
+        if order is not None:
+            restack_(torch, params, inverse(order))
+    for name, runs in times.items():
+        label = "GPipe with attention" if name == "gpipe" else (
+            f"1F1B lane {name}")
+        log(f"train 1f1b: {label}, two turns: device "
+            + ", ".join(f"{r[0]:.3f}" for r in runs) + " ms by events; the "
+            f"host returns in " + ", ".join(f"{r[1]:.3f}" for r in runs)
+            + " ms; peak " + ", ".join(f"{r[2]:.3f}" for r in runs)
+            + f" GB a step [{card}]")
+    train_profile(torch, card, lanes["a"][0], params, x, tgt,
+                  "train 1f1b profile, one lane-a kernel step")
+    memory = train_memory_lane(torch, card, rp, ts, params, gpipe_k, lanes)
+
+    # Lane a: repeats bitwise, then the loss descending.
+    torch.cuda.empty_cache()
+    step = lanes["a"][0]
+    first_loss, first = step(params, x, tgt)
+    for i in range(TRAIN_1F1B_REPEATS):
+        again_loss, again = step(params, x, tgt)
+        check(same_bits(torch, again_loss, first_loss)
+              and all(same_bits(torch, again[k], first[k]) for k in first),
+              f"train 1f1b repeat {i}: the step differs from the first's "
+              f"bits")
+        del again
+    del params
+    losses, current = [float(first_loss)], first
+    for _ in range(TRAIN_STEPS - 1):
+        loss, current = step(current, x, tgt)
+        losses.append(float(loss))
+    with torch.no_grad():
+        losses.append(float(gpipe_loss(current, x, tgt)))
+    check(all(b < a for a, b in zip(losses, losses[1:])),
+          f"train 1f1b: the loss does not descend: {losses}")
+    del first, current
+    peaks.extend(r[2] for runs in times.values() for r in runs)
+    peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+    torch.cuda.empty_cache()
+    log(f"train 1f1b: {TRAIN_1F1B_REPEATS} repeated lane-a steps bitwise the "
+        f"first; loss over {TRAIN_STEPS} steps (lr {TRAIN_LR}) and after: "
+        + " > ".join(repr(v) for v in losses)
+        + f"; peak device memory in the phase {max(peaks):.3f} GB "
+        f"[{card}]")
+    record.update(
+        train_1f1b_launches=launches["a"],
+        train_1f1b_v2_launches=launches["b"],
+        train_1f1b_step_ms=statistics.median(r[0] for r in times["a"]),
+        train_1f1b_v2_step_ms=statistics.median(r[0] for r in times["b"]),
+        train_1f1b_peak_gb=max(r[2] for r in times["a"]),
+        train_1f1b_memory_peak_gb=memory["a"][3],
+        train_gpipe_memory_peak_gb=memory["gpipe"][3])
+
+
 def main() -> int:
     try:
         import torch
@@ -3596,6 +3968,7 @@ def main() -> int:
         torch, card, {"int8": serve_streams, "fp32": spec_gold})
     phase_rows(torch, card, a2a)
     phase_train(torch, card, a2a)
+    phase_train_1f1b(torch, card, a2a)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

@@ -11,9 +11,11 @@ whose four exchanges are the all-to-all, and the tensor-parallel
 collective matmuls (``collective_matmul``: ``make_allgather_matmul``,
 ``make_matmul_reduce_scatter``), whose kernels run the tile product of
 ``csrc/tile_product.cuh`` inside the ring protocols, and the five-axis
-model: the GPipe schedule (``pipeline``), the stage and the training step
-over ranks of every axis stacked on one card (``train_step``: the
-forward the row plane serves, ``make_train_step``,
-``dense_loss_reference``) and its Switch MoE (``moe``), whose two expert
-exchanges a stage are the all-to-all, differentiated as the same
-all-to-all."""
+model: the GPipe schedule (``pipeline``), the 1F1B and interleaved-1F1B
+schedules (``pipeline_1f1b``), the stage and the training steps over
+ranks of every axis stacked on one card (``train_step``: the forward the
+row plane serves, ``make_train_step``, ``make_train_step_1f1b``,
+``dense_loss_reference``; the stage's causal ring attention is
+``ring_attention.ring_attention_batched``) and its Switch MoE (``moe``),
+whose two expert exchanges a stage are the all-to-all, differentiated as
+the same all-to-all."""

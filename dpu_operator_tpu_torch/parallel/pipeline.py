@@ -17,7 +17,9 @@ keeps one shape); here those (stage, tick) pairs carry no microbatch and
 are skipped, which leaves every recorded output as it was
 (``tests/test_torch_pipeline.py`` holds the outputs against the
 reference's). ``run_gpipe`` is the schedule; ``make_pipeline`` and the
-training step (``train_step.make_train_step``) run it.
+training step (``train_step.make_train_step``) run it. The 1F1B and
+interleaved-1F1B schedules, whose stash is bounded by the pipeline's depth
+and not by M, are ``pipeline_1f1b.py``'s.
 
 The mesh is a mapping of axis sizes; only ``axis`` shapes the schedule.
 """

@@ -34,6 +34,15 @@ reference where there is no card.
 ``make_ring_attention`` is the entry point: ``fn(q, k, v)`` on whole
 ``[S, D*]`` tensors, cut into ``mesh[axis]`` shards, giving ``[S, dv]``.
 
+``ring_attention_batched`` is the counterpart of the reference's
+``xla_ring_attention_batched``: the same exact attention over ``[B, S,
+D*]`` sequences, each sequence's scores in one softmax (the ring moves no
+data when its ranks share one card), differentiated by autograd. The
+training stage's causal attention over the token ranks
+(``train_step._stage_fn``) runs it, as the reference's stage runs its XLA
+ring: single-head at the model's width, which is past the kernel's
+``MAX_DIM``.
+
 ``merge_partial_softmax`` (numpy, a copy of the reference's) folds the
 same recurrence's partials on the host: the coordinator of a
 page-sharded paged-KV replica (``serving/kvcache/sharded.py``) merges
@@ -162,6 +171,30 @@ def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [S, dv] in q's dtype."""
     sk = _shards(q, k, v, n)[1]
     return _ring_fold(q, k, v, n, causal, sk, torch.matmul, torch.matmul)
+
+
+def ring_attention_batched(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           n: int, causal: bool) -> torch.Tensor:
+    """The function of the reference's ``xla_ring_attention_batched`` (the
+    training stage's attention): q, k, v [B, S, D*], independent sequences,
+    each cut into n row shards over a ring of n ranks. With every rank on
+    one card the ring moves no data, so each sequence's scores go through
+    one softmax, the causal mask by global position (the position in the
+    whole sequence): exact attention, as the ring's online softmax
+    computes it, in f32 whatever the input type. Raises where a sequence
+    does not cut into n shards. Plain torch, so autograd differentiates
+    it. Returns [B, S, dv] in q's dtype."""
+    if q.dim() != 3 or k.shape[:2] != q.shape[:2] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"k shape {tuple(k.shape)} incompatible with q "
+                         f"{tuple(q.shape)}")
+    _shards(q[0], k[0], v[0], n)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(
+        q.shape[2])
+    if causal:
+        pos = torch.arange(q.shape[1], device=q.device)
+        s = torch.where(pos[None, :] <= pos[:, None], s, torch.full(
+            (), _NEG_INF, dtype=s.dtype, device=s.device))
+    return torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
 
 
 # -- the kernel's arithmetic, written out --------------------------------------

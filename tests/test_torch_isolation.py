@@ -55,7 +55,7 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "cuda_build", "serving.kvcache.sharded",
                 "serving.disagg.spec", "serving.sharded.shard_worker",
                 "serving.infer", "parallel.moe", "parallel.train_step",
-                "parallel.pipeline"):
+                "parallel.pipeline", "parallel.pipeline_1f1b"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
 
@@ -82,6 +82,9 @@ COPIES = {
     "parallel/fabric_collectives.py": (),
     "parallel/fabric_worker.py": (),
     "parallel/mesh.py": ("ring_is_ici_adjacent",),
+    "parallel/pipeline_1f1b.py": ("_take", "interleave_stack", "uninterleave",
+                                  "run_schedule", "make_1f1b",
+                                  "sequential_loss"),
     "parallel/ring_attention.py": ("MAX_DIM", "KERNEL_DTYPES",
                                    "_online_update", "_scores", "_pack_kv",
                                    "_shards", "_ring_fold",
@@ -89,7 +92,8 @@ COPIES = {
                                    "tf32_split", "split_matmul",
                                    "ring_attention_split", "_launcher",
                                    "ring_attention_cuda",
-                                   "make_ring_attention"),
+                                   "make_ring_attention",
+                                   "ring_attention_batched"),
     "parallel/ulysses_attention.py": ("_heads_to_rows", "_seq_to_head_shard",
                                       "_full_attention", "_ulysses_body",
                                       "make_ulysses_attention",

@@ -373,8 +373,26 @@ def test_stage_fn_keeps_the_reference_errors():
         ts._stage_fn(dict(p, router=torch.zeros(d, 3)), x, **kw)
     assert str(got.value) == ("router width 3 != 2 experts — tokens routed "
                               "past the mesh would silently drop")
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        ts._stage_fn(dict(p, wq=p["w1"]), x, **kw)
+    # The attention branch: without seq_shape the reference's error; with
+    # it, the E ranks' rows (one sequence of 2 tokens a rank) attended as
+    # one sequence in rank order, then the stage.
+    rng = np.random.RandomState(1)
+    attn = {k: torch.from_numpy((rng.randn(d, d) / np.sqrt(d)).astype(
+        np.float32)) for k in ("wq", "wk", "wv")}
+    with pytest.raises(ValueError) as got:
+        ts._stage_fn(dict(p, **attn), x, **kw)
+    assert str(got.value) == (
+        "attention params present but no seq_shape — the stage cannot know "
+        "where batch elements begin and end")
+    x = torch.from_numpy(rng.randn(E, 2, d).astype(np.float32))
+    y = ts._stage_fn(dict(p, **attn), x, seq_shape=(1, 2),
+                     attn_axes=("sp", "ep"), attn_ring=E, **kw)
+    assert y.shape == x.shape
+    seq = x.reshape(1, E * 2, d)
+    h = seq + ts._dense_causal_attention(seq, attn["wq"], attn["wk"],
+                                         attn["wv"])
+    torch.testing.assert_close(y, ts._stage_fn(p, h.reshape(E, 2, d), **kw),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_params_layout_specs_and_placement():
@@ -393,7 +411,19 @@ def test_params_layout_specs_and_placement():
     assert all(placed[k] is params[k] for k in params)  # no copy
     with pytest.raises(ValueError, match="router width"):
         ts.shard_params(params, infer.serving_mesh(shape={"ep": 2}), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        ts.init_params(1, 8, 16, 1, attention=True, **CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 #8"):
-        ts.params_from_numpy(dict(params, wq=params["w1"]), "cpu")
+    # attention=True: wq/wk/wv [S, d, d] beside the five, as the
+    # reference's, replicated over every axis but pp, and carried across.
+    attn = ts.init_params(2, 8, 16, 4, seed=7, attention=True, **CPU)
+    ref_attn = jax.eval_shape(
+        lambda: ref_ts.init_params(2, 8, 16, 4, attention=True))
+    assert set(attn) == set(ref_attn) == set(ts.param_specs(True))
+    for k, v in attn.items():
+        assert tuple(v.shape) == ref_attn[k].shape
+    assert all(torch.equal(attn[k], params[k]) for k in params)
+    assert {k: tuple(v) for k, v in ref_ts.param_specs(True).items()} == (
+        ts.param_specs(True))
+    carried = ts.params_from_numpy({k: v.numpy() for k, v in attn.items()},
+                                   "cpu")
+    assert all(torch.equal(carried[k], attn[k]) for k in attn)
+    placed = ts.shard_params(attn, mesh, "cpu")
+    assert set(placed) == set(attn) and placed["wq"] is attn["wq"]

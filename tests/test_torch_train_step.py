@@ -362,8 +362,24 @@ def test_stage_fn_sums_tp_partials_in_rank_order():
 
 def test_make_train_step_checks():
     shape = SHAPES[0]
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ts.make_train_step(shape, attention=True, **CPU)
+    # attention=True builds: its step takes the eight weights and gives
+    # the loss and new weights in the reference's layout; its loss refuses
+    # the five without wq/wk/wv, and the plain step the eight.
+    step_a, loss_a = ts.make_train_step(shape, attention=True, **CPU)
+    pa = ts.params_from_numpy(
+        dict(_params(2, 2, seed=1),
+             **{k: (np.random.RandomState(i).randn(2, D, D) / np.sqrt(D))
+                .astype(np.float32) for i, k in enumerate(("wq", "wk",
+                                                           "wv"))}), "cpu")
+    xa, ta = (torch.from_numpy(a) for a in _data(shape, seed=2))
+    loss, new = step_a(pa, xa, ta)
+    assert loss.shape == () and torch.isfinite(loss)
+    assert set(new) == set(ref.param_specs(attention=True))
+    assert all(new[k].shape == pa[k].shape for k in pa)
+    with pytest.raises(ValueError, match="attention=True takes"):
+        loss_a({k: v for k, v in pa.items() if k != "wq"}, xa, ta)
+    with pytest.raises(ValueError, match="attention=False takes"):
+        ts.make_train_step(shape, **CPU)[1](pa, xa, ta)
     with pytest.raises(ValueError, match=r"lacks the axes \['sp'\]"):
         ts.make_train_step({k: v for k, v in shape.items() if k != "sp"},
                            **CPU)
