@@ -105,7 +105,16 @@ Phases, each of which raises on failure:
                launch's device time from the profiler and the host's time
                to queue a call, split into the wrapper's parts), its plain
                version and one PyTorch call, and of a Ulysses call with
-               the exchanges' share of it.
+               the exchanges' share of it. Then Ulysses' gradient at the
+               same widths (f32, causal): one ``torch.autograd.grad`` of
+               sum(out**2) with kernel 10 makes 4 launches forward and 4
+               backward (the main path, counts at 0); its q, k and v
+               gradients equal the torch route's bit for bit and the
+               dense reference's (a head group at a time) within the
+               ring bars, 3 repeats bitwise; forward + backward by
+               events, peak memory, the idle share of one profiled call;
+               one bf16 call's gradients within RING_ULPS of the f32
+               route's on the same inputs and cotangent.
  11. tp-mlp  — the collective matmuls (all-gather matmul, matmul
                reduce-scatter). The bf16 kernels (TMA-fed wgmma) built
                with no spills (ptxas). Small rings (n 1, 2, 3, 4, 5, 8 at
@@ -190,6 +199,15 @@ Phases, each of which raises on failure:
                none. A line a lane (steps, wall, ms a step, tokens/s,
                launches, peak device memory), then one profiled
                pipelined run: the idle share and device time by kernel.
+               Then dp 2 x tp 2 x ep 8 (32 ranks on the card, the same
+               weights, 4 rows a rank): a direct step at capacity factor
+               1 with kernel 10 == the plain exchange bit for bit, 2 x 4
+               launches; at capacity factor 8 within the stated bar of
+               the ep = 8 step on the same batch; kernel 10 at the
+               served exchange's shape timed; the 64 requests pipelined
+               with kernel 10 and with the plain exchange decode
+               identical streams (whether they equal the ep = 8 lanes'
+               is logged, with the median step interval).
  15. train   — the GPipe training step (``make_train_step``: 4 stages
                pipelined over M = 4 microbatches, the dense pair cut over
                tp = 2, each stage's Switch MoE over ep = 8 ranks sharing
@@ -228,6 +246,15 @@ Phases, each of which raises on failure:
                a real share of the card (launches, losses against
                GPipe's, step time, peak memory); 3 repeated steps
                bitwise; the loss descending over 3 steps.
+ 17. probe   — the fabric probe's training step
+               (``make_probe_train_step``, ``run_probe``) at
+               ``build_mesh(8)`` = dp 2 x sp 2 x tp 2 and at
+               ``build_mesh(1)``: ``run_probe(mesh, steps=2)``, the
+               multi-chip dry run, gives a finite loss and launches no
+               ring kernel; 5 steps descend; a second run of them is
+               bitwise the first; the update equals tp x LR x the
+               one-rank dense loss's gradient within the stated bar; ms a
+               step by events.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -241,7 +268,9 @@ step, with its ``train_`` times at the step's exchange shape, and
 ``train_1f1b_launches`` / ``train_1f1b_v2_launches``, phase 16's launches
 in one 1F1B step of lane a / b, with its ``train_1f1b_`` step times and
 peaks, the memory lane's under ``train_1f1b_memory_peak_gb`` and
-``train_gpipe_memory_peak_gb``); the last line is
+``train_gpipe_memory_peak_gb``, ``ulysses_grad_launches``, phase 10's
+launches in one Ulysses call with its gradient, and
+``row_dptp_launches``, phase 14's dp x tp kernel lane's); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -397,6 +426,10 @@ RS_RTOL, RS_ATOL = 1e-4, 1e-5
 # (about 48 GiB with the softmax's copies) at 32 768.
 ULY_S, ULY_H, ULY_D = 16384, 32, 128
 ULY_REPEATS = 3
+# The gradient lane: the same widths and S (autograd keeps each rank's
+# [4, S, S] f32 softmax output, 4.29 GB a rank, 34.4 GB over the 8 ranks,
+# until the backward).
+ULY_GRAD_S = ULY_S
 # Small all-to-alls, checked and not timed: (n, rows per block, width,
 # type). Blocks of 12, 30, 6 and 84 bytes, and of 24 006 and 32 764
 # bytes, which two CTAs of a rank stripe by 2-byte units: none a multiple
@@ -1934,7 +1967,8 @@ def phase_ulysses(torch, card):
     (``make_all_to_all`` at the probe's payload and
     ``make_ulysses_attention`` at full width, counts set to 0 just
     before), each Ulysses output against the torch route, the dense
-    reference and ring attention, repeats bitwise equal, and times."""
+    reference and ring attention, repeats bitwise equal, and times; then
+    Ulysses' gradient (``uly_grad_lane``). Returns kernel 10's record."""
     from dpu_operator_tpu_torch.parallel import burn
     from dpu_operator_tpu_torch.parallel import ring_attention as ra
     from dpu_operator_tpu_torch.parallel import ring_probe as rp
@@ -2088,7 +2122,162 @@ def phase_ulysses(torch, card):
         torch.cuda.empty_cache()
     del inputs, x
     torch.cuda.empty_cache()
+    record["ulysses_grad_launches"] = uly_grad_lane(torch, card)
     return record
+
+
+def uly_grads(torch, fn, q, k, v, cot=None):
+    """The gradients of sum(fn(q, k, v)**2), or with the cotangent ``cot``
+    of fn's output, with respect to q, k and v (leaves made here)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        out = fn(*leaves)
+        if cot is None:
+            return torch.autograd.grad((out ** 2).sum(), leaves)
+        return torch.autograd.grad(out, leaves, cot)
+
+
+def uly_grad_lane(torch, card):
+    """Ulysses' gradient at phase 10's full width (S = ULY_GRAD_S, f32,
+    causal, 8 ranks sharing the card): the main path (counts at 0) is one
+    ``torch.autograd.grad`` of sum(out**2) with ``kernel="cuda"``, 4
+    kernel-10 launches forward and 4 backward; its q, k, v gradients ==
+    the torch route's bit for bit, within the ring bars of the dense
+    reference's (a head group at a time) and, at the first and last head
+    groups, of PyTorch's math attention's, 3 repeats bitwise; device ms of
+    forward + backward by events, the peak memory, the idle share of one
+    profiled call; then one bf16 call's gradients against the f32 route's
+    on the same (upcast) inputs and the same cotangent. Returns the main
+    path's launches."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpu_operator_tpu_torch.parallel import burn
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.parallel import ulysses_attention as uly
+
+    mesh, n, S = RING_MESH, RING_MESH["sp"], ULY_GRAD_S
+    h_loc = ULY_H // n
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    q, k, v = (torch.randn((S, ULY_H, ULY_D), generator=gen, device="cuda")
+               for _ in range(3))
+    fn = uly.make_ulysses_attention(mesh, "sp", True)
+    tag = f"ulysses grad S={S} H={ULY_H} D={ULY_D} n={n} f32 causal"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    entry_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    rp.all_to_all_cuda.launches = 0
+    t0 = time.monotonic()
+    got = uly_grads(torch, fn, q, k, v)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = rp.all_to_all_cuda.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == 8, f"{tag}: {launches} all-to-all launches for one "
+          f"call and its gradient (want 4 + 4)")
+    for g, name in zip(got, "qkv"):
+        check(g.shape == q.shape and g.dtype == torch.float32
+              and bool(torch.isfinite(g).all()),
+              f"{tag}: d{name} {g.dtype} {tuple(g.shape)} not finite")
+    log(f"{tag} main path: one torch.autograd.grad of sum(out**2) with "
+        f"kernel 10, {launches} all-to-all launches (4 forward + 4 "
+        f"backward), {wall:.3f} s wall (first call); peak device memory "
+        f"{peak_gb:.3f} GB ({entry_gb:.3f} GB allocated on entry) [{card}]")
+
+    plain = uly_grads(torch, uly.make_ulysses_attention(
+        mesh, "sp", True, kernel="torch", device="cuda"), q, k, v)
+    check(all(same_bits(torch, a, b) for a, b in zip(got, plain)),
+          f"{tag}: kernel route's gradients differ from the torch route's "
+          f"bits")
+    del plain
+    # The dense reference's gradients a head group at a time (its [H, S,
+    # S] scores would take 32 GiB): the loss is a sum over heads, so each
+    # group's gradients are the whole's at its heads. The dense reference
+    # is the port's own _full_attention, the function each rank runs, so
+    # it holds the layout and nothing more; the first and last groups are
+    # also held against autograd through PyTorch's math attention
+    # (scaled_dot_product_attention, f32, is_causal), which shares no code
+    # with the port.
+    def sdpa(a, b, c):
+        with sdpa_kernel(SDPBackend.MATH):
+            return torch.nn.functional.scaled_dot_product_attention(
+                *(t.permute(1, 0, 2) for t in (a, b, c)),
+                is_causal=True).permute(1, 0, 2)
+
+    def dense(a, b, c):
+        return uly.dense_attention_reference(a, b, c, True)
+
+    errs, sdpa_errs = [], []
+    for g0 in range(0, ULY_H, h_loc):
+        heads = slice(g0, g0 + h_loc)
+        refs = [("dense", dense, errs)]
+        if g0 in (0, ULY_H - h_loc):
+            refs.append(("math attention", sdpa, sdpa_errs))
+        for label, ref, into in refs:
+            want = uly_grads(torch, ref, q[:, heads], k[:, heads],
+                             v[:, heads])
+            for g, w, name in zip(got, want, "qkv"):
+                into.append(ring_compare(
+                    torch, burn, f"{tag} d{name} heads {g0}.. vs {label}",
+                    g[:, heads].contiguous(), w)[0])
+            del want
+    for i in range(ULY_REPEATS):
+        before = rp.all_to_all_cuda.launches
+        again = uly_grads(torch, fn, q, k, v)
+        check(rp.all_to_all_cuda.launches == before + 8,
+              f"{tag} repeat {i}: {rp.all_to_all_cuda.launches - before} "
+              f"launches")
+        check(all(same_bits(torch, a, b) for a, b in zip(again, got)),
+              f"{tag} repeat {i}: differs from the first call's bits")
+        del again
+    ms = time_ms(torch, lambda: uly_grads(torch, fn, q, k, v), n=3, warm=1,
+                 batch=1)
+    fwd_ms = time_ms(torch, lambda: fn(q, k, v), n=3, warm=1, batch=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        uly_grads(torch, fn, q, k, v)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    log(f"{tag}: == torch route bit for bit, {ULY_REPEATS} repeats bitwise, "
+        f"8 launches each; vs dense (the port's own attention) max |err| "
+        f"{max(errs):.3e}; vs PyTorch's math attention, heads 0..{h_loc - 1} "
+        f"and {ULY_H - h_loc}..{ULY_H - 1}, max |err| {max(sdpa_errs):.3e} "
+        f"(rtol {RING_RTOL}, atol {RING_ATOL}); forward + backward {ms:.3f} ms "
+        f"by events (forward alone {fwd_ms:.3f} ms) [{card}]")
+    log_a2a_profile(card, f"{tag} profile", prof, wall_ms)
+    del got, prof
+
+    # bf16: the bf16 call's cotangent is 2·out exactly (a power-of-2
+    # scaling of a bf16 value); given the same cotangent, the f32 route on
+    # the upcast inputs runs the same f32 backward, so the bf16 gradients
+    # are its gradients rounded once.
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    del q, k, v
+    with torch.no_grad():
+        cot = 2 * fn(qb, kb, vb)
+    before = rp.all_to_all_cuda.launches
+    got_b = uly_grads(torch, fn, qb, kb, vb)
+    check(rp.all_to_all_cuda.launches == before + 8,
+          f"{tag} bf16: {rp.all_to_all_cuda.launches - before} launches")
+    want_b = uly_grads(torch, fn, *(t.float() for t in (qb, kb, vb)),
+                       cot=cot.float())
+    ulps = []
+    for g, w, name in zip(got_b, want_b, "qkv"):
+        check(g.dtype == torch.bfloat16, f"{tag} bf16: d{name} {g.dtype}")
+        ulps.append(burn.bf16_ulps(g, w.to(torch.bfloat16),
+                                   floor=RING_ULP_FLOOR))
+    check(max(ulps) <= RING_ULPS, f"{tag} bf16: {max(ulps)} ulps from the "
+          f"f32 route's gradients (max {RING_ULPS})")
+    log(f"ulysses grad S={S} bf16 causal: 8 launches, dq/dk/dv within "
+        f"{max(ulps):.2f} bf16 ulps (max {RING_ULPS}) of the f32 route's "
+        f"on the same inputs and cotangent [{card}]")
+    del got_b, want_b, cot, qb, kb, vb
+    torch.cuda.empty_cache()
+    return launches
 
 
 # -- phase 11: the collective matmuls -----------------------------------------
@@ -2894,6 +3083,9 @@ ROW_TOKENS = 32
 ROW_SERVE_CF = 8.0
 ROW_IDLE_VECTORS = 4
 ROW_REPEATS = 20
+# The dp x tp lane: two row groups of the 8 ep ranks (4 rows a rank), the
+# dense pair cut into two tp shards of 7168, the same weights.
+ROW_DPTP = {"dp": 2, "tp": 2, "ep": 8}
 # The cf = 8 direct step against the dense composition (every expert on
 # every row, moe.dense_reference): the same f32 products in other GEMM
 # shapes, 4 stages deep, values of order 1.
@@ -3055,6 +3247,112 @@ def row_direct(torch, card, params):
     del d8, y8, dense
     torch.cuda.empty_cache()
     return times
+
+
+def row_dptp_lane(torch, card, params, prompts, ep8_streams, executors):
+    """The row plane at dp 2 x tp 2 x ep 8 (``ROW_DPTP``: 32 ranks stacked
+    on the card, phase 14's weights shared, 4 rows a rank): a direct step
+    at capacity factor 1 with kernel 10 == the plain exchange bit for bit,
+    2·S launches; at capacity factor 8 (dropless) within ROW_DENSE_ATOL of
+    the ep = 8 step on the same batch (the tp partials summed in another
+    order); then the 64 requests pipelined with kernel 10 and with the
+    plain exchange, whose streams must be identical, and whether they
+    equal the ep = 8 lanes' (``ep8_streams``) is logged. Adds the served
+    executors' weak references to ``executors``; returns the kernel
+    lane's launches (its main path, counts at 0)."""
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+    from dpu_operator_tpu_torch.serving import infer
+
+    S, d, E = ROW_MODEL["S"], ROW_MODEL["d"], ROW_MODEL["E"]
+    mesh = infer.serving_mesh(shape=ROW_DPTP)
+    label = " ".join(f"{a}={n}" for a, n in ROW_DPTP.items())
+    groups = ROW_DPTP["dp"] * E
+    ups = row_updates(d)
+    steps = {k: infer.DecodeStep(mesh, params, ROW_SLOTS, 1.0, kernel=k,
+                                 device="cuda") for k in ("cuda", "torch")}
+    before = rp.all_to_all_cuda.launches
+    yk, tk = steps["cuda"](steps["cuda"].init_state(), ups)
+    torch.cuda.synchronize()
+    launches = rp.all_to_all_cuda.launches - before
+    check(launches == 2 * S, f"rows {label} cf=1: {launches} all-to-all "
+          f"launches in a step of {S} stages")
+    yt, tt = steps["torch"](steps["torch"].init_state(), ups)
+    torch.cuda.synchronize()
+    check(rp.all_to_all_cuda.launches - before == 2 * S,
+          f"rows {label} cf=1: the plain exchange launched the kernel")
+    check(same_bits(torch, yk, yt) and torch.equal(tk, tt),
+          f"rows {label} cf=1: kernel 10 and the plain exchange differ")
+    check(torch.isfinite(yk).all() and yk.shape == (ROW_SLOTS, d),
+          f"rows {label} cf=1: y {tuple(yk.shape)} not finite")
+    rows = ROW_SLOTS // groups
+    C = math.ceil(rows / E)
+    log(f"rows direct {label} cf=1 ({rows} rows a rank, C = {C}; the dp = "
+        f"{ROW_DPTP['dp']} row groups folded into the exchange's width: "
+        f"[{E * E * C}, {ROW_DPTP['dp'] * d}] f32, blocks of {C} rows): "
+        f"kernel 10 == plain exchange bit for bit, {launches} launches a "
+        f"step (2 x {S} stages) [{card}]")
+    del steps, yk, yt
+
+    d8 = infer.DecodeStep(mesh, params, ROW_SLOTS, ROW_SERVE_CF,
+                          kernel="cuda", device="cuda")
+    e8 = infer.DecodeStep(infer.serving_mesh(shape={"ep": E}), params,
+                          ROW_SLOTS, ROW_SERVE_CF, kernel="cuda",
+                          device="cuda")
+    y, tok = d8(d8.init_state(), ups)
+    y8, tok8 = e8(e8.init_state(), ups)
+    err = float((y - y8).abs().max())
+    check(err <= ROW_DENSE_ATOL, f"rows {label} cf={ROW_SERVE_CF:g}: max |y "
+          f"- y(ep=8)| {err:.3e} > {ROW_DENSE_ATOL}")
+    ms = time_ms(torch, lambda: d8(y, ()), n=5, warm=2, batch=4)
+    ms8 = time_ms(torch, lambda: e8(y8, ()), n=5, warm=2, batch=4)
+    log(f"rows direct {label} cf={ROW_SERVE_CF:g}: y within {ROW_DENSE_ATOL} "
+        f"of the ep=8 step's on the same batch (max |err| {err:.3e}), "
+        f"{int((tok != tok8).sum())} of {ROW_SLOTS} tokens differ; a step "
+        f"{ms:.3f} ms with kernel 10 (ep=8 alone {ms8:.3f} ms) [{card}]")
+    del d8, e8, y, y8
+
+    # Kernel 10 at the served shape: [E·E·C, dp·d] f32, C = 4 at cf = 8.
+    C8 = math.ceil(rows / E * ROW_SERVE_CF)
+    x = coll_payload(torch, E * E * C8, ROW_DPTP["dp"] * d, torch.float32,
+                     seed=42)
+    check(same_bits(torch, rp.all_to_all_cuda(x, E),
+                    rp.all_to_all_plain(x, E)),
+          f"rows {label} all-to-all: kernel != plain")
+    a2a_ms = time_ms(torch, lambda: rp.all_to_all_cuda(x, E), n=10, warm=2)
+    launch_ms, host_ms, seen = device_ms(
+        torch, lambda: rp.all_to_all_cuda(x, E), "all_to_all_kernel")
+    xbytes = x.numel() * x.element_size()
+    log(f"rows {label} all_to_all {list(x.shape)} f32 n={E} (blocks of {C8} "
+        f"rows): kernel {a2a_ms:.4f} ms ({launch_ms:.4f} ms a launch on the "
+        f"card, {seen}; {host_ms:.4f} ms of host time to queue a call), "
+        f"bound {2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({xbytes} B read "
+        f"and written) [{card}]")
+    del x
+
+    lanes = {}
+    for kernel in ("cuda", "torch"):
+        lane = f"{label} pipelined" + ("" if kernel == "cuda" else " torch")
+        streams, st, ex = row_lane(torch, card, lane, params, mesh,
+                                   "pipelined", kernel, prompts)
+        executors.append(weakref.ref(ex))
+        del ex
+        want = 2 * S * st["steps"] if kernel == "cuda" else 0
+        check(st["launches"] == want and st["steps"] > 0,
+              f"rows {lane}: {st['launches']} kernel-10 launches for "
+              f"{st['steps']} steps (want {want})")
+        lanes[kernel] = (streams, st)
+    check(lanes["cuda"][0] == lanes["torch"][0],
+          f"rows {label}: kernel 10 and the plain exchange decode different "
+          f"streams, first at {first_diff(lanes['torch'][0], lanes['cuda'][0])}")
+    same = lanes["cuda"][0] == ep8_streams
+    log(f"rows {label}: the kernel and plain-exchange lanes' streams "
+        f"identical; equal to the ep=8 lanes' streams: {same}"
+        + ("" if same else
+           f" (first difference at {first_diff(lanes['cuda'][0], ep8_streams)})")
+        + f"; median step interval {lanes['cuda'][1]['median_ms']:.3f} / "
+        f"{lanes['torch'][1]['median_ms']:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+    return lanes["cuda"][1]["launches"]
 
 
 def row_arrival(label, results, sent, accepted, reqs, starts):
@@ -3350,6 +3648,8 @@ def phase_rows(torch, card, record):
     served = first["launches"] + lanes["ep=8 sync"][1]["launches"]
     del profiled
     torch.cuda.empty_cache()
+    record["row_dptp_launches"] = row_dptp_lane(torch, card, params, prompts,
+                                                base, executors)
 
     p1 = ts.init_params(S, d, h, 1, seed=1, device="cuda")
     _, st1, ex1 = row_lane(torch, card, "ep=1 pipelined", p1,
@@ -3917,6 +4217,89 @@ def phase_train_1f1b(torch, card, record):
         train_gpipe_memory_peak_gb=memory["gpipe"][3])
 
 
+# -- phase 17: the fabric probe's training step ------------------------------
+
+# The operator's own multi-chip health step: build_mesh(8) = dp 2 x sp 2 x
+# tp 2 (batch [8, 16, 128]) and build_mesh(1), the reference's probe model
+# (DIM 128, HIDDEN 256), stacked on the card. Small by design: it checks
+# the hand-offs, not the card's speed.
+PROBE_MESHES = (8, 1)
+PROBE_STEPS = 5
+# The update against tp x LR x the one-rank gradient: the CPU test's bf16
+# bar (each rank's gradient rounded to bf16 before the ranks' f32 sum,
+# against one rounding of the whole).
+PROBE_UPDATE_RTOL = 1e-2  # and atol 1e-2 of the largest magnitude
+
+
+def phase_probe(torch, card):
+    """The fabric probe's training step (``make_probe_train_step``,
+    ``run_probe``) at ``build_mesh(8)`` and ``build_mesh(1)``: the dry
+    run's ``run_probe(mesh, steps=2)`` (the main path; it reaches no
+    kernel, and no ring kernel's count moves) gives a finite loss; 5 steps
+    descend; a second run of them is bitwise the first; the update equals
+    tp x LR x the one-rank dense loss's gradient (the update at
+    ``build_mesh(1)`` on the same global batch) within the bf16 bar; ms a
+    step by events."""
+    from dpu_operator_tpu_torch.parallel import build_mesh, run_probe
+    from dpu_operator_tpu_torch.parallel import fabric_probe as fp
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
+
+    counters = (rp.all_to_all_cuda, rp.ring_all_gather_cuda,
+                rp.ring_reduce_scatter_cuda)
+    for n in PROBE_MESHES:
+        mesh = build_mesh(n)
+        label = f"probe build_mesh({n}) = " + " x ".join(
+            f"{a} {k}" for a, k in mesh.items())
+        for c in counters:
+            c.launches = 0
+        t0 = time.monotonic()
+        loss = run_probe(mesh, steps=2)
+        wall = time.monotonic() - t0
+        moved = [c.launches for c in counters]
+        check(math.isfinite(loss), f"{label}: run_probe loss {loss}")
+        check(not any(moved), f"{label}: run_probe launched ring kernels "
+              f"{moved}")
+        step = fp.make_probe_train_step(mesh)
+        batch = fp.probe_example_batch(2, mesh)
+        blocks = fp.shard_probe_batch(batch, mesh)
+        runs = []
+        for _ in range(2):
+            params, losses = fp.init_probe_params(1), []
+            for _ in range(PROBE_STEPS):
+                params, lv = step(params, blocks)
+                losses.append(float(lv))
+            runs.append((losses, params))
+        losses = runs[0][0]
+        check(all(math.isfinite(x) for x in losses)
+              and all(b < a for a, b in zip(losses, losses[1:])),
+              f"{label}: losses {losses} do not descend")
+        check(runs[1][0] == losses and all(
+            same_bits(torch, runs[0][1][k], runs[1][1][k])
+            for k in fp.PARAM_SPEC), f"{label}: repeated steps differ")
+        p0 = fp.init_probe_params(1)
+        p1, _ = step(p0, blocks)
+        one = build_mesh(1)
+        d1, _ = fp.make_probe_train_step(one)(
+            p0, fp.shard_probe_batch(batch, one))
+        tp = mesh["tp"]
+        worst = 0.0
+        for k in fp.PARAM_SPEC:
+            got, want = p0[k] - p1[k], tp * (p0[k] - d1[k])
+            bar = PROBE_UPDATE_RTOL * (want.abs() + want.abs().max())
+            check(bool(((got - want).abs() <= bar).all()),
+                  f"{label}: {k}'s update is not tp x LR x the one-rank "
+                  f"gradient")
+            worst = max(worst, float(((got - want).abs()
+                                      / want.abs().max()).max()))
+        ms = time_ms(torch, lambda: step(p0, blocks), n=10, warm=3, batch=5)
+        log(f"{label}: batch {tuple(batch.shape)}, run_probe(steps=2) loss "
+            f"{loss!r} in {wall:.3f} s (no kernel launched); {PROBE_STEPS} "
+            f"steps {[round(x, 6) for x in losses]} descending, repeated "
+            f"bitwise; update == {tp} x LR x the one-rank gradient within "
+            f"rtol {PROBE_UPDATE_RTOL} (max |err| / max |update| "
+            f"{worst:.3e}); a step {ms:.4f} ms by events [{card}]")
+
+
 def main() -> int:
     try:
         import torch
@@ -3969,6 +4352,7 @@ def main() -> int:
     phase_rows(torch, card, a2a)
     phase_train(torch, card, a2a)
     phase_train_1f1b(torch, card, a2a)
+    phase_probe(torch, card)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

@@ -1,17 +1,17 @@
 """Mesh axes of the port.
 
-The port's copy of what its slices need from the jax-free part of the
-JAX package's ``parallel/mesh.py``: the axis names and the factoring of a
-device count onto them, statement for statement, and
-``ring_is_ici_adjacent`` on the port's mesh, which is a mapping of axis
-names to sizes (``{"dp": 1, "sp": 8, "tp": 1}``) whose ranks are tuples
-of coordinates, one per axis.
+The port's copy of what its slices need from the JAX package's
+``parallel/mesh.py``: the axis names and the factoring of a device count
+onto them, statement for statement; ``build_mesh`` and
+``ring_is_ici_adjacent``, rewritten for the port's mesh, which is a
+mapping of axis names to sizes (``{"dp": 2, "sp": 2, "tp": 2}``) whose
+ranks are tuples of coordinates, one per axis, all stacked on one card.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Callable, Mapping, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 AXES = ("dp", "sp", "tp")  # data / sequence(ring) / tensor axes
 
@@ -26,6 +26,21 @@ def axis_sizes(n_devices: int) -> Tuple[int, int, int]:
     dp = rest // sp
     assert dp * sp * tp == n_devices
     return dp, sp, tp
+
+
+def build_mesh(n_devices: Optional[int] = None,
+               devices: Optional[Sequence] = None) -> Dict[str, int]:
+    """The (dp, sp, tp) mesh over n ranks, ``axis_sizes(n)`` under
+    ``AXES``: n is ``n_devices``, else ``len(devices)``, else 1 (the one
+    card). The ranks share one card, so ``devices`` is only counted: it
+    must hold at least ``n_devices`` entries. A GPU has no ICI
+    coordinates to order them by."""
+    if devices is not None and n_devices is not None \
+            and len(devices) < n_devices:
+        raise ValueError(f"need {n_devices} devices, have {len(devices)}")
+    if n_devices is None:
+        n_devices = 1 if devices is None else len(devices)
+    return dict(zip(AXES, axis_sizes(n_devices)))
 
 
 def ring_is_ici_adjacent(

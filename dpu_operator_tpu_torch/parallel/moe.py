@@ -24,8 +24,8 @@ all-to-all permutes row blocks and each row carries all G groups.
 
 Differentiated, the tiled all-to-all's adjoint is the same all-to-all: its
 block map (source s, block r) -> (rank r, block s) is its own inverse.
-``kernel_exchange`` carries that as a ``torch.autograd.Function``, one
-launch forward and one backward; autograd differentiates the plain version
+``ring_probe.kernel_exchange`` carries that as a ``torch.autograd.Function``,
+one launch forward and one backward; autograd differentiates the plain version
 directly. The routing (experts, positions, keep, slots) carries no
 gradient; the gate value, the dispatch scatter-add, the expert products
 and the combine's gather do, as under ``jax.grad`` in the reference.
@@ -58,33 +58,10 @@ from typing import Callable, Mapping, Optional
 import torch
 
 from ..device import resolve_device
-from .ring_probe import (MAX_RANKS, _ring_setup, all_to_all_cuda,
-                         all_to_all_plain)
+from .ring_probe import (MAX_RANKS, _ring_setup, all_to_all_plain,
+                         kernel_exchange)
 
 Exchange = Callable[[torch.Tensor, int], torch.Tensor]
-
-
-class _KernelExchange(torch.autograd.Function):
-    """Kernel 10 with its gradient: the adjoint of the tiled all-to-all is
-    the same all-to-all of the incoming gradient."""
-
-    @staticmethod
-    def forward(ctx, x, n):
-        ctx.n = n
-        return all_to_all_cuda(x, n)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return all_to_all_cuda(grad, ctx.n), None
-
-
-def kernel_exchange(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``all_to_all_cuda(x, n)``, differentiable: one launch forward and,
-    where a gradient is asked for, one launch backward. A ring of one is
-    the identity (no launch either way)."""
-    if n == 1:
-        return all_to_all_cuda(x, n)
-    return _KernelExchange.apply(x, n)
 
 
 def pick_exchange(kernel: str, E: int) -> Exchange:

@@ -26,7 +26,10 @@ Each collective has two versions of the same function:
     or raise. ``.launches`` counts their launches.
 
 The all-to-all has the same two versions, ``all_to_all_plain`` (rank by
-rank, in the kernel's order of stores) and ``all_to_all_cuda``.
+rank, in the kernel's order of stores) and ``all_to_all_cuda``;
+``kernel_exchange`` is ``all_to_all_cuda`` with its gradient, the same
+all-to-all of the incoming gradient (one launch each way), which Ulysses
+attention and the Switch MoE's expert exchanges take on the card.
 
 ``make_ring_all_gather``, ``make_ring_reduce_scatter`` and
 ``make_all_to_all`` are the entry points, on whole tensors cut into
@@ -560,6 +563,30 @@ def all_to_all_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
 
 #: Kernel launches so far (CPU calls of the wrapper do not count).
 all_to_all_cuda.launches = 0
+
+
+class _KernelExchange(torch.autograd.Function):
+    """Kernel 10 with its gradient: the adjoint of the tiled all-to-all is
+    the same all-to-all of the incoming gradient (its block map, source s
+    block r -> rank r block s, is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return all_to_all_cuda(x, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all_cuda(grad, ctx.n), None
+
+
+def kernel_exchange(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``all_to_all_cuda(x, n)``, differentiable: one launch forward and,
+    where a gradient is asked for, one launch backward. A ring of one is
+    the identity (no launch either way)."""
+    if n == 1:
+        return all_to_all_cuda(x, n)
+    return _KernelExchange.apply(x, n)
 
 
 # -- entry points -------------------------------------------------------------

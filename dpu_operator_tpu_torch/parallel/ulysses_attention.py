@@ -9,9 +9,13 @@ locally (softmax over the whole sequence; causal masking is ordinary
 tril, global by construction); one more all-to-all trades back. Three
 exchanges in, one out, each moving S·H·D/n² per pair of ranks.
 
-The exchanges are ``ring_probe``'s all-to-all: ``all_to_all_cuda`` (one
-launch of ``csrc/all_to_all.cu`` that holds every rank) or
-``all_to_all_plain``. With the n ranks' ``_heads_to_rows`` blocks stacked,
+The exchanges are ``ring_probe``'s all-to-all: ``kernel_exchange`` (one
+launch of ``csrc/all_to_all.cu`` that holds every rank, and one more in
+the backward: the adjoint of the all-to-all is the same all-to-all) or
+``all_to_all_plain``, which autograd differentiates directly. So Ulysses
+is differentiable on either route, as ``jax.grad`` runs through the
+reference: a call with a gradient makes 4 exchanges forward and 4
+backward. With the n ranks' ``_heads_to_rows`` blocks stacked,
 one ``[n·H, S/n·D]`` tensor is exactly the all-to-all's input (rank r's
 shard its ``[H, S/n·D]``, blocks of H/n rows), so each exchange is one
 call over all ranks.
@@ -31,7 +35,7 @@ from typing import Mapping, Optional
 
 import torch
 
-from .ring_probe import _ring_setup, all_to_all_cuda, all_to_all_plain
+from .ring_probe import _ring_setup, all_to_all_plain, kernel_exchange
 
 
 def _heads_to_rows(x):
@@ -125,12 +129,13 @@ def make_ulysses_attention(mesh: Mapping[str, int], axis: str = "sp",
     global position, trivially, since each rank sees the whole sequence
     after the exchange. The four exchanges are all-to-alls over the axis:
     ``kernel`` ``"cuda"`` (the default on a CUDA device: one launch of the
-    all-to-all kernel each) or ``"torch"`` (the default on the CPU: the
-    plain version). ``device`` None means the CUDA card, and raises
+    all-to-all kernel each, and one more each in the backward) or
+    ``"torch"`` (the default on the CPU: the plain version). Both routes
+    are differentiable. ``device`` None means the CUDA card, and raises
     without one."""
     n, device, kernel = _ring_setup(mesh, axis, kernel, device,
                                     "make_ulysses_attention")
-    impl = all_to_all_cuda if kernel == "cuda" else all_to_all_plain
+    impl = kernel_exchange if kernel == "cuda" else all_to_all_plain
 
     def a2a(x2):
         return impl(x2, n)

@@ -7,15 +7,19 @@ forward over a fixed ``[slots, d]`` batch, so the continuous-batching
 scheduler's occupancy varies and shapes never do.
 
 Mesh contract: the serving mesh keeps pp == sp == 1, and shards the batch
-over ("dp", "ep") with the experts over ``ep``. The port's mesh is a
-mapping of the five axis sizes. Its ``ep`` ranks are stacked on one card,
-as every multi-rank path of the port runs them: a step's ``[slots, d]``
-batch is ``[E, slots/E, d]``, rank r's rows ``r·slots/E ..``, and each
-stage's two expert exchanges are one all-to-all over all ranks
-(``parallel/moe.py``): the CUDA all-to-all kernel on the card (one launch
-each at ep > 1; a ring of one launches nothing), its plain version on the
-CPU. dp and tp stay 1 until the one-card mesh (queue 1 #7); the training
-step (``parallel/train_step.py``) already stacks them.
+over ("dp", "ep") with the dense pair over ``tp`` and the experts over
+``ep``. The port's mesh is a mapping of the five axis sizes. Its ranks
+are stacked on one card, as every multi-rank path of the port runs them:
+a step's ``[B, d]`` batch is ``[dp, E, B/(dp·E), d]``, the reference's
+``P(("dp", "ep"), None)``: row r lies in block k = r // (B/(dp·E)), which
+belongs to rank (dp k // E, ep k % E). The dp row groups route their own
+tokens and fold into the expert exchanges' width, so each stage's two
+exchanges stay one all-to-all over all ranks (``parallel/moe.py``): the
+CUDA all-to-all kernel on the card (one launch each at ep > 1, whatever
+dp; a ring of one launches nothing), its plain version on the CPU. Over
+tp, ``train_step._stage_fn`` sums the shards' partials of the dense pair
+in rank order (the reference's ``psum``) and computes the rest of the
+stage once for the tp replicas.
 
 ``DecodeStep`` keeps the slot state on the device. A step's slot updates
 are staged at fixed shapes in pinned host memory and copied with
@@ -42,16 +46,15 @@ def serving_mesh(devices: Optional[Sequence] = None,
                  shape: Optional[Dict[str, int]] = None) -> Dict[str, int]:
     """The 5-axis (dp, pp, sp, tp, ep) serving mesh as a mapping of axis
     sizes. Default: every axis singleton, the per-replica shape; ``shape``
-    sizes ``ep`` (pp and sp must stay 1; dp and tp > 1 are not ported).
-    The ranks share one card; ``devices``, when given, holds one entry a
-    rank and must match their count."""
+    assigns sizes to dp/tp/ep (pp and sp must stay 1). The ranks share one
+    card; ``devices``, when given, holds one entry a rank and must match
+    their count."""
     shape = dict(shape or {})
     if shape.get("pp", 1) != 1 or shape.get("sp", 1) != 1:
         raise ValueError(
             "serving mesh keeps pp == sp == 1: decode state has no "
             f"sequence axis and every stage is local, got {shape}")
     sizes = {a: int(shape.get(a, 1)) for a in AXES}
-    _check_ported_axes(sizes)
     want = int(np.prod(list(sizes.values())))
     if devices is not None and len(devices) != want:
         raise ValueError(
@@ -59,26 +62,16 @@ def serving_mesh(devices: Optional[Sequence] = None,
     return sizes
 
 
-def _check_ported_axes(mesh: Mapping[str, int]) -> None:
-    for axis in ("dp", "tp"):
-        if int(mesh.get(axis, 1)) != 1:
-            raise ValueError(
-                f"serving mesh {axis}={mesh[axis]} is not ported yet: dp "
-                f"and tp > 1 on the stacked ranks come with the one-card "
-                f"mesh (queue 1 #7)")
-
-
 def _check_serving_axes(mesh: Mapping[str, int]) -> None:
     for axis in ("pp", "sp"):
         if mesh[axis] != 1:
             raise ValueError(
                 f"infer_step requires {axis}=1, got {mesh[axis]}")
-    _check_ported_axes(mesh)
 
 
-def _make_per_device(E: int, capacity_factor: float, exchange):
-    """The stage stack over the E stacked ranks, shared by infer_step and
-    DecodeStep: x [E, rows, d] -> [E, rows, d]."""
+def _make_per_device(E: int, tp: int, capacity_factor: float, exchange):
+    """The stage stack over the dp·E stacked ranks, shared by infer_step
+    and DecodeStep: x [dp, E, rows, d] -> [dp, E, rows, d]."""
 
     def per_device(params, x):
         S = params["router"].shape[0]
@@ -92,20 +85,37 @@ def _make_per_device(E: int, capacity_factor: float, exchange):
             p = {k: v[s] for k, v in params.items()}
             x = _stage_fn(p, x, E=E, tp_axis="tp", ep_axis="ep",
                           capacity_factor=capacity_factor,
-                          row_mask=active, exchange=exchange)
+                          row_mask=active, exchange=exchange, tp=tp)
         return x
 
     return per_device
 
 
-def _setup(mesh: Mapping[str, int], kernel: Optional[str], device,
-           owner: str):
-    """(E, device, kernel, exchange) of a serving step."""
+def _check_rows(mesh: Mapping[str, int], B: int, what: str) -> None:
+    groups = int(mesh["dp"]) * int(mesh["ep"])
+    if B % groups:
+        raise ValueError(f"{what}={B} must divide over dp*ep={groups} "
+                         f"(batch rows shard over both)")
+
+
+def _setup(mesh: Mapping[str, int], capacity_factor: float,
+           kernel: Optional[str], device, owner: str):
+    """(device, kernel, the stage stack, lay_out) of a serving step:
+    ``lay_out(x, what)`` views a ``[B, d]`` batch as ``[dp, E, B/(dp·E),
+    d]`` and raises where B does not divide by dp·ep."""
     _check_serving_axes(mesh)
     device = resolve_device(device, owner)
     kernel = pick_kernel(kernel, device)
-    E = int(mesh["ep"])
-    return E, device, kernel, pick_exchange(kernel, E)
+    dp, E = int(mesh["dp"]), int(mesh["ep"])
+    per_device = _make_per_device(E, int(mesh["tp"]), capacity_factor,
+                                  pick_exchange(kernel, E))
+
+    def lay_out(x: torch.Tensor, what: str) -> torch.Tensor:
+        B, d = x.shape
+        _check_rows(mesh, B, what)
+        return x.view(dp, E, B // (dp * E), d)
+
+    return device, kernel, per_device, lay_out
 
 
 def make_infer_step(mesh: Mapping[str, int], capacity_factor: float = 4.0,
@@ -115,16 +125,12 @@ def make_infer_step(mesh: Mapping[str, int], capacity_factor: float = 4.0,
     ``train_step.init_params`` layout on ``device`` (``shard_params``); x
     is a tensor or an array; B must divide by dp·ep (batch rows shard
     over both). ``kernel`` and ``device`` as in ``DecodeStep``."""
-    E, device, kernel, exchange = _setup(mesh, kernel, device,
-                                         "make_infer_step")
-    per_device = _make_per_device(E, capacity_factor, exchange)
+    device, kernel, per_device, lay_out = _setup(
+        mesh, capacity_factor, kernel, device, "make_infer_step")
 
     def infer_step(params, x):
         x = torch.as_tensor(x, dtype=torch.float32, device=device)
-        B, d = x.shape
-        if B % E:
-            raise ValueError(f"batch {B} does not shard over dp*ep={E}")
-        return per_device(params, x.view(E, B // E, d)).reshape(B, d)
+        return per_device(params, lay_out(x, "batch")).reshape(x.shape)
 
     infer_step.kernel = kernel
     return infer_step
@@ -153,15 +159,12 @@ class DecodeStep:
     def __init__(self, mesh: Mapping[str, int], params, slots: int,
                  capacity_factor: float = 4.0, *,
                  kernel: Optional[str] = None, device=None):
-        E, self.device, self.kernel, exchange = _setup(
-            mesh, kernel, device, "DecodeStep")
+        self.device, self.kernel, self._per_device, self._lay_out = _setup(
+            mesh, capacity_factor, kernel, device, "DecodeStep")
         self.slots = int(slots)
-        if self.slots % E:
-            raise ValueError(f"slots={slots} must divide over ep={E}")
-        self.E = E
+        _check_rows(mesh, self.slots, "slots")  # before placing weights
         self.params = shard_params(params, mesh, self.device)
         self.d = int(self.params["w1"].shape[1])
-        self._per_device = _make_per_device(E, capacity_factor, exchange)
         # Own call counter: the overflow ValueError below must name a
         # step even when the scheduler passes none (debug callers).
         self._calls = 0
@@ -176,8 +179,7 @@ class DecodeStep:
                            device=self.device)
 
     def _fwd(self, x: torch.Tensor):
-        y = self._per_device(
-            self.params, x.view(self.E, self.slots // self.E, self.d))
+        y = self._per_device(self.params, self._lay_out(x, "slots"))
         y = y.reshape(self.slots, self.d)
         return y, y.argmax(dim=1).to(torch.int32)
 

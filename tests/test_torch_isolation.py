@@ -81,7 +81,7 @@ COPIES = {
     "obs/trace.py": (),
     "parallel/fabric_collectives.py": (),
     "parallel/fabric_worker.py": (),
-    "parallel/mesh.py": ("ring_is_ici_adjacent",),
+    "parallel/mesh.py": ("build_mesh", "ring_is_ici_adjacent"),
     "parallel/pipeline_1f1b.py": ("_take", "interleave_stack", "uninterleave",
                                   "run_schedule", "make_1f1b",
                                   "sequential_loss"),

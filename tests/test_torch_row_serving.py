@@ -128,16 +128,112 @@ def test_serving_mesh_errors():
         infer.serving_mesh(devices=[None] * 3, shape={"ep": 2})
     assert str(got.value) == str(want.value)
     assert infer.serving_mesh(devices=["cpu"] * 2, shape={"ep": 2})["ep"] == 2
-    for axis in ("dp", "tp"):
-        with pytest.raises(ValueError, match="queue 1 #7"):
-            infer.serving_mesh(shape={axis: 2})
-        with pytest.raises(ValueError, match="queue 1 #7"):
-            infer.make_infer_step(dict(infer.serving_mesh(), **{axis: 2}),
-                                  **CPU)
+    assert infer.serving_mesh(shape={"dp": 2, "tp": 2, "ep": 2}) == {
+        "dp": 2, "pp": 1, "sp": 1, "tp": 2, "ep": 2}
+    with pytest.raises(ValueError) as want:
+        ref_infer.serving_mesh(devices=[None] * 4,
+                               shape={"dp": 2, "tp": 2, "ep": 2})
+    with pytest.raises(ValueError) as got:
+        infer.serving_mesh(devices=[None] * 4,
+                           shape={"dp": 2, "tp": 2, "ep": 2})
+    assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="infer_step requires pp=1"):
         infer.make_infer_step(dict(infer.serving_mesh(), pp=2), **CPU)
     with pytest.raises(ValueError, match="CUDA"):
         infer.make_infer_step(infer.serving_mesh(), kernel="cuda", **CPU)
+
+
+# -- dp and tp > 1 --------------------------------------------------------------
+
+
+def _batch(rng, B, d, idle):
+    """B rows ~ N(0, 1) with the rows of ``idle`` exactly zero."""
+    x = rng.randn(B, d).astype(np.float32)
+    x[list(idle)] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("dp,tp,ep", [(2, 1, 2), (1, 2, 2), (2, 2, 2)])
+def test_dp_tp_rows_match_reference(dp, tp, ep):
+    """The row plane at dp, tp > 1 on the reference's 8-device mesh and on
+    the port's stacked ranks, on the same weights: ``make_infer_step``
+    within the file's bar at capacity factor 1 (rows dropped, so routing
+    depends on which rank holds a row: a batch laid out in another order
+    than the reference's dp-major ``P(("dp", "ep"), None)`` would route
+    differently) and 4, idle rows exactly zero; ``DecodeStep`` tokens
+    exactly over a plan of updates; ``LocalExecutor`` streams exactly, more
+    requests than slots."""
+    from dpu_operator_tpu.serving import (AdmissionQueue as RefQueue,
+                                          ContinuousBatcher as RefBatcher,
+                                          GenerateRequest as RefRequest,
+                                          encode_prompt as ref_encode)
+
+    shape = {"dp": dp, "tp": tp, "ep": ep}
+    params = _params(2, ep, seed=40 + 4 * dp + tp)
+    mesh, rmesh = infer.serving_mesh(shape=shape), ref_infer.serving_mesh(
+        shape=shape)
+    assert mesh == dict(rmesh.shape)
+    p = ts.shard_params(params, mesh, "cpu")
+    rp_ = ref_ts.shard_params(params, rmesh)
+    rng = np.random.RandomState(dp * 10 + tp)
+    B = 4 * dp * ep
+    for cf in (1.0, 4.0):
+        step = infer.make_infer_step(mesh, capacity_factor=cf, **CPU)
+        rstep = ref_infer.make_infer_step(rmesh, capacity_factor=cf)
+        x = _batch(rng, B, D, idle=(1, B - 2))
+        y = step(p, x).numpy()
+        np.testing.assert_allclose(y, np.asarray(rstep(rp_, x)), rtol=RTOL,
+                                   atol=ATOL)
+        assert not y[1].any() and not y[B - 2].any()
+
+    slots = 2 * dp * ep
+    ref = ref_infer.DecodeStep(rmesh, rp_, slots, capacity_factor=1.0)
+    port = infer.DecodeStep(mesh, ts.params_from_numpy(params, "cpu"),
+                            slots, 1.0, **CPU)
+    rx, px = ref.init_state(), port.init_state()
+    for n in (3, 0, slots, 2, 0):
+        ups = _updates(rng, slots, D, n)
+        rx, rtok = ref(rx, ups)
+        px, ptok = port(px, ups)
+        np.testing.assert_allclose(px.numpy(), np.asarray(rx), rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_array_equal(ptok.numpy(), np.asarray(rtok))
+
+    kw = dict(params=params, slots=slots, capacity_factor=4.0)
+    ref_reqs = [RefRequest(prompt_vec=ref_encode(f"trace-{i}", D),
+                           max_tokens=5, deadline=time.monotonic() + 600.0)
+                for i in range(slots + 2)]
+    want = _drive(RefLocal(mesh=rmesh, **kw), ref_reqs, RefQueue, RefBatcher)
+    got = _drive(LocalExecutor(mesh=mesh, **kw, **CPU),
+                 _trace(slots + 2, D, 5), AdmissionQueue, ContinuousBatcher)
+    assert all(e is None for e, _ in got)
+    assert got == want
+
+
+def test_dp_tp_shape_errors():
+    """Batches and slots that do not divide by dp·ep raise with the
+    reference's LocalExecutor text, DecodeStep's before it places the
+    weights; a dense pair whose width does not cut
+    into tp shards raises."""
+    mesh = infer.serving_mesh(shape={"dp": 2, "ep": 2})
+    p = ts.shard_params(_params(1, 2, seed=6), mesh, "cpu")
+    step = infer.make_infer_step(mesh, **CPU)
+    with pytest.raises(ValueError, match=r"batch=6 must divide over "
+                       r"dp\*ep=4 \(batch rows shard over both\)"):
+        step(p, np.ones((6, D), np.float32))
+    with pytest.raises(ValueError) as want:
+        RefLocal(slots=6, E=2, mesh=ref_infer.serving_mesh(
+            shape={"dp": 2, "ep": 2}), warmup=False)
+    for make in (lambda: infer.DecodeStep(mesh, p, 6, **CPU),
+                 # rejected before the weights are placed: None never is
+                 lambda: infer.DecodeStep(mesh, None, 6, **CPU),
+                 lambda: LocalExecutor(slots=6, E=2, mesh=mesh, **CPU)):
+        with pytest.raises(ValueError) as got:
+            make()
+        assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="does not shard over tp=3"):
+        ts.shard_params(_params(1, 2, seed=6),
+                        infer.serving_mesh(shape={"tp": 3, "ep": 2}), "cpu")
 
 
 # -- the idle-slot contract -----------------------------------------------------

@@ -38,6 +38,7 @@ from dpu_operator_tpu.parallel import train_step as ref
 from dpu_operator_tpu.parallel._compat import shard_map
 from dpu_operator_tpu_torch.parallel import moe
 from dpu_operator_tpu_torch.parallel import ring_attention as ra
+from dpu_operator_tpu_torch.parallel import ring_probe as rp
 from dpu_operator_tpu_torch.parallel import train_step as ts
 
 torch.set_num_threads(1)
@@ -366,7 +367,7 @@ def _counting(monkeypatch):
     after this take ``kernel="cuda"`` on the CPU too, so the factory's own
     ``pick_exchange`` picks the (counting) kernel_exchange."""
     calls, exchanges = [], {True: 0, False: 0}
-    inner, kernel_exchange = moe.all_to_all_cuda, moe.kernel_exchange
+    inner, kernel_exchange = rp.all_to_all_cuda, moe.kernel_exchange
     pick_kernel = ts.pick_kernel
 
     def counted(x, n):
@@ -377,7 +378,7 @@ def _counting(monkeypatch):
         exchanges[torch.is_grad_enabled()] += 1
         return kernel_exchange(x, n)
 
-    monkeypatch.setattr(moe, "all_to_all_cuda", counted)
+    monkeypatch.setattr(rp, "all_to_all_cuda", counted)
     monkeypatch.setattr(moe, "kernel_exchange", exchange)
     monkeypatch.setattr(ts, "pick_kernel", lambda kernel, device: (
         "cuda" if kernel == "cuda" else pick_kernel(kernel, device)))

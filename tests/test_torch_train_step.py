@@ -220,13 +220,13 @@ def _counting(monkeypatch):
     """Count the calls of the all-to-all wrapper that kernel_exchange
     launches (on the CPU it runs the plain version)."""
     calls = []
-    inner = moe.all_to_all_cuda
+    inner = rp.all_to_all_cuda
 
     def counted(x, n):
         calls.append(n)
         return inner(x, n)
 
-    monkeypatch.setattr(moe, "all_to_all_cuda", counted)
+    monkeypatch.setattr(rp, "all_to_all_cuda", counted)
     return calls
 
 

@@ -13,10 +13,14 @@ Bars:
     dense attention (``tests/test_ulysses_attention.py``). Both packages
     compute the same f32 products and softmax; they differ by float
     reassociation only;
+  * f32 gradients: ``rtol=2e-4, atol=1e-6``, the reference's own bar
+    between Ulysses' ``jax.grad`` and the dense reference's;
   * bf16 port against bf16 reference: at most 1 bf16 ulp, both rounding
     the same f32 value, up to reassociation, once;
   * the all-to-all: exact, it only moves data.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -36,6 +40,7 @@ from virtual_mesh import REPO, run_virtual
 torch.set_num_threads(1)
 
 TOL = 2e-5
+GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-6
 AXES = ("dp", "sp", "tp")
 
 
@@ -144,6 +149,102 @@ def test_four_exchanges_per_call(monkeypatch):
     _port(n, q, k, v, True)
     qk, vo = (((n * H, S // n * d), n) for d in (8, 4))  # dk 8, dv 4
     assert calls == [qk, qk, vo, vo]
+
+
+def _ref_grads(n, q, k, v, causal, dtype=jnp.float32):
+    """``jax.grad`` of sum(out**2) through the reference's XLA Ulysses on a
+    (1, n, 1) virtual mesh, as its own gradient test takes it."""
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(1, n, 1),
+                axis_names=AXES)
+    sh = NamedSharding(mesh, P("sp", None, None))
+    fn = ref.make_ulysses_attention(mesh, "sp", causal=causal,
+                                    use_pallas=False)
+    args = [jax.device_put(jnp.asarray(a).astype(dtype), sh)
+            for a in (q, k, v)]
+    grads = jax.grad(lambda *a: jnp.sum(fn(*a) ** 2), argnums=(0, 1, 2))(
+        *args)
+    return [np.array(g.astype(jnp.float32)) for g in grads]
+
+
+def _grads(fn, q, k, v, dtype=torch.float32):
+    """The gradients of sum(fn(q, k, v)**2) with respect to q, k and v."""
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_()
+              for a in (q, k, v)]
+    return torch.autograd.grad((fn(*leaves) ** 2).sum(), leaves)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_gradients_match_reference_and_dense(n, causal):
+    """Ulysses is differentiable, as the reference is under ``jax.grad``:
+    at the reference's gradient-test shapes (S = 4n, H = n, d 8) the
+    port's q, k and v gradients match the reference's and its own dense
+    reference's within the reference's bar."""
+    q, k, v = _qkv(4 * n, n, 8, 8, seed=31 + n)
+    fn = uly.make_ulysses_attention({"dp": 1, "sp": n, "tp": 1}, "sp",
+                                    causal, device="cpu")
+    got = _grads(fn, q, k, v)
+    want = _ref_grads(n, q, k, v, causal)
+    dense = _grads(functools.partial(uly.dense_attention_reference,
+                                     causal=causal), q, k, v)
+    for g, w, dn, name in zip(got, want, dense, "qkv"):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), dn.numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bf16_gradients_within_one_ulp_of_reference(causal):
+    """bf16 inputs: each package's cotangent is 2·out rounded to bf16, its
+    backward f32 and its gradients rounded to bf16 once."""
+    n = 4
+    q, k, v = _qkv(4 * n, n, 8, 8, seed=41)
+    fn = uly.make_ulysses_attention({"sp": n}, "sp", causal, device="cpu")
+    got = _grads(fn, q, k, v, dtype=torch.bfloat16)
+    want = _ref_grads(n, q, k, v, causal, dtype=jnp.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert burn.bf16_ulps(g, torch.from_numpy(w).to(
+            torch.bfloat16)) <= 1.0
+
+
+def test_gradient_makes_four_exchanges_each_way(monkeypatch):
+    """With ``kernel="cuda"`` (as on the card; here the factory's pick is
+    forced past the CPU check and the all-to-all wrapper runs its plain
+    version) a call makes 4 exchanges and its gradient 4 more, one a
+    backward of each, and the gradients equal the plain route's bit for
+    bit; a call without a gradient makes 4."""
+    calls = []
+    inner, pick_kernel = rp.all_to_all_cuda, rp.pick_kernel
+
+    def counted(x, n):
+        calls.append((tuple(x.shape), n))
+        return inner(x, n)
+
+    monkeypatch.setattr(rp, "all_to_all_cuda", counted)
+    monkeypatch.setattr(rp, "pick_kernel", lambda kernel, device: (
+        "cuda" if kernel == "cuda" else pick_kernel(kernel, device)))
+    n, S, H = 4, 16, 8
+    q, k, v = _qkv(S, H, 8, 4, seed=2)
+    mesh = {"sp": n}
+    kernel_fn = uly.make_ulysses_attention(mesh, "sp", True, kernel="cuda",
+                                           device="cpu")
+    plain_fn = uly.make_ulysses_attention(mesh, "sp", True, kernel="torch",
+                                          device="cpu")
+    with torch.no_grad():
+        kernel_fn(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert len(calls) == 4
+    calls.clear()
+    got = _grads(kernel_fn, q, k, v)
+    qk, vo = (((n * H, S // n * d), n) for d in (8, 4))  # dk 8, dv 4
+    assert calls == [qk, qk, vo, vo] + [vo, vo, qk, qk]
+    calls.clear()
+    want = _grads(plain_fn, q, k, v)
+    assert calls == []
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_kernel_and_device_selection():
