@@ -255,6 +255,29 @@ Phases, each of which raises on failure:
                bitwise the first; the update equals tp x LR x the
                one-rank dense loss's gradient within the stated bar; ms a
                step by events.
+ 18. fabric  — fabric-sharded serving on the row model at E = 1 (phase
+               14's widths, depth 4, seed 0, 64 slots, tp = 8 ranks on
+               the card): (a) ``make_mesh_stage_fn``, each stage's w1
+               product one launch of the all-gather matmul kernel (S a
+               step, the main path with counts at 0), every launch
+               within the bar of its plain version, tokens equal to
+               ``TpShardSlice`` at world 1's and states within the
+               stated bar in the kernel, torch and overlap=False forms,
+               repeats bitwise, ms a step, the kernel at this shape
+               against plain, ``torch.matmul`` f32 and its bound; (b)
+               ``FabricExecutor`` over ``SyntheticShardSet(world=8)``,
+               sync, pipelined, with overlap and with the int8 codec, 64
+               requests of 32 tokens: fp32 streams equal
+               ``LocalExecutor``'s on the same weights, int8 streams
+               repeat, ms a step and the collective and skew series;
+               then 8 requests over HTTP through ``ServingServer``,
+               profiled (idle share); (c) ``ShardProcessSet(world=2)``
+               at depth 1: two ``shard_worker`` processes with their
+               own CUDA contexts, warmed up, reducing over the fabric
+               ring on loopback: fp32 streams equal the thread shards',
+               int8 with overlap after a re-rendezvous; the workers'
+               compute and collective seconds; ``outstanding() == 0``
+               after every close.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -270,7 +293,10 @@ in one 1F1B step of lane a / b, with its ``train_1f1b_`` step times and
 peaks, the memory lane's under ``train_1f1b_memory_peak_gb`` and
 ``train_gpipe_memory_peak_gb``, ``ulysses_grad_launches``, phase 10's
 launches in one Ulysses call with its gradient, and
-``row_dptp_launches``, phase 14's dp x tp kernel lane's); the last line is
+``row_dptp_launches``, phase 14's dp x tp kernel lane's; the all-gather
+matmul's adds ``mesh_stage_launches``, phase 18's launches in its
+mesh-stage steps, with its ``mesh_stage_`` times at that shape); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -2103,12 +2129,21 @@ def phase_ulysses(torch, card):
                 torch, lambda: rp.all_to_all_cuda(xu, n), n=10, warm=2)
             kernel_ms, host_ms, seen = device_ms(
                 torch, lambda: rp.all_to_all_cuda(xu, n), "all_to_all_kernel")
+            rows_b = ULY_H // n  # a block: the heads one rank sends another
+            plain_ms = time_ms(torch, lambda: rp.all_to_all_plain(xu, n),
+                               n=5, warm=1, batch=2)
+            library_ms = time_ms(torch, lambda: xu.view(
+                n, n, rows_b, s_loc * ULY_D).transpose(0, 1).contiguous(),
+                n=10, warm=2)
             xbytes = xu.numel() * xu.element_size()
             log(f"ulysses exchange [{n * ULY_H}, {s_loc * ULY_D}] "
-                f"{str(dtype)[6:]} n={n}: kernel {exchange_ms[dtype]:.4f} "
-                f"ms ({kernel_ms:.4f} ms a launch on the card, {seen}; "
-                f"{host_ms:.4f} ms of host time to queue a call), bound {2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
-                f"({xbytes} B read and written) [{card}]")
+                f"{str(dtype)[6:]} n={n} (blocks of {rows_b} rows): kernel "
+                f"{exchange_ms[dtype]:.4f} ms ({kernel_ms:.4f} ms a launch on "
+                f"the card, {seen}; {host_ms:.4f} ms of host time to queue a "
+                f"call), plain {plain_ms:.4f} ms, "
+                f"view().transpose().contiguous() {library_ms:.4f} ms, bound "
+                f"{2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({xbytes} B "
+                f"read and written) [{card}]")
             del xu
         share = 4 * exchange_ms[dtype] / call_ms
         log(f"{tag}: 4 launches a call, == torch route bit for bit, "
@@ -2209,7 +2244,7 @@ def uly_grad_lane(torch, card):
     def dense(a, b, c):
         return uly.dense_attention_reference(a, b, c, True)
 
-    errs, sdpa_errs = [], []
+    errs, sdpa_errs, sdpa_rel = [], [], []
     for g0 in range(0, ULY_H, h_loc):
         heads = slice(g0, g0 + h_loc)
         refs = [("dense", dense, errs)]
@@ -2222,6 +2257,13 @@ def uly_grad_lane(torch, card):
                 into.append(ring_compare(
                     torch, burn, f"{tag} d{name} heads {g0}.. vs {label}",
                     g[:, heads].contiguous(), w)[0])
+                if into is sdpa_errs:
+                    # Each checked head's error against its own gradient
+                    # scale, max |g| of the reference.
+                    for hh in range(h_loc):
+                        top = float(w[:, hh].abs().max())
+                        hd = float((g[:, g0 + hh] - w[:, hh]).abs().max())
+                        sdpa_rel.append((hd / top, hd, top, g0 + hh, name))
             del want
     for i in range(ULY_REPEATS):
         before = rp.all_to_all_cuda.launches
@@ -2249,6 +2291,21 @@ def uly_grad_lane(torch, card):
         f"(rtol {RING_RTOL}, atol {RING_ATOL}); forward + backward {ms:.3f} ms "
         f"by events (forward alone {fwd_ms:.3f} ms) [{card}]")
     log_a2a_profile(card, f"{tag} profile", prof, wall_ms)
+    # The math attention's error against each head's gradient scale, and
+    # against what reassociating f32 sums over S keys is expected to
+    # give: ~sqrt(S) u for independent roundings, S u at the worst
+    # (u = 2**-24).
+    u = 2.0 ** -24
+    rel, hd, top, head, name = max(sdpa_rel)
+    log(f"{tag} vs PyTorch's math attention, per checked head (heads "
+        f"0..{h_loc - 1}, {ULY_H - h_loc}..{ULY_H - 1}; dq, dk, dv): max "
+        f"|err| / max |g| of its head {rel:.3e} (d{name} head {head}: "
+        f"{hd:.3e} of {top:.3e}), median "
+        f"{statistics.median(r[0] for r in sdpa_rel):.3e}; f32 "
+        f"reassociation over {S} keys ~sqrt(S) u = {math.sqrt(S) * u:.3e}, "
+        f"at most S u = {S * u:.3e}: the worst head is "
+        f"{rel / (math.sqrt(S) * u):.1f} x sqrt(S) u and "
+        f"{rel / (S * u):.3f} x S u [{card}]")
     del got, prof
 
     # bf16: the bf16 call's cotangent is 2·out exactly (a power-of-2
@@ -3321,11 +3378,17 @@ def row_dptp_lane(torch, card, params, prompts, ep8_streams, executors):
     a2a_ms = time_ms(torch, lambda: rp.all_to_all_cuda(x, E), n=10, warm=2)
     launch_ms, host_ms, seen = device_ms(
         torch, lambda: rp.all_to_all_cuda(x, E), "all_to_all_kernel")
+    plain_ms = time_ms(torch, lambda: rp.all_to_all_plain(x, E), n=5,
+                       warm=1, batch=2)
+    library_ms = time_ms(torch, lambda: x.view(
+        E, E, C8, x.shape[1]).transpose(0, 1).contiguous(), n=10, warm=2)
     xbytes = x.numel() * x.element_size()
     log(f"rows {label} all_to_all {list(x.shape)} f32 n={E} (blocks of {C8} "
         f"rows): kernel {a2a_ms:.4f} ms ({launch_ms:.4f} ms a launch on the "
         f"card, {seen}; {host_ms:.4f} ms of host time to queue a call), "
-        f"bound {2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({xbytes} B read "
+        f"plain {plain_ms:.4f} ms, view().transpose().contiguous() "
+        f"{library_ms:.4f} ms, bound "
+        f"{2 * xbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({xbytes} B read "
         f"and written) [{card}]")
     del x
 
@@ -4300,6 +4363,494 @@ def phase_probe(torch, card):
             f"{worst:.3e}); a step {ms:.4f} ms by events [{card}]")
 
 
+# -- phase 18: fabric-sharded serving -----------------------------------------
+
+# The row model of phase 14 at E = 1, which every sharded slice needs (tp
+# shards the dense contraction; the expert body replicates): Mixtral-8x7B's
+# widths (mistralai/Mixtral-8x7B-v0.1 config.json: hidden_size 4096,
+# intermediate_size 14336), depth cut to 4 of 32 layers (3.76 GB f32),
+# seed-0 weights drawn once on the card and shared by every lane; 64 slots
+# over tp = 8 ranks stacked on the card: the all-gather matmul's blocks are
+# 8 slot rows, a rank's FFN columns 1792.
+FAB_MODEL = dict(S=4, d=4096, h=14336, E=1)
+FAB_WORLD = 8
+FAB_SLOTS = 64
+FAB_REQUESTS = 64
+FAB_TOKENS = 32
+FAB_HTTP = 8
+# The mesh-stage form: steps held against TpShardSlice at world 1, and
+# repeats of them. Its states against the slice's within the reference's
+# own bar for this form (tests/test_sharded.py: rtol 1e-4, atol 1e-5): the
+# same f32 function, kernel 11's split-TF32 products and the rank-ordered
+# sum of the w2 partials against one cuBLAS product each.
+FAB_STEPS = 3
+FAB_REPEATS = 3
+FAB_RTOL, FAB_ATOL = 1e-4, 1e-5
+# The process lane: real shard_worker processes, each with its own CUDA
+# context on the card, reducing over the fabric ring on loopback; depth 1
+# of the same weights, so each worker loads a 0.94 GB npz.
+FAB_PROC_WORLD = 2
+FAB_PROC_S = 1
+FAB_SPAWN_S = 300.0
+
+
+def fabric_prompts(label, n):
+    return [f"fabric {label} {i}" for i in range(n)]
+
+
+def top_gap(x, row):
+    """(first, second, gap) of the two largest values of ``x[row]``."""
+    order = np.argsort(x[row])[::-1]
+    a, b = float(x[row, order[0]]), float(x[row, order[1]])
+    return int(order[0]), int(order[1]), a - b
+
+
+def fabric_tokens_check(tag, step, got, x_want, want):
+    """Tokens exactly ``want``; where one differs, the step, the row and
+    the gap between the reference state's two largest values."""
+    if got.tolist() == want.tolist():
+        return
+    row = int(np.nonzero(got != want)[0][0])
+    a, b, gap = top_gap(x_want, row)
+    raise AssertionError(
+        f"{tag}: step {step} row {row}: token {int(got[row])} != "
+        f"{int(want[row])} (the reference's top two: {a}, {b}, gap "
+        f"{gap:.3e})")
+
+
+def fabric_mesh_lane(torch, card, params, record):
+    """(a) ``make_mesh_stage_fn`` at full width: each stage's w1 product on
+    kernel 11. The main path (counts at 0): FAB_STEPS steps, S launches a
+    step; every launch within ``cm_compare``'s bar of ``ag_matmul_plain``
+    on its own inputs; tokens == ``TpShardSlice(params, 0, 1)``'s exactly
+    and states within FAB_RTOL / FAB_ATOL, as for the ``kernel="torch"``
+    and ``overlap=False`` forms; FAB_REPEATS repeats bitwise; ms a step by
+    events; kernel 11 at this shape against plain, ``torch.matmul`` f32 and
+    its bound. Adds ``mesh_stage_*`` to kernel 11's ``record``."""
+    from dpu_operator_tpu_torch.parallel import burn
+    from dpu_operator_tpu_torch.parallel import collective_matmul as cm
+    from dpu_operator_tpu_torch.serving import encode_prompt
+    from dpu_operator_tpu_torch.serving.sharded import shard_math as sm
+
+    S, d, h = (FAB_MODEL[k] for k in ("S", "d", "h"))
+    n, mesh = FAB_WORLD, {"tp": FAB_WORLD}
+    x0 = np.stack([encode_prompt(p, d) for p in fabric_prompts(
+        "mesh", FAB_SLOTS)]).astype(np.float32)
+    seen, real = [], cm.ag_matmul_cuda
+
+    def recording(x, w, k):
+        y = real(x, w, k)
+        seen.append((x, w, y))
+        return y
+
+    cm.ag_matmul_cuda = recording  # the factory binds its pick now
+    try:
+        step = sm.make_mesh_stage_fn(mesh, params)
+    finally:
+        cm.ag_matmul_cuda = real
+    steps = {"torch": sm.make_mesh_stage_fn(mesh, params, kernel="torch"),
+             "overlap=False": sm.make_mesh_stage_fn(mesh, params,
+                                                   overlap=False)}
+    tag = (f"fabric mesh-stage tp={n} slots {FAB_SLOTS} S={S} d {d} h {h} "
+           f"f32")
+
+    # The main path, counts at 0.
+    cm.ag_matmul_cuda.launches = 0
+    t0 = time.monotonic()
+    x, run = x0, []
+    for _ in range(FAB_STEPS):
+        x, tok = step(x)
+        run.append((x, tok))
+    wall = time.monotonic() - t0
+    launches = cm.ag_matmul_cuda.launches
+    check(launches == FAB_STEPS * S and len(seen) == launches,
+          f"{tag}: {launches} kernel-11 launches ({len(seen)} seen) for "
+          f"{FAB_STEPS} steps (want {S} a step)")
+    log(f"{tag} main path: {FAB_STEPS} steps of make_mesh_stage_fn, "
+        f"{launches} all-gather matmul launches ({S} a step), {wall:.3f} s "
+        f"wall (first call) [{card}]")
+    errs = []
+    for i, (xa, w, y) in enumerate(seen):
+        errs.append(cm_compare(torch, burn, f"{tag} launch {i}", y,
+                               cm.ag_matmul_plain(xa, w, n))[0])
+    seen.clear()
+    ref = sm.TpShardSlice(params, 0, 1, device="cuda")
+    xr, want = x0, []
+    for k in range(FAB_STEPS):
+        xr, tr = ref.forward(xr, lambda p, s: p)
+        want.append((xr, tr))
+    state_err = {}
+    for label, fn in (("kernel", None),) + tuple(steps.items()):
+        xs = x0
+        for k in range(FAB_STEPS):
+            if fn is None:
+                xs, tk = run[k]
+            else:
+                xs, tk = fn(xs)
+            fabric_tokens_check(f"{tag} {label}", k + 1, tk, want[k][0],
+                                want[k][1])
+            check(np.allclose(xs, want[k][0], rtol=FAB_RTOL, atol=FAB_ATOL),
+                  f"{tag} {label}: step {k + 1}'s state differs from "
+                  f"TpShardSlice's by {np.abs(xs - want[k][0]).max()}")
+            state_err[label] = max(state_err.get(label, 0.0), float(
+                np.abs(xs - want[k][0]).max()))
+    for i in range(FAB_REPEATS):
+        x = x0
+        for k in range(FAB_STEPS):
+            x, tok = step(x)
+            check(x.tobytes() == run[k][0].tobytes()
+                  and tok.tolist() == run[k][1].tolist(),
+                  f"{tag} repeat {i} step {k + 1}: differs from the first "
+                  f"run's bits")
+    ms = {"kernel": time_ms(torch, lambda: step(x0), n=5, warm=1, batch=1)}
+    for label, fn in steps.items():
+        ms[label] = time_ms(torch, lambda: fn(x0), n=5, warm=1, batch=1)
+    ms["TpShardSlice world 1"] = time_ms(
+        torch, lambda: ref.forward(x0, lambda p, s: p), n=5, warm=1, batch=1)
+    log(f"{tag}: {FAB_STEPS} steps' tokens == TpShardSlice(world 1)'s in "
+        f"every form, states within rtol {FAB_RTOL} / atol {FAB_ATOL} (max "
+        f"|err| " + ", ".join(f"{k} {v:.3e}" for k, v in state_err.items())
+        + f"); every launch == ag_matmul_plain within the bar (max |err| "
+        f"{max(errs):.3e}); {FAB_REPEATS} repeats bitwise; ms a step "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f" (CUDA events, host round trips included) [{card}]")
+
+    # Kernel 11 at this shape: a rank's block is 8 rows of the 128-row tile.
+    xd = torch.as_tensor(x0, device="cuda")
+    w = params["w1"][0]
+    k_ms = time_ms(torch, lambda: cm.ag_matmul_cuda(xd, w, n), n=10, warm=2,
+                   batch=5)
+    launch_ms, host_ms, how = device_ms(
+        torch, lambda: cm.ag_matmul_cuda(xd, w, n), "ag_matmul_kernel",
+        calls=10)
+    plain_ms = time_ms(torch, lambda: cm.ag_matmul_plain(xd, w, n), n=5,
+                       warm=1, batch=2)
+    library_ms = time_ms(torch, lambda: torch.matmul(xd, w), n=10, warm=2,
+                         batch=5)
+    flops = 2 * FAB_SLOTS * d * h
+    nbytes = (FAB_SLOTS * d + d * h + FAB_SLOTS * h) * 4
+    t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"{tag} ag_matmul [{FAB_SLOTS}, {d}] @ [{d}, {h}] n={n} (blocks of "
+        f"{FAB_SLOTS // n} rows): kernel {k_ms:.4f} ms ({launch_ms:.4f} ms "
+        f"a launch on the card, {how}; {host_ms:.4f} ms of host time to "
+        f"queue a call), plain {plain_ms:.4f} ms, torch.matmul f32 "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops} "
+        f"flop x 3 split passes, {nbytes} B; "
+        f"{max(flops / FP32_FLOP_PER_S * 1e3, t_bytes):.4f} ms on the f32 "
+        f"FMA pipes) [{card}]")
+    record.update(mesh_stage_launches=launches,
+                  mesh_stage_max_abs_err=max(errs), mesh_stage_ms=k_ms,
+                  mesh_stage_plain_ms=plain_ms, mesh_stage_bound_ms=bound_ms,
+                  mesh_stage_bound_by=bound_by,
+                  mesh_stage_library_ms=library_ms,
+                  mesh_stage_step_ms=ms["kernel"])
+    del xd, steps, step, ref
+
+
+def fabric_watch(shards):
+    """Record each collected step's per-rank compute and collective
+    seconds off ``shards.collect``; returns (the list, an undo)."""
+    steps, inner = [], shards.collect
+
+    def collect(handle, timeout):
+        out = inner(handle, timeout)
+        steps.append((list(out.compute_s), list(out.collective_s)))
+        return out
+
+    shards.collect = collect
+    return steps, lambda: vars(shards).pop("collect", None)
+
+
+def fabric_stats(steps):
+    """Medians over steps of the slowest rank's collective seconds, of
+    the skew (slowest minus fastest rank's compute) and of the slowest
+    rank's compute, in ms."""
+    coll = [max(c) * 1e3 for _, c in steps]
+    skew = [(max(p) - min(p)) * 1e3 for p, _ in steps]
+    comp = [max(p) * 1e3 for p, _ in steps]
+    return dict(collective_ms=statistics.median(coll),
+                collective_max_ms=max(coll),
+                skew_ms=statistics.median(skew), skew_max_ms=max(skew),
+                compute_ms=statistics.median(comp))
+
+
+def fabric_drive(torch, card, label, ex, prompts, close=True):
+    """The reference's ``_drive``: every prompt as a ``GenerateRequest``
+    of FAB_TOKENS tokens through ``AdmissionQueue`` and
+    ``ContinuousBatcher`` on ``ex``, closed after unless ``close`` is
+    False. Returns (streams, ms a step, steps)."""
+    from dpu_operator_tpu_torch.serving import (AdmissionQueue,
+                                                ContinuousBatcher,
+                                                GenerateRequest,
+                                                encode_prompt)
+
+    count = [0]
+    inner_submit, inner_step = ex.submit, ex.step
+
+    def submit(*a, **kw):
+        count[0] += 1
+        return inner_submit(*a, **kw)
+
+    def step(x):
+        count[0] += 1
+        return inner_step(x)
+
+    ex.submit, ex.step = submit, step
+    reqs = [GenerateRequest(prompt_vec=encode_prompt(p, FAB_MODEL["d"]),
+                            max_tokens=FAB_TOKENS,
+                            deadline=time.monotonic() + 900.0)
+            for p in prompts]
+    q = AdmissionQueue(max_depth=len(reqs) + 1)
+    b = ContinuousBatcher(ex, q)
+    for r in reqs:
+        q.submit(r)
+    t0 = time.monotonic()
+    b.start()
+    try:
+        for i, r in enumerate(reqs):
+            check(r.wait(timeout=900), f"fabric {label}: request {i} lost")
+        wall = time.monotonic() - t0
+    finally:
+        b.stop()
+        if close:
+            ex.close()
+        vars(ex).pop("submit", None)
+        vars(ex).pop("step", None)
+    streams = []
+    for i, r in enumerate(reqs):
+        check(r.error is None, f"fabric {label} request {i}: {r.error}")
+        toks = list(r.tokens)
+        check(len(toks) == FAB_TOKENS
+              and all(0 <= t < FAB_MODEL["d"] for t in toks),
+              f"fabric {label} request {i}: {len(toks)} tokens")
+        streams.append(toks)
+    torch.cuda.synchronize()
+    return streams, wall / max(count[0], 1) * 1e3, count[0]
+
+
+def fabric_shard_lanes(torch, card, params):
+    """(b) ``FabricExecutor`` over ``SyntheticShardSet(world=8, slots=64,
+    params, device=card)``: sync, pipelined, pipelined with overlap and
+    pipelined with the int8 codec (twice) drive FAB_REQUESTS requests; the
+    fp32 streams == ``LocalExecutor(params, mode="pipelined")``'s on the
+    same weights, the int8 ones repeat; ms a step, the collective and
+    skew series; then FAB_HTTP requests over HTTP through
+    ``ServingServer([FabricExecutor(...)])``, profiled (the idle share),
+    their streams == the driven ones for the same prompts;
+    ``outstanding() == 0`` after every close."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dpu_operator_tpu_torch.serving import (FabricExecutor,
+                                                LocalExecutor,
+                                                ServingServer,
+                                                SyntheticShardSet)
+    from dpu_operator_tpu_torch.utils.metrics import Registry
+
+    prompts = fabric_prompts("request", FAB_REQUESTS)
+    local = LocalExecutor(params=params, slots=FAB_SLOTS, mode="pipelined",
+                          S=FAB_MODEL["S"], d=FAB_MODEL["d"],
+                          h=FAB_MODEL["h"], E=1, device="cuda")
+    gold, local_ms, local_steps = fabric_drive(torch, card, "local", local,
+                                               prompts)
+    del local
+    check(len({tuple(s) for s in gold}) > 1, "fabric: identical streams")
+    log(f"fabric LocalExecutor pipelined (E=1, the reference streams): "
+        f"{FAB_REQUESTS} requests x {FAB_TOKENS} tokens, {local_steps} steps"
+        f", {local_ms:.3f} ms a step [{card}]")
+    reg = Registry()
+    int8 = []
+    for label, mode, kw in (("sync", "sync", {}),
+                            ("pipelined", "pipelined", {}),
+                            ("pipelined overlap", "pipelined",
+                             {"overlap": True}),
+                            ("pipelined int8", "pipelined",
+                             {"codec": "int8"}),
+                            ("pipelined int8 again", "pipelined",
+                             {"codec": "int8"})):
+        shards = SyntheticShardSet(world=FAB_WORLD, slots=FAB_SLOTS,
+                                   params=params, device="cuda", **kw)
+        check(shards.params["moe_w1"].data_ptr()
+              == params["moe_w1"].data_ptr(),
+              f"fabric {label}: the shard set copied the weights")
+        steps, undo = fabric_watch(shards)
+        ex = FabricExecutor(shards, mode=mode, registry=reg,
+                            name=label.replace(" ", "-"))
+        streams, ms, n_steps = fabric_drive(torch, card, label, ex, prompts)
+        undo()
+        check(shards.outstanding() == 0,
+              f"fabric {label}: {shards.outstanding()} steps outstanding "
+              f"after close")
+        if "int8" in label:
+            int8.append(streams)
+        else:
+            check(streams == gold, f"fabric {label}: streams differ from "
+                  f"LocalExecutor's first at {first_diff(streams, gold)}")
+        st = fabric_stats(steps)
+        labels = {"replica": ex.name, "codec": shards.codec_name}
+        q = {p: reg.quantile("serving_shard_collective_seconds", p, labels)
+             for p in (0.5, 0.99)}
+        log(f"fabric {label} world={FAB_WORLD}: {n_steps} steps, {ms:.3f} ms "
+            f"a step; the slowest rank's collective a step median "
+            f"{st['collective_ms']:.3f} ms (max {st['collective_max_ms']:.3f}"
+            f"; serving_shard_collective_seconds p50 {q[0.5]} p99 "
+            f"{q[0.99]}), skew median {st['skew_ms']:.3f} ms (max "
+            f"{st['skew_max_ms']:.3f}), the slowest rank's compute median "
+            f"{st['compute_ms']:.3f} ms; streams "
+            + ("== LocalExecutor's" if "int8" not in label else
+               f"== fp32's: {streams == gold}") + f" [{card}]")
+        del shards, ex
+    check(int8[0] == int8[1], f"fabric int8: two runs differ first at "
+          f"{first_diff(int8[0], int8[1])}")
+
+    shards = SyntheticShardSet(world=FAB_WORLD, slots=FAB_SLOTS,
+                               params=params, device="cuda")
+    srv = ServingServer([FabricExecutor(shards)],
+                        max_queue_depth=2 * FAB_HTTP,
+                        max_tokens_cap=FAB_TOKENS,
+                        pool_opts={"watchdog_s": 300.0}).start()
+    bodies = [{"prompt": p, "max_tokens": FAB_TOKENS, "deadline_ms": 900000}
+              for p in prompts[:FAB_HTTP]]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            results = post_all(srv.url, bodies)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        srv.stop()
+    check(shards.outstanding() == 0, f"fabric HTTP: {shards.outstanding()} "
+          f"steps outstanding after stop")
+    for i, res in enumerate(results):
+        check(res is not None and res[0] == 200,
+              f"fabric HTTP request {i}: {res}")
+        check(res[1]["tokens"] == gold[i], f"fabric HTTP request {i}: "
+              f"stream differs from the driven one")
+    rows, busy_ms = device_rows(prof)
+    check(busy_ms > 0, "fabric HTTP profile: no device time recorded")
+    log(f"fabric HTTP: {FAB_HTTP} requests x {FAB_TOKENS} tokens through "
+        f"ServingServer([FabricExecutor(SyntheticShardSet(world="
+        f"{FAB_WORLD}))]) == the driven streams; profiled: device busy "
+        f"{busy_ms:.1f} ms of {wall_ms:.1f} ms wall (idle share "
+        f"{1 - busy_ms / wall_ms:.3f}) in {sum(r[1] for r in rows)} device "
+        f"operations [{card}]")
+    for us, count, key in rows[:8]:
+        log(f"  {us / 1e3:10.3f} ms {us / 1e3 / busy_ms:6.3f}  x{count:<6d} "
+            f"{key[:90]}")
+    del prof, srv, shards
+    return gold
+
+
+def fabric_process_lanes(torch, card, params):
+    """(c) ``ShardProcessSet(world=2, jit=True)`` at depth FAB_PROC_S and
+    full width: real ``shard_worker`` processes, each with its own CUDA
+    context on the card, reducing over ``RingTransport`` on loopback. fp32
+    streams == ``SyntheticShardSet(world=2)``'s on the same weights; int8
+    with overlap after a reset with a step outstanding (a re-rendezvous:
+    the old handle fails typed); ms a step, collective against compute
+    seconds; ``outstanding() == 0`` after every close. The int8 lane
+    drives twice on one worker set, before and after the re-rendezvous,
+    and its two runs' streams must be identical."""
+    from dpu_operator_tpu_torch.serving import (FabricExecutor,
+                                                ShardProcessSet,
+                                                SyntheticShardSet)
+    from dpu_operator_tpu_torch.serving.sharded import ShardAborted
+
+    # The workers import the package from this checkout.
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    p1 = {k: v[:FAB_PROC_S] for k, v in params.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in p1.values())
+    prompts = fabric_prompts("process", FAB_REQUESTS)
+    want, ms, n_steps = fabric_drive(torch, card, "threads world 2",
+                                     FabricExecutor(SyntheticShardSet(
+                                         world=FAB_PROC_WORLD,
+                                         slots=FAB_SLOTS, params=p1,
+                                         device="cuda")), prompts)
+    log(f"fabric SyntheticShardSet world={FAB_PROC_WORLD} S={FAB_PROC_S}: "
+        f"{n_steps} steps, {ms:.3f} ms a step [{card}]")
+    for label, kw in (("fp32", {}),
+                      ("int8 overlap", {"codec": "int8", "overlap": True})):
+        t0 = time.monotonic()
+        procs = ShardProcessSet(world=FAB_PROC_WORLD, slots=FAB_SLOTS,
+                                params=p1, jit=True,
+                                spawn_timeout_s=FAB_SPAWN_S,
+                                device="cuda", **kw)
+        ex = FabricExecutor(procs, mode="pipelined", step_timeout_s=300.0)
+        ex.reset()  # the spawn: the driven run's own reset is polite
+        extra = ""
+        if label != "fp32":
+            t1 = time.monotonic()
+            first, _, _ = fabric_drive(torch, card, f"processes {label}",
+                                       ex, prompts, close=False)
+            t0 += time.monotonic() - t1  # setup counts no driven run
+            stale = procs.submit(1, [])
+            procs.reset()
+            check(procs.respawns == 1, f"fabric processes {label}: "
+                  f"{procs.respawns} respawns after a reset with a step "
+                  f"outstanding")
+            try:
+                procs.collect(stale, timeout=30.0)
+            except ShardAborted:
+                pass
+            else:
+                raise AssertionError(f"fabric processes {label}: a torn-down "
+                                     f"generation's handle collected")
+            ex.reset()
+            extra = ("; a reset with a step outstanding re-rendezvoused; "
+                     "streams == the run before it")
+        setup = time.monotonic() - t0
+        steps, undo = fabric_watch(procs)
+        streams, ms, n_steps = fabric_drive(torch, card, f"processes {label}",
+                                            ex, prompts)
+        undo()
+        check(procs.outstanding() == 0, f"fabric processes {label}: "
+              f"{procs.outstanding()} steps outstanding after close")
+        if label == "fp32":
+            check(streams == want, f"fabric processes {label}: streams "
+                  f"differ from the thread shards' first at "
+                  f"{first_diff(streams, want)}")
+        else:
+            check(streams == first, f"fabric processes {label}: the runs "
+                  f"before and after the re-rendezvous differ first at "
+                  f"{first_diff(streams, first)}")
+        st = fabric_stats(steps)
+        log(f"fabric processes {label} world={FAB_PROC_WORLD} S={FAB_PROC_S} "
+            f"({nbytes / 1e9:.3f} GB npz a worker): {n_steps} steps, "
+            f"{ms:.3f} ms a step; the workers' own times a step: compute "
+            f"median {st['compute_ms']:.3f} ms, collective median "
+            f"{st['collective_ms']:.3f} ms (max {st['collective_max_ms']:.3f}"
+            f"); streams == the thread shards': {streams == want}; spawn, "
+            f"warm-up and hello {setup:.1f} s{extra} [{card}]")
+        del procs, ex
+
+
+def phase_fabric(torch, card, record):
+    """Fabric-sharded serving at full width: (a) the mesh-stage form on
+    kernel 11, (b) ``FabricExecutor`` over thread shards, (c) over
+    ``shard_worker`` processes. ``record`` is kernel 11's."""
+    from dpu_operator_tpu_torch.parallel import train_step as ts
+
+    t0 = time.monotonic()
+    S, d, h, E = (FAB_MODEL[k] for k in ("S", "d", "h", "E"))
+    params = ts.init_params(S, d, h, E, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    log(f"fabric: weights {nbytes / 1e9:.3f} GB f32 ({S} stages of d {d}, "
+        f"h {h}, E {E}), seed 0, on the card [{card}]")
+    fabric_mesh_lane(torch, card, params, record)
+    fabric_shard_lanes(torch, card, params)
+    fabric_process_lanes(torch, card, params)
+    del params
+    torch.cuda.empty_cache()
+    log(f"fabric: phase 18 in {time.monotonic() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     try:
         import torch
@@ -4353,6 +4904,8 @@ def main() -> int:
     phase_train(torch, card, a2a)
     phase_train_1f1b(torch, card, a2a)
     phase_probe(torch, card)
+    phase_fabric(torch, card, next(r for r in tp_mlp
+                                   if r["name"] == "ag_matmul"))
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

@@ -1,6 +1,10 @@
-"""Kernels, codecs and microbenchmarks of the port: the fused
-paged-attention step (``paged_attn``), the block-axis int8 codec
-(``quantize``), the health burn (``fabric_probe``, ``burn``) and the
+"""Kernels, codecs and microbenchmarks of the port, and the slice
+topology (``topology``: ``Chip``, ``SliceTopology``, ``ring_order``;
+exported here) with the mesh builders over it (``mesh``): the fused
+paged-attention step (``paged_attn``), the block-axis int8 codec and
+the fabric's wire codecs (``quantize``), the fabric ring transport the
+sharded serving plane reduces over (``fabric_collectives``: numpy over
+TCP, no card), the health burn (``fabric_probe``, ``burn``) and the
 fabric probe's training step over a (dp, sp, tp) mesh
 (``fabric_probe.make_probe_train_step``, ``run_probe``, on the mesh of
 ``mesh.build_mesh``; both exported here, ``run_probe`` imported at its
@@ -26,6 +30,7 @@ the same all-to-all."""
 
 
 from .mesh import build_mesh
+from .topology import Chip, SliceTopology
 
 
 def run_probe(*args, **kwargs):
@@ -34,4 +39,4 @@ def run_probe(*args, **kwargs):
     return f(*args, **kwargs)
 
 
-__all__ = ["build_mesh", "run_probe"]
+__all__ = ["Chip", "SliceTopology", "build_mesh", "run_probe"]

@@ -21,6 +21,11 @@ The row plane: ``LocalExecutor`` (executor.py) -> ``DecodeStep``
 (infer.py) over the forward stage stack of ``parallel/train_step.py``
 with its Switch MoE (``parallel/moe.py``), whose expert exchanges launch
 the CUDA all-to-all kernel (``parallel/ring_probe.py``) at ep > 1.
+
+Fabric-sharded serving (sharded/): ``FabricExecutor`` spreads one row-plane
+replica's decode step over ``world`` tensor-parallel shards, thread shards
+(``SyntheticShardSet``) or ``shard_worker`` processes reducing over the
+fabric ring (``ShardProcessSet``), behind the same submit/collect seam.
 """
 
 from .api import (PRIORITIES, Draining, GenerateRequest, QueueFull,
@@ -35,6 +40,7 @@ from .kvcache import (HostKVTier, KVBlockAllocator, KVCacheOOM, KVLease,
 from .queue import AdmissionQueue, TenantBudget
 from .scheduler import ContinuousBatcher
 from .server import ServingServer
+from .sharded import FabricExecutor, ShardProcessSet, SyntheticShardSet
 from .spec import NO_TOKEN, OracleDraft, SpecConfig, TruncatedDraft
 
 __all__ = [
@@ -42,6 +48,7 @@ __all__ = [
     "ContinuousBatcher",
     "Draining",
     "Executor",
+    "FabricExecutor",
     "GenerateRequest",
     "HostKVTier",
     "KVBlockAllocator",
@@ -60,10 +67,12 @@ __all__ = [
     "ReplicaPool",
     "ServingError",
     "ServingServer",
+    "ShardProcessSet",
     "ShardedPagedKVExecutor",
     "SpecConfig",
     "SyntheticKVExecutor",
     "SyntheticKVShardSet",
+    "SyntheticShardSet",
     "TenantBudget",
     "TenantOverBudget",
     "TruncatedDraft",

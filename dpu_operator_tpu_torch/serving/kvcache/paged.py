@@ -65,7 +65,7 @@ from ...parallel.paged_attn import (NEG, _quantize_rows,
                                     _scatter_rows_drop,
                                     paged_attn_step_cuda,
                                     paged_attn_step_plain)
-from ...parallel.quantize import int8_block_decode, int8_block_decode_np
+from ...parallel.quantize import int8_block_decode, int8_block_decode_xp
 
 #: One weight set per (seed, vocab, d, max_context, hidden) identity, as
 #: numpy arrays, shared by every step built from it.
@@ -315,8 +315,8 @@ class PagedDecodeStep(_PagedModel):
         k, v = kpool.cpu().numpy(), vpool.cpu().numpy()
         if self.pool_dtype != "int8":
             return k, v
-        return (int8_block_decode_np(k, kscale.cpu().numpy()),
-                int8_block_decode_np(v, vscale.cpu().numpy()))
+        return (int8_block_decode_xp(k, kscale.cpu().numpy()),
+                int8_block_decode_xp(v, vscale.cpu().numpy()))
 
     def forward(self, kpool, kscale, vpool, vscale, prev_tok, host_tok,
                 use_host, ctx, n_new, tables):

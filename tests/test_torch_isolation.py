@@ -55,7 +55,11 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "cuda_build", "serving.kvcache.sharded",
                 "serving.disagg.spec", "serving.sharded.shard_worker",
                 "serving.infer", "parallel.moe", "parallel.train_step",
-                "parallel.pipeline", "parallel.pipeline_1f1b"):
+                "parallel.pipeline", "parallel.pipeline_1f1b",
+                "parallel.topology", "parallel.fabric_collectives",
+                "parallel.quantize", "obs.xproc", "serving.sharded",
+                "serving.sharded.shard_math", "serving.sharded.executor",
+                "serving.sharded.procset", "serving.sharded.synthetic"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
 
@@ -79,9 +83,12 @@ COPIES = {
     "obs/flight.py": (),
     "obs/logging.py": (),
     "obs/trace.py": (),
+    "obs/xproc.py": (),
     "parallel/fabric_collectives.py": (),
     "parallel/fabric_worker.py": (),
-    "parallel/mesh.py": ("build_mesh", "ring_is_ici_adjacent"),
+    "parallel/mesh.py": ("build_mesh", "ring_is_ici_adjacent",
+                         "mesh_from_topology", "build_hybrid_mesh"),
+    "parallel/quantize.py": ("int8_block_encode", "int8_block_decode"),
     "parallel/pipeline_1f1b.py": ("_take", "interleave_stack", "uninterleave",
                                   "run_schedule", "make_1f1b",
                                   "sequential_loss"),
@@ -94,6 +101,7 @@ COPIES = {
                                    "ring_attention_cuda",
                                    "make_ring_attention",
                                    "ring_attention_batched"),
+    "parallel/topology.py": (),
     "parallel/ulysses_attention.py": ("_heads_to_rows", "_seq_to_head_shard",
                                       "_full_attention", "_ulysses_body",
                                       "make_ulysses_attention",
@@ -118,8 +126,14 @@ COPIES = {
     "serving/queue.py": (),
     "serving/scheduler.py": (),
     "serving/server.py": ("ServingServer.__init__",),
+    "serving/sharded/executor.py": (),
+    "serving/sharded/procset.py": ("ShardProcessSet.__init__",
+                                   "ShardProcessSet._spawn"),
     "serving/sharded/protocol.py": (),
-    "serving/sharded/synthetic.py": (),
+    "serving/sharded/shard_worker.py": ("_kv_main", "_load_slice",
+                                        "_maybe_jit", "main", "_serve"),
+    "serving/sharded/synthetic.py": ("SyntheticShardSet.__init__",
+                                     "SyntheticShardSet._make_slice"),
     "serving/spec.py": ("TruncatedDraft",),
     "utils/metrics.py": (),
 }
