@@ -278,6 +278,30 @@ Phases, each of which raises on failure:
                int8 with overlap after a re-rendezvous; the workers'
                compute and collective seconds; ``outstanding() == 0``
                after every close.
+ 19. disagg  — disaggregated prefill/decode serving at phase 4's width,
+               model and 8 requests: (a) one prefill and one decode
+               ``PagedKVExecutor`` (int8, kernel 1) in a ``DisaggPool``
+               behind ``ServingServer(pool_factory=...)``, a pipelined
+               decode batcher: streams == phase 4's, the prefill
+               executor decodes one token a request and the decode
+               executor resumes all 8, kernel-1 launches >= both
+               executors' steps, every transfer ok, both ledgers clean;
+               each replica's ms a step, the transfers' bytes and their
+               median ms from export to import ack; (b) the same with
+               fp32 pools and a sync decode batcher: streams == phase
+               12's fp32 sync gold; (c) ``PrefixRouter`` over the int8
+               pair as replicas: the first prompt served on one, the
+               other six queued there, the second (512 tokens shared
+               with the first) placed on the other with its prefix
+               pulled over ``KVPageStream``: streams == phase 4's,
+               blocks pulled > 0 and served from the remote tier, both
+               ledgers clean.
+ 20. worker  — two ``fabric_worker`` processes (127.0.0.1 and 127.0.0.2,
+               4 MiB x 5): the gloo all-reduce, the raw-socket ring in
+               fp32 and int8, and the train slice on the card; both exit
+               0 with ok, ring_ok, train_matches_dense and
+               train_loss_descends, and equal train losses; their Gbit/s
+               are loopback figures (host memory, no link).
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -295,8 +319,9 @@ peaks, the memory lane's under ``train_1f1b_memory_peak_gb`` and
 launches in one Ulysses call with its gradient, and
 ``row_dptp_launches``, phase 14's dp x tp kernel lane's; the all-gather
 matmul's adds ``mesh_stage_launches``, phase 18's launches in its
-mesh-stage steps, with its ``mesh_stage_`` times at that shape); the last
-line is
+mesh-stage steps, with its ``mesh_stage_`` times at that shape; the
+paged-attention record's ``disagg_launches`` are phase 19 (a)'s); the
+last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -4851,6 +4876,310 @@ def phase_fabric(torch, card, record):
     log(f"fabric: phase 18 in {time.monotonic() - t0:.1f} s [{card}]")
 
 
+# -- phase 19: disaggregated prefill/decode serving ---------------------------
+
+# Phase 4's model and requests. The router lane's owner replica holds the
+# first prompt's blocks; the other six prompts wait in its queue, so its
+# load exceeds the cold replica's by more than this skew and the second
+# prompt's shared 512 tokens are pulled to the cold replica.
+DISAGG_SKEW = 2
+DISAGG_POOL = {"watchdog_s": 300.0}
+
+
+def disagg_pair(torch, pool_dtype):
+    """One prefill and one decode ``PagedKVExecutor`` at full width on the
+    card, each on its own stream."""
+    from dpu_operator_tpu_torch.serving import PagedKVExecutor
+
+    return [PagedKVExecutor(**dict(SERVE, pool_dtype=pool_dtype),
+                            mode="pipelined", kernel="cuda",
+                            device="cuda") for _ in range(2)]
+
+
+def disagg_lane(torch, card, label, pre, dec, prompts, gold, pipelined):
+    """Serve ``prompts`` over HTTP through a ``DisaggPool`` of ``pre`` and
+    ``dec`` behind ``ServingServer(pool_factory=...)``, the decode batcher
+    pipelined or sync. Checks: streams == ``gold``; the prefill executor
+    decodes one token a request and the decode executor resumes every
+    request; kernel-1 launches >= both executors' steps; every transfer
+    ok; both ledgers clean. Returns the kernel's launches and the
+    streams."""
+    from dpu_operator_tpu_torch.obs.trace import Tracer
+    from dpu_operator_tpu_torch.parallel import paged_attn as pa
+    from dpu_operator_tpu_torch.serving import DisaggPool, ServingServer
+    from dpu_operator_tpu_torch.utils.metrics import Registry
+
+    reg, tracer = Registry(), Tracer(capacity=1 << 17)
+
+    def factory(execs, queue, registry, tracer, flight_recorder):
+        return DisaggPool(
+            [pre], [dec], queue, registry=registry, tracer=tracer,
+            flight_recorder=flight_recorder, pool_opts=dict(DISAGG_POOL),
+            decode_pool_opts=dict(DISAGG_POOL,
+                                  batcher_kwargs={"pipelined": pipelined}))
+
+    srv = ServingServer([pre, dec], registry=reg, tracer=tracer,
+                        max_tokens_cap=MAX_TOKENS,
+                        pool_factory=factory).start()
+    tok0, res0 = pre.decode_tokens, dec.resumed_total
+    steps0 = (pre._step_no, dec._step_no)
+    pa.paged_attn_step_cuda.launches = 0
+    t0 = time.monotonic()
+    try:
+        results = post_all(srv.url, [{"prompt_tokens": p,
+                                      "max_tokens": MAX_TOKENS,
+                                      "deadline_ms": 600000}
+                                     for p in prompts])
+    finally:
+        srv.stop()
+    wall = time.monotonic() - t0
+    launches = pa.paged_attn_step_cuda.launches
+    steps = (pre._step_no - steps0[0], dec._step_no - steps0[1])
+    streams = []
+    for i, res in enumerate(results):
+        check(res is not None, f"disagg {label}: request {i} unanswered")
+        code, body = res
+        check(code == 200, f"disagg {label}: request {i}: HTTP {code} "
+              f"{body}")
+        streams.append(body["tokens"])
+    at = first_diff(streams, gold)
+    check(at is None and len(streams) == len(gold),
+          f"disagg {label}: streams differ from the colocated gold first "
+          f"at request {at and at[0]}, token {at and at[1]}")
+    n = len(prompts)
+    check(pre.decode_tokens - tok0 == n,
+          f"disagg {label}: the prefill executor decoded "
+          f"{pre.decode_tokens - tok0} tokens for {n} requests")
+    check(dec.resumed_total - res0 == n,
+          f"disagg {label}: the decode executor resumed "
+          f"{dec.resumed_total - res0} of {n} requests")
+    check(launches >= sum(steps) > 0,
+          f"disagg {label}: kernel launches {launches} for {steps} steps")
+    ok = reg.counter_value("serving_kv_transfers_total", {"outcome": "ok"})
+    check(ok == n, f"disagg {label}: {ok} transfers ok of {n}")
+    for ex in (pre, dec):
+        ex.prefix.flush()
+        ex.allocator.assert_clean()
+    spans = tracer.spans_snapshot()
+    check(tracer.dropped_total() == 0, f"disagg {label}: the tracer "
+          f"dropped spans")
+    xfers = [s for s in spans if s.name == "disagg.transfer"]
+    check(len(xfers) == n and not any(s.attrs.get("error") for s in xfers),
+          f"disagg {label}: {len(xfers)} transfer spans for {n} requests")
+    ms = sorted((s.t1 - s.t0) * 1e3 for s in xfers)
+    nbytes = [s.attrs["bytes"] for s in xfers]
+    # Each replica's loop a step, from its batcher's spans: the host gap
+    # before a dispatch, the dispatch, and the wait for the step's tokens,
+    # over its steps; the time it sat with no work is not in them.
+    busy, n_steps = {}, {}
+    for sp in spans:
+        if sp.name in ("step.host", "executor.submit", "step.device"):
+            rep = sp.attrs.get("replica")
+            busy[rep] = busy.get(rep, 0.0) + (sp.t1 - sp.t0)
+            if sp.name == "step.device":
+                n_steps[rep] = n_steps.get(rep, 0) + 1
+    per = [f"{rep} {n_steps.get(rep, 0)} steps, "
+           f"{busy[rep] / max(n_steps.get(rep, 0), 1) * 1e3:.3f} ms a step"
+           for rep in sorted(busy)]
+    log(f"disagg {label}: {n} requests x {MAX_TOKENS} tokens == the "
+        f"colocated gold; steps prefill {steps[0]} / decode {steps[1]}, "
+        f"kernel launches {launches}; wall {wall:.3f} s; "
+        f"{'; '.join(per)}; {len(xfers)} transfers "
+        f"({xfers[0].attrs['codec']} wire), {min(nbytes)}-{max(nbytes)} "
+        f"bytes a request ({sum(nbytes)} in all), export -> import ack "
+        f"median {statistics.median(ms):.3f} ms (min {ms[0]:.3f}, max "
+        f"{ms[-1]:.3f}) [{card}]")
+    return launches, streams
+
+
+def router_lane(torch, card, a_ex, b_ex, prompts, gold):
+    """(c) ``PrefixRouter`` over two int8 executors as replicas: the first
+    prompt is routed (cold) and served on replica a; the other six wait in
+    a's queue; the second prompt, which shares 512 tokens with the first,
+    is placed by load on replica b and its shared prefix pulled there over
+    ``KVPageStream`` (``_export_pages`` on a's stream, ``_import_pages``
+    on b's). Every stream == phase 4's; blocks pulled > 0 and served from
+    the remote tier; both ledgers clean."""
+    from dpu_operator_tpu_torch.parallel import paged_attn as pa
+    from dpu_operator_tpu_torch.serving import (AdmissionQueue,
+                                                ContinuousBatcher,
+                                                GenerateRequest)
+    from dpu_operator_tpu_torch.serving.router import (PrefixRouter,
+                                                       RouterReplica)
+    from dpu_operator_tpu_torch.utils.metrics import Registry
+
+    def req(p):
+        return GenerateRequest(prompt_vec=None, max_tokens=MAX_TOKENS,
+                               deadline=time.monotonic() + 600,
+                               prompt_tokens=list(p))
+
+    def drive(rep, reqs):
+        b = ContinuousBatcher(rep.executor, rep.queue)
+        b.start()
+        try:
+            for r in reqs:
+                check(r.wait(600), f"router: request lost on {rep.name}")
+        finally:
+            b.stop()
+        for r in reqs:
+            check(r.error is None, f"router: {r.error}")
+
+    reg = Registry()
+    a = RouterReplica("a", AdmissionQueue(max_depth=64), a_ex)
+    b = RouterReplica("b", AdmissionQueue(max_depth=64), b_ex)
+    router = PrefixRouter([a, b], cadence_s=0.0,
+                          max_load_skew=DISAGG_SKEW, registry=reg)
+    reqs = [req(p) for p in prompts]
+    pa.paged_attn_step_cuda.launches = 0
+    t0 = time.monotonic()
+    try:
+        check(router.submit(reqs[0]) is a, "router: the cold request "
+              "did not land on replica a")
+        drive(a, reqs[:1])
+        for r in reqs[2:]:
+            a.queue.submit(r)
+        t1 = time.monotonic()
+        chosen = router.submit(reqs[1])
+        pull_s = time.monotonic() - t1
+        check(chosen is b, f"router: the swamped owner kept the request "
+              f"({chosen.name})")
+        drive(b, reqs[1:2])
+        drive(a, reqs[2:])
+    finally:
+        router.close()
+    wall = time.monotonic() - t0
+    streams = [list(r.tokens) for r in reqs]
+    at = first_diff(streams, gold)
+    check(at is None, f"router: streams differ from phase 4's first at "
+          f"request {at and at[0]}, token {at and at[1]}")
+    pulled = reg.counter_value("serving_router_pulled_blocks_total")
+    nbytes = reg.counter_value("serving_router_pull_bytes_total")
+    remote = b_ex.kv_stats()["prefix_hit_tokens_remote"]
+    check(pulled > 0 and remote > 0, f"router: {pulled} blocks pulled, "
+          f"{remote} tokens served from the remote tier")
+    check(reg.counter_value("serving_router_pull_failed_total") == 0,
+          "router: a pull failed")
+    for ex in (a_ex, b_ex):
+        ex.prefix.flush()
+        ex.allocator.assert_clean()
+    log(f"disagg router: {len(reqs)} requests == phase 4's streams; "
+        f"{int(pulled)} blocks ({int(nbytes)} bytes) pulled a -> b in "
+        f"{pull_s * 1e3:.3f} ms (route + match + export + stream + "
+        f"import), {remote} prompt tokens served from them on b; kernel "
+        f"launches {pa.paged_attn_step_cuda.launches}; wall {wall:.3f} s "
+        f"[{card}]")
+
+
+def phase_disagg(torch, card, int8_gold, fp32_gold):
+    """Phase 19: disaggregated serving at phase 4's width. (a) an int8
+    pair, pipelined decode batcher, == phase 4's streams; (b) an fp32
+    pair, sync decode batcher, == phase 12's fp32 sync gold; (c) the
+    prefix router over the int8 pair. Returns lane (a)'s kernel-1
+    launches."""
+    prompts = serve_prompts()
+    t0 = time.monotonic()
+    pre, dec = disagg_pair(torch, "int8")
+    launches, _ = disagg_lane(torch, card, "int8 pipelined", pre, dec,
+                              prompts, int8_gold, pipelined=True)
+    router_lane(torch, card, pre, dec, prompts, int8_gold)
+    del pre, dec
+    torch.cuda.empty_cache()
+    pre, dec = disagg_pair(torch, "fp32")
+    disagg_lane(torch, card, "fp32 sync", pre, dec, prompts, fp32_gold,
+                pipelined=False)
+    del pre, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"disagg: phase {time.monotonic() - t0:.1f} s")
+    return launches
+
+
+# -- phase 20: the fabric worker's program -------------------------------------
+
+WORKER_IPS = ("127.0.0.1", "127.0.0.2")
+WORKER_ARGS = ("--device", "cuda", "--payload-mb", "4", "--iters", "5")
+
+
+def free_port(span=1):
+    """A port p with p .. p + span - 1 free on every worker address."""
+    import socket
+
+    while True:
+        with socket.socket() as s:
+            s.bind((WORKER_IPS[0], 0))
+            p = s.getsockname()[1]
+        held = []
+        try:
+            for ip in WORKER_IPS:
+                for q in range(p, p + span):
+                    t = socket.socket()
+                    held.append(t)
+                    t.bind((ip, q))
+            return p
+        except OSError:
+            continue
+        finally:
+            for t in held:
+                t.close()
+
+
+def phase_worker(torch, card):
+    """Phase 20: two ``fabric_worker`` processes, one on 127.0.0.1 and one
+    on 127.0.0.2, each with its own CUDA context: the gloo all-reduce, the
+    raw-socket ring in fp32 and int8, and the train slice on the card.
+    Both exit 0 with ok, ring_ok, train_matches_dense and
+    train_loss_descends; their train losses are equal."""
+    coord, ring = free_port(), free_port(2)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "dpu_operator_tpu_torch.parallel."
+         "fabric_worker", "--process-id", str(i), "--num-processes", "2",
+         "--coordinator", f"{WORKER_IPS[0]}:{coord}", "--bind-ip", ip,
+         "--peer-ips", ",".join(WORKER_IPS), "--ring-port", str(ring),
+         *WORKER_ARGS], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for i, ip in enumerate(WORKER_IPS)]
+    results = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=300)
+            lines = [l for l in out.splitlines() if l.strip()]
+            check(p.returncode == 0 and lines, f"worker {i}: rc "
+                  f"{p.returncode}, stderr tail {err[-2000:]!r}")
+            results.append(json.loads(lines[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.monotonic() - t0
+    for i, r in enumerate(results):
+        for key in ("ok", "psum_ok", "ring_ok", "train_matches_dense",
+                    "train_loss_descends"):
+            check(r.get(key) is True, f"worker {i}: {key} = {r.get(key)}")
+        check(r["train_device"].startswith("cuda"),
+              f"worker {i}: the train slice ran on {r['train_device']}")
+        check(r["fabric_quantized_allreduce_maxerr"]
+              <= r["fabric_quantized_err_bound"],
+              f"worker {i}: int8 ring error over its bound")
+    check(results[0]["train_losses"] == results[1]["train_losses"],
+          f"workers: train losses differ {results[0]['train_losses']} vs "
+          f"{results[1]['train_losses']}")
+    for i, r in enumerate(results):
+        log(f"worker {i}: 4 MiB x 5 on loopback (host memory, two "
+            f"addresses of one machine, no link): gloo "
+            f"{r['fabric_gloo_allreduce_gbps']} Gbit/s, ring "
+            f"{r['fabric_ring_allreduce_gbps']} Gbit/s, int8 ring "
+            f"{r['fabric_quantized_allreduce_gbps']} Gbit/s (max error "
+            f"{r['fabric_quantized_allreduce_maxerr']} <= "
+            f"{r['fabric_quantized_err_bound']}); train on "
+            f"{r['train_device']}: losses {r['train_losses']} [{card}]")
+    log(f"worker: both ranks ok, losses equal; phase {wall:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4906,6 +5235,9 @@ def main() -> int:
     phase_probe(torch, card)
     phase_fabric(torch, card, next(r for r in tp_mlp
                                    if r["name"] == "ag_matmul"))
+    record["disagg_launches"] = phase_disagg(torch, card, serve_streams,
+                                             spec_gold)
+    phase_worker(torch, card)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

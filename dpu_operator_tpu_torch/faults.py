@@ -240,3 +240,45 @@ def injected(seed: int = 0):
         yield plan
     finally:
         uninstall()
+
+
+# -- the executor-seam wrapper -------------------------------------------------
+
+
+class FaultyExecutor:
+    """Wrap one serving Executor so its seam methods pass through
+    named fault points: ``{site}.step``, ``{site}.submit``,
+    ``{site}.collect``, ``{site}.reset``. Everything else (slots, d,
+    pipelined, steps, …) delegates to the wrapped executor, so the
+    scheduler and pool treat it as the replica it wraps — per-replica
+    targeting is just a distinct ``site`` per wrapped executor."""
+
+    def __init__(self, inner, site: str = "executor"):
+        self.inner = inner
+        self.site = site
+
+    def step(self, x):
+        fire(f"{self.site}.step")
+        return wrap(f"{self.site}.step", self.inner.step(x))
+
+    def reset(self) -> None:
+        fire(f"{self.site}.reset")
+        self.inner.reset()
+
+    def submit(self, updates, **meta):
+        # **meta forwards the diagnostic/guard kwargs (step,
+        # request_ids, the KV executors' gen) untouched — the wrapper
+        # must never change what the scheduler told the replica.
+        fire(f"{self.site}.submit")
+        return wrap(f"{self.site}.submit",
+                    self.inner.submit(updates, **meta))
+
+    def collect(self, handle):
+        fire(f"{self.site}.collect")
+        return wrap(f"{self.site}.collect", self.inner.collect(handle))
+
+    def close(self) -> None:
+        self.inner.close()
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)

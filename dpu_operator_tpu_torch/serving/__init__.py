@@ -26,18 +26,31 @@ Fabric-sharded serving (sharded/): ``FabricExecutor`` spreads one row-plane
 replica's decode step over ``world`` tensor-parallel shards, thread shards
 (``SyntheticShardSet``) or ``shard_worker`` processes reducing over the
 fabric ring (``ShardProcessSet``), behind the same submit/collect seam.
+
+Disaggregated prefill/decode serving (disagg/): ``DisaggPool`` runs
+role-typed prefill and decode ``ReplicaPool``s and streams each request's
+KV pages between their executors over ``KVPageStream`` (hand it to
+``ServingServer(pool_factory=...)``); ``RoleAutoscaler`` (autoscale.py)
+moves replicas between the two roles. The prefix router (router/):
+``PrefixRouter`` places requests on the ``RouterReplica`` whose pool holds
+their prefix and pulls the prefix's pages to a less loaded replica.
+``SyntheticExecutor`` is the serving plane's numpy test double.
 """
 
 from .api import (PRIORITIES, Draining, GenerateRequest, QueueFull,
                   ServingError, TenantOverBudget, encode_prompt,
                   encode_prompt_tokens)
-from .executor import Executor, LocalExecutor, ReplicaPool
+from .autoscale import RoleAutoscaler
+from .disagg import DisaggPool, KVSpec, KVSpecMismatch
+from .executor import (Executor, LocalExecutor, ReplicaPool,
+                       SyntheticExecutor)
 from .kvcache import (HostKVTier, KVBlockAllocator, KVCacheOOM, KVLease,
                       KVShardProcessSet, PagedDecodeStep, PagedKVExecutor,
                       ParkedKV, PrefixTree, ShardedPagedKVExecutor,
                       SyntheticKVExecutor, SyntheticKVShardSet,
                       resolve_shard_axis)
 from .queue import AdmissionQueue, TenantBudget
+from .router import PrefixRouter, RouterReplica
 from .scheduler import ContinuousBatcher
 from .server import ServingServer
 from .sharded import FabricExecutor, ShardProcessSet, SyntheticShardSet
@@ -46,6 +59,7 @@ from .spec import NO_TOKEN, OracleDraft, SpecConfig, TruncatedDraft
 __all__ = [
     "AdmissionQueue",
     "ContinuousBatcher",
+    "DisaggPool",
     "Draining",
     "Executor",
     "FabricExecutor",
@@ -55,6 +69,8 @@ __all__ = [
     "KVCacheOOM",
     "KVLease",
     "KVShardProcessSet",
+    "KVSpec",
+    "KVSpecMismatch",
     "LocalExecutor",
     "NO_TOKEN",
     "OracleDraft",
@@ -62,14 +78,18 @@ __all__ = [
     "PagedDecodeStep",
     "PagedKVExecutor",
     "ParkedKV",
+    "PrefixRouter",
     "PrefixTree",
     "QueueFull",
     "ReplicaPool",
+    "RoleAutoscaler",
+    "RouterReplica",
     "ServingError",
     "ServingServer",
     "ShardProcessSet",
     "ShardedPagedKVExecutor",
     "SpecConfig",
+    "SyntheticExecutor",
     "SyntheticKVExecutor",
     "SyntheticKVShardSet",
     "SyntheticShardSet",

@@ -55,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import faults
 from ..obs import trace as obs_trace
 from .api import (DEADLINE_QUEUED_ERROR, RETRIES_EXHAUSTED_ERROR,
                   GenerateRequest)
@@ -348,6 +349,83 @@ class LocalExecutor(Executor):
         if not self.pipelined:
             return handle
         return handle.wait()
+
+
+class SyntheticExecutor(Executor):
+    """Deterministic jax-free replica with a dialable per-step cost.
+
+    y = tanh(x @ W) for a fixed seeded W, after sleeping step_time_s —
+    the model-cost knob that makes scheduler/backpressure tests assert
+    timing properties instead of hoping the CI box is quiet. With
+    pipelined=True, steps run FIFO on a worker thread: submit returns
+    immediately and collect blocks on the step's completion, so
+    scheduler-overlap assertions (wall ≈ max(host, device), not the
+    sum) hold by construction on shared CI boxes."""
+
+    def __init__(self, slots: int = 8, d: int = 16,
+                 step_time_s: float = 0.0, seed: int = 0,
+                 pipelined: bool = False,
+                 fault_site: Optional[str] = None):
+        self.slots = slots
+        self.d = d
+        self.step_time_s = step_time_s
+        self.pipelined = pipelined
+        # Fault seam INSIDE the device: with pipelined=True the step
+        # runs on the worker thread, where a FaultyExecutor wrapper
+        # (which intercepts the submit/collect seam on the scheduler
+        # thread) can't reach — naming a site here is how chaos tests
+        # break the "device" itself.
+        self.fault_site = fault_site
+        self._w = np.random.RandomState(seed).randn(d, d).astype(
+            np.float32) / np.sqrt(d)
+        self.steps = 0
+        # The base eager adapter IS one step of the contract (apply
+        # updates, step, batched argmax); the worker only moves it off
+        # the submitter's thread.
+        self._worker = _GuardedWorker(
+            "synthetic-step",
+            step_fn=lambda updates: Executor.submit(self, updates),
+            reset_fn=self._zero_resident)
+
+    def _zero_resident(self) -> None:
+        self._resident = np.zeros((self.slots, self.d), np.float32)
+
+    def step(self, x: np.ndarray) -> np.ndarray:
+        if self.fault_site is not None:
+            faults.fire(f"{self.fault_site}.step")
+        if self.step_time_s:
+            time.sleep(self.step_time_s)
+        self.steps += 1
+        return np.tanh(x @ self._w)
+
+    # -- pipelined: the worker thread is the "device" -------------------------
+
+    def reset(self) -> None:
+        if not self.pipelined or not self._worker.started:
+            super().reset()
+            return
+        # The worker owns the resident state between submit and
+        # collect; a reset must serialize behind queued steps.
+        self._worker.reset()
+
+    def submit(self, updates: Sequence[Update], step=None,
+               request_ids=None, occupants=None):
+        if not self.pipelined:
+            return super().submit(updates)
+        if self._resident is None:
+            self._resident = np.zeros((self.slots, self.d), np.float32)
+        return self._worker.submit(list(updates))
+
+    def collect(self, handle) -> np.ndarray:
+        if not self.pipelined:
+            return handle
+        handle.event.wait()
+        if handle.error is not None:
+            raise handle.error
+        return handle.tokens
+
+    def close(self) -> None:
+        self._worker.close()
 
 
 REPLICA_LIVE = "live"

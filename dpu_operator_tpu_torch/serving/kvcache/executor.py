@@ -656,6 +656,17 @@ class KVExecutorBase(Executor):
 
     # -- cross-replica page hand-off (serving/disagg) --------------------------
 
+    @property
+    def kv_spec(self):
+        """The pool layout + model identity as a KVSpec — declared
+        once here, and everything the transfer path does (wire bytes,
+        segmentation, the receiver's parse, the hello check) derives
+        from it. Lazy import: kvcache must stay importable without
+        the disagg package (which imports kvcache back)."""
+        from ..disagg.spec import KVSpec
+
+        return KVSpec(**self._spec_fields())
+
     def _spec_fields(self) -> dict:
         raise NotImplementedError
 

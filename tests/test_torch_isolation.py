@@ -59,7 +59,11 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "parallel.topology", "parallel.fabric_collectives",
                 "parallel.quantize", "obs.xproc", "serving.sharded",
                 "serving.sharded.shard_math", "serving.sharded.executor",
-                "serving.sharded.procset", "serving.sharded.synthetic"):
+                "serving.sharded.procset", "serving.sharded.synthetic",
+                "serving.disagg.stream", "serving.disagg.pool",
+                "serving.router", "serving.router.router",
+                "serving.router.gossip", "serving.autoscale",
+                "parallel.fabric_worker"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
 
@@ -85,7 +89,8 @@ COPIES = {
     "obs/trace.py": (),
     "obs/xproc.py": (),
     "parallel/fabric_collectives.py": (),
-    "parallel/fabric_worker.py": (),
+    "parallel/fabric_worker.py": ("_GLOO_TIMEOUT", "_init_gloo",
+                                  "_psum_bench", "_train_slice", "main"),
     "parallel/mesh.py": ("build_mesh", "ring_is_ici_adjacent",
                          "mesh_from_topology", "build_hybrid_mesh"),
     "parallel/quantize.py": ("int8_block_encode", "int8_block_decode"),
@@ -107,7 +112,10 @@ COPIES = {
                                       "make_ulysses_attention",
                                       "dense_attention_reference"),
     "serving/api.py": (),
+    "serving/autoscale.py": (),
+    "serving/disagg/pool.py": (),
     "serving/disagg/spec.py": (),
+    "serving/disagg/stream.py": (),
     "serving/executor.py": ("LocalExecutor",),
     "serving/kvcache/allocator.py": (),
     "serving/kvcache/executor.py": ("PagedKVExecutor",),
@@ -124,6 +132,8 @@ COPIES = {
                                    "ShardedPagedKVExecutor.__init__"),
     "serving/kvcache/tiering.py": (),
     "serving/queue.py": (),
+    "serving/router/gossip.py": (),
+    "serving/router/router.py": (),
     "serving/scheduler.py": (),
     "serving/server.py": ("ServingServer.__init__",),
     "serving/sharded/executor.py": (),
