@@ -302,6 +302,19 @@ Phases, each of which raises on failure:
                0 with ok, ring_ok, train_matches_dense and
                train_loss_descends, and equal train losses; their Gbit/s
                are loopback figures (host memory, no link).
+ 21. bench   — the serving bench (``serving/bench_serving.py``): (a) the
+               whole bench in a process of its own, its model sections at
+               phase 14's row model at E = 1 (``--decode-S 4 --decode-d
+               4096 --decode-h 14336``), every other flag its default:
+               exit 0, one JSON object, no ``_error`` key, the
+               reference's 113 CPU keys renamed plus the cuda arm's (114),
+               the kernel's equivalence lane and /healthz true, the five
+               arithmetic keys the reference's; every number and each
+               section's kernel-1 and kernel-10 launches logged. (b)
+               section 11 in process at phase 4's model and pool: kernel-1
+               launches == the cuda arm's steps + the lane's 4. (c)
+               section 14 in process at phase 4's widths: kernel-1
+               launches > 0 in the single-worker twin, ledgers clean.
 
 Phase 2 builds every source at once (one nvcc each). The second line
 from the end is one JSON object with a record per kernel (launches on
@@ -320,8 +333,9 @@ launches in one Ulysses call with its gradient, and
 ``row_dptp_launches``, phase 14's dp x tp kernel lane's; the all-gather
 matmul's adds ``mesh_stage_launches``, phase 18's launches in its
 mesh-stage steps, with its ``mesh_stage_`` times at that shape; the
-paged-attention record's ``disagg_launches`` are phase 19 (a)'s); the
-last line is
+paged-attention record's ``disagg_launches`` are phase 19 (a)'s and
+its ``bench_launches`` phase 21 (b)'s cuda arm's and (c)'s); the last
+line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -5180,6 +5194,244 @@ def phase_worker(torch, card):
     log(f"worker: both ranks ok, losses equal; phase {wall:.1f} s")
 
 
+# -- phase 21: the serving bench ----------------------------------------------
+
+# (a) The whole bench in a process of its own, its model sections at phase
+# 14's row model at E = 1 (Mixtral-8x7B's widths, depth cut to 4 of 32,
+# 3.76 GB f32; as phase 18's), every other flag the reference's default.
+BENCH_ARGS = ("--decode-S", "4", "--decode-d", str(ROW_MODEL["d"]),
+              "--decode-h", str(ROW_MODEL["h"]))
+BENCH_TIMEOUT_S = 900
+# The keys the JAX package's bench printed on the CPU (113), by the
+# reference's names; the port renames section 11's arms and on a CUDA
+# device adds the cuda arm's time (the reference's TPU-only
+# ``_pallas_ms``): 114 keys.
+BENCH_RENAMES = {"serving_paged_attn_xla_ms": "serving_paged_attn_torch_ms",
+                 "serving_paged_attn_pallas_ms": "serving_paged_attn_cuda_ms"}
+BENCH_REF_CPU_KEYS = (
+    "serving_batching_speedup", "serving_burst_recovery_ms",
+    "serving_cluster_reqs", "serving_colocated_decode_p99_ms",
+    "serving_ctx_per_replica_scaling",
+    "serving_ctx_per_replica_scaling_w4", "serving_decode_compile_s",
+    "serving_decode_p99_ms", "serving_disagg_isolation_x",
+    "serving_fault_goodput_retention", "serving_fault_requeued",
+    "serving_fault_restarts", "serving_host_gap_frac",
+    "serving_host_gap_ms", "serving_kv_bytes_per_slot",
+    "serving_kv_bytes_per_slot_fp32", "serving_kv_bytes_reduction",
+    "serving_kv_prefix_hit_frac", "serving_kv_prefix_speedup",
+    "serving_kv_transfer_breakeven_x", "serving_kv_transfer_gbps",
+    "serving_kv_transfer_ms", "serving_kv_transfers",
+    "serving_local_compile_s", "serving_local_p99_ms",
+    "serving_local_reqs_per_s", "serving_overload_admitted_per_s",
+    "serving_overload_healthz_ok", "serving_overload_offered_per_s",
+    "serving_overload_other_codes", "serving_overload_p99_ms",
+    "serving_overload_shed_frac", "serving_p50_ms", "serving_p95_ms",
+    "serving_p99_ms", "serving_paged_attn_device_ms",
+    "serving_paged_attn_equiv_ok", "serving_paged_attn_fp32_ms",
+    "serving_paged_attn_kernel", "serving_paged_attn_xla_ms",
+    "serving_pipeline_speedup", "serving_prefill_stall_frac",
+    "serving_prefix_hit_frac", "serving_prefix_hit_frac_rr",
+    "serving_prefix_route_uplift_x", "serving_pspec_accept_rate",
+    "serving_pspec_onetok_step_ms", "serving_pspec_onetok_tokens_per_s",
+    "serving_pspec_replan_rate", "serving_pspec_speedup",
+    "serving_pspec_speedup_vs_onetok", "serving_pspec_step_ms",
+    "serving_pspec_sync_step_ms", "serving_pspec_sync_tokens_per_s",
+    "serving_pspec_tokens_per_s", "serving_recovery_ms",
+    "serving_reqs_per_s", "serving_router_pull_failed",
+    "serving_router_pulled_blocks", "serving_serial_reqs_per_s",
+    "serving_shard_collective_frac", "serving_shard_collective_frac_off",
+    "serving_shard_kv_p99_ms", "serving_shard_kv_p99_vs_single",
+    "serving_shard_kv_single_p99_ms",
+    "serving_shard_kv_single_tokens_per_s",
+    "serving_shard_kv_tokens_per_s", "serving_shard_kv_tokens_per_s_w1",
+    "serving_shard_kv_tokens_per_s_w4", "serving_shard_kv_transfer_gbps",
+    "serving_shard_kv_transfer_rank0_gbps",
+    "serving_shard_kv_transfer_rank1_gbps",
+    "serving_shard_overlap_speedup", "serving_shard_step_skew_ms",
+    "serving_sharded_steps_per_s", "serving_sharded_steps_per_s_off",
+    "serving_sharded_steps_per_s_overlap", "serving_sharded_tok_per_s",
+    "serving_sharded_trace_coord_us", "serving_sharded_trace_cost_us",
+    "serving_sharded_trace_overhead_frac",
+    "serving_sharded_trace_worker_us",
+    "serving_sharded_traced_steps_per_s",
+    "serving_sharded_untraced_steps_per_s",
+    "serving_sharded_vs_local_frac", "serving_spec_accept_rate",
+    "serving_spec_baseline_step_ms", "serving_spec_baseline_tokens_per_s",
+    "serving_spec_speedup", "serving_spec_step_ms",
+    "serving_spec_tokens_per_s", "serving_spec_tokens_per_step",
+    "serving_step_device_ms", "serving_steps_per_s",
+    "serving_sync_steps_per_s", "serving_tenant_flood_shed_frac",
+    "serving_tenant_p99_contended_ms", "serving_tenant_p99_isolation",
+    "serving_tenant_p99_solo_ms", "serving_tenant_preemptions",
+    "serving_tier_restore_gbps", "serving_tier_restored_blocks",
+    "serving_tier_spill_gbps", "serving_tier_spilled_blocks",
+    "serving_tok_per_s", "serving_tokens_per_s",
+    "serving_tokens_per_s_user", "serving_trace_overhead_frac",
+    "serving_traced_steps_per_s", "serving_ttft_p99_ms",
+    "serving_ttft_p99_rr_ms", "serving_ttft_vs_rr_x",
+    "serving_untraced_steps_per_s")
+BENCH_CARD_KEYS = frozenset(
+    {BENCH_RENAMES.get(k, k) for k in BENCH_REF_CPU_KEYS}
+    | {"serving_paged_attn_cuda_ms"})
+# Arithmetic keys (layout accounting, no timing): the reference's values.
+BENCH_ARITHMETIC = {"serving_kv_bytes_per_slot": 32896,
+                    "serving_kv_bytes_per_slot_fp32": 131200,
+                    "serving_kv_bytes_reduction": 3.99,
+                    "serving_ctx_per_replica_scaling": 2.0,
+                    "serving_ctx_per_replica_scaling_w4": 3.997}
+# Section 11's defaults: each arm times ``iters`` steps after one warm
+# step, ``repeats`` times; its equivalence lane steps 4 times an arm.
+BENCH_ITERS, BENCH_REPEATS, BENCH_EQUIV_STEPS = 40, 3, 4
+# (b) section 11 at phase 4's model and pool (SERVE): its steady plan
+# holds 2048 tokens a slot (half of a 256-entry table of 16-token blocks).
+BENCH_PAGED_DIMS = dict(
+    slots=SERVE["slots"], vocab=SERVE["vocab"], d=SERVE["d"],
+    heads=SERVE["heads"], block_size=SERVE["block_size"],
+    num_blocks=SERVE["num_blocks"],
+    max_blocks_per_req=SERVE["max_blocks_per_req"],
+    chunk=SERVE["prefill_chunk"], seed=SERVE["seed"])
+# (c) section 14 at phase 4's widths with its own traffic and pool depth
+# (2 slots, 64 blocks, 8 a request, prefill chunk 8, 6 requests of 8
+# tokens); 48-token prompts keep the reference's 12 tokens at blocks of 4
+# as 3 blocks, so every page rank at world 4 holds a block.
+BENCH_SHARD_DIMS = dict(
+    slots=2, vocab=SERVE["vocab"], d=SERVE["d"], heads=SERVE["heads"],
+    block_size=SERVE["block_size"], num_blocks=64, max_blocks_per_req=8,
+    prefill_chunk=8, seed=0)
+BENCH_SHARD_PROMPT = 48
+_BENCH_LAUNCHES = re.compile(
+    r"bench_serving: (\S+): kernel launches paged attention (\d+), "
+    r"all-to-all (\d+)")
+
+
+def bench_process(torch, card):
+    """Phase 21 (a): ``python -m dpu_operator_tpu_torch.serving.
+    bench_serving`` with ``BENCH_ARGS``. Exit 0, one JSON object on
+    stdout, no ``_error`` key, the 114 keys, the kernel's equivalence
+    lane and /healthz true, the arithmetic keys the reference's; every
+    number and each section's kernel launches logged."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [HERE] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, "-m", "dpu_operator_tpu_torch.serving.bench_serving",
+         *BENCH_ARGS], cwd=HERE, env=env, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    lines = [l for l in res.stdout.splitlines() if l.strip()]
+    check(res.returncode == 0 and len(lines) == 1,
+          f"bench: rc {res.returncode}, {len(lines)} stdout lines, stderr "
+          f"tail {res.stderr[-3000:]!r}")
+    out = json.loads(lines[0])
+    errors = {k: v for k, v in out.items() if k.endswith("_error")}
+    check(not errors, f"bench: section errors {errors}")
+    check(set(out) == BENCH_CARD_KEYS,
+          f"bench: {len(out)} keys; missing "
+          f"{sorted(BENCH_CARD_KEYS - set(out))}, extra "
+          f"{sorted(set(out) - BENCH_CARD_KEYS)}")
+    check(out["serving_paged_attn_kernel"] == "cuda",
+          f"bench: deployed kernel {out['serving_paged_attn_kernel']}")
+    for key in ("serving_paged_attn_equiv_ok", "serving_overload_healthz_ok"):
+        check(out[key] is True, f"bench: {key} = {out[key]}")
+    for key, want in BENCH_ARITHMETIC.items():
+        check(out[key] == want, f"bench: {key} = {out[key]}, want {want}")
+    launches = {m.group(1): (int(m.group(2)), int(m.group(3)))
+                for m in _BENCH_LAUNCHES.finditer(res.stderr)}
+    want_pa = BENCH_REPEATS * (BENCH_ITERS + 1) + BENCH_EQUIV_STEPS
+    check(launches.get("paged-attn", (None,))[0] == want_pa,
+          f"bench: section 11 launched kernel 1 "
+          f"{launches.get('paged-attn')} times, want {want_pa}")
+    check(launches.get("sharded-kv", (0,))[0] > 0,
+          "bench: section 14's single-worker twin launched no kernel 1")
+    for key in sorted(out):
+        log(f"bench: {key} = {json.dumps(out[key])} [{card}]")
+    for label, (pa, a2a) in launches.items():
+        log(f"bench: section {label}: kernel 1 launches {pa}, kernel 10 "
+            f"launches {a2a}")
+    log(f"bench: process exit 0 in {wall:.1f} s, {len(out)} keys, no "
+        f"error, equivalence lane and /healthz true, arithmetic keys the "
+        f"reference's; overload other codes "
+        f"{out['serving_overload_other_codes']}, p99 "
+        f"{out['serving_overload_p99_ms']} ms [{card}]")
+    return launches
+
+
+def phase_bench(torch, card):
+    """Phase 21: the serving bench. (a) the whole bench in a process of
+    its own (``bench_process``); (b) section 11 in process at phase 4's
+    model and pool: kernel-1 launches == the cuda arm's steps plus the
+    equivalence lane's, and the lane true; (c) section 14 in process at
+    phase 4's widths: kernel-1 launches > 0 in the single-worker twin,
+    the ledgers clean (the section asserts them). The threads the
+    sections started (rank, coordinator, batcher and page-stream
+    threads) are waited for before it returns. Returns the kernel-1
+    launches of (b)'s cuda arm and of (c)."""
+    from dpu_operator_tpu_torch.parallel.paged_attn import (
+        paged_attn_step_cuda)
+    from dpu_operator_tpu_torch.serving import bench_serving
+
+    def trace(msg):
+        log(f"bench: {msg}")
+
+    t0 = time.monotonic()
+    threads_before = set(threading.enumerate())
+    bench_process(torch, card)
+
+    t1 = time.monotonic()
+    paged_attn_step_cuda.launches = 0
+    got = bench_serving.paged_attn_bench(
+        trace, iters=BENCH_ITERS, repeats=BENCH_REPEATS,
+        dims=BENCH_PAGED_DIMS)
+    n_paged = paged_attn_step_cuda.launches
+    arm = BENCH_REPEATS * (BENCH_ITERS + 1)
+    check(n_paged == arm + BENCH_EQUIV_STEPS,
+          f"bench (b): {n_paged} kernel-1 launches, want the cuda arm's "
+          f"{arm} steps + the lane's {BENCH_EQUIV_STEPS}")
+    check(got["serving_paged_attn_equiv_ok"] is True,
+          "bench (b): the kernel's equivalence lane failed")
+    log(f"bench (b): section 11 at phase 4's shapes (16 slots, 2048 "
+        f"tokens a slot, 32 heads of 128, int8 blocks of 16): device_ms "
+        f"cuda {got['serving_paged_attn_cuda_ms']}, torch "
+        f"{got['serving_paged_attn_torch_ms']}, fp32 (torch) "
+        f"{got['serving_paged_attn_fp32_ms']} ms a step; kv bytes a slot "
+        f"{got['serving_kv_bytes_per_slot']} (fp32 "
+        f"{got['serving_kv_bytes_per_slot_fp32']}); {n_paged} launches == "
+        f"{arm} + {BENCH_EQUIV_STEPS}; {time.monotonic() - t1:.1f} s "
+        f"[{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t1 = time.monotonic()
+    paged_attn_step_cuda.launches = 0
+    got = bench_serving.sharded_kv_scaling(
+        trace, dims=BENCH_SHARD_DIMS, prompt_len=BENCH_SHARD_PROMPT)
+    n_shard = paged_attn_step_cuda.launches
+    check(n_shard > 0, "bench (c): the single-worker twin launched no "
+          "kernel 1")
+    for key in ("serving_ctx_per_replica_scaling",
+                "serving_ctx_per_replica_scaling_w4"):
+        check(got[key] == BENCH_ARITHMETIC[key],
+              f"bench (c): {key} = {got[key]}")
+    for key in sorted(got):
+        log(f"bench (c): {key} = {got[key]} [{card}]")
+    log(f"bench (c): section 14 at phase 4's widths: {n_shard} kernel-1 "
+        f"launches (the single-worker twin), ledgers clean; "
+        f"{time.monotonic() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = [t for t in threading.enumerate() if t not in threads_before]
+    for t in left:
+        t.join(timeout=10)
+    alive = [t.name for t in left if t.is_alive()]
+    check(not alive, f"bench: threads still running: {alive}")
+    log(f"bench: phase {time.monotonic() - t0:.1f} s, {len(left)} "
+        f"threads of its sections joined [{card}]")
+    return arm + n_shard
+
+
 def main() -> int:
     try:
         import torch
@@ -5238,6 +5490,7 @@ def main() -> int:
     record["disagg_launches"] = phase_disagg(torch, card, serve_streams,
                                              spec_gold)
     phase_worker(torch, card)
+    record["bench_launches"] = phase_bench(torch, card)
     print(card)
     print(json.dumps({"kernels": [record] + tiles + [ring] + collectives
                       + [a2a] + tp_mlp}))

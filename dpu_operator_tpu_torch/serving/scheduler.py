@@ -725,6 +725,24 @@ class ContinuousBatcher:
                 except Exception:
                     log.exception("batcher %s: executor reset failed",
                                   self.replica)
+        self._drain_stopped(prev)
+
+    def _drain_stopped(self, prev) -> None:
+        """Collect the step a pipelined loop left in flight when it
+        stopped. A stop() that lands between a step's retire and the
+        loop's next check ends the loop with the step submitted after
+        that retire uncollected, so the executor's ledger (a shard
+        set's ``outstanding()``) would hold it until close. Its tokens
+        settle nothing: stop() fails whatever still occupies a slot.
+        Skipped once a seize owns the slots (the supervisor resets the
+        executor itself)."""
+        if prev is None or self._abandoned:
+            return
+        try:
+            self.executor.collect(prev[0])
+        except Exception:
+            log.exception("batcher %s: collecting the step in flight "
+                          "at stop failed", self.replica)
 
     # -- paged-KV loop (token-level executors) ------------------------
 
@@ -972,6 +990,7 @@ class ContinuousBatcher:
                 except Exception:
                     log.exception("batcher %s: executor reset failed",
                                   self.replica)
+        self._drain_stopped(prev)
 
     def _fail_occupants(self, e: Exception) -> None:
         # Under the settle lock, like every other settle path (GL012):

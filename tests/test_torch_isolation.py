@@ -63,7 +63,7 @@ def test_importing_the_whole_port_loads_no_jax_and_no_reference():
                 "serving.disagg.stream", "serving.disagg.pool",
                 "serving.router", "serving.router.router",
                 "serving.router.gossip", "serving.autoscale",
-                "parallel.fabric_worker"):
+                "parallel.fabric_worker", "serving.bench_serving"):
         assert f"dpu_operator_tpu_torch.{mod}" in out["imported"]
 
 
@@ -113,6 +113,10 @@ COPIES = {
                                       "dense_attention_reference"),
     "serving/api.py": (),
     "serving/autoscale.py": (),
+    "serving/bench_serving.py": ("paged_attn_equiv_lane", "paged_attn_bench",
+                                 "sharded_kv_scaling", "decode_loop_rates",
+                                 "trace_overhead", "sharded_decode",
+                                 "sharded_trace_overhead", "main"),
     "serving/disagg/pool.py": (),
     "serving/disagg/spec.py": (),
     "serving/disagg/stream.py": (),
@@ -134,7 +138,9 @@ COPIES = {
     "serving/queue.py": (),
     "serving/router/gossip.py": (),
     "serving/router/router.py": (),
-    "serving/scheduler.py": (),
+    "serving/scheduler.py": ("ContinuousBatcher._run_pipelined",
+                             "ContinuousBatcher._run_kv",
+                             "ContinuousBatcher._drain_stopped"),
     "serving/server.py": ("ServingServer.__init__",),
     "serving/sharded/executor.py": (),
     "serving/sharded/procset.py": ("ShardProcessSet.__init__",
@@ -153,9 +159,16 @@ def _definitions(path):
     """name -> AST dump, docstrings dropped: each top-level function and
     assignment; each class without its methods (bases, decorators, class
     attributes) under its name, and each method as ``Class.method``, so a
-    class that lost whole methods still compares member by member."""
+    class that lost whole methods still compares member by member. An
+    absolute import of the port's package reads as the same import of
+    the reference's (the one line a copy changes to use the port's
+    module of that name)."""
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module and (
+                node.module.split(".")[0] == "dpu_operator_tpu_torch"):
+            node.module = "dpu_operator_tpu" + node.module[len(
+                "dpu_operator_tpu_torch"):]
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
                 and isinstance(body[0].value, ast.Constant)
@@ -188,3 +201,28 @@ def test_copied_module_keeps_the_reference_code(rel):
     for name in kept:
         assert name in ref, f"{rel}: {name} is not in the reference"
         assert port[name] == ref[name], f"{rel}: {name} differs"
+
+
+@pytest.mark.parametrize("loop", ["_run_pipelined", "_run_kv"])
+def test_batcher_loop_is_the_reference_s_but_its_drain(loop):
+    """The port's two pipelined batcher loops are rewritten only by their
+    last statement, ``self._drain_stopped(prev)`` (the step left in
+    flight by a stop is collected): without it each is the reference's
+    loop, statement for statement."""
+    rel = "serving/scheduler.py"
+    trees = {}
+    for pkg in ("dpu_operator_tpu", "dpu_operator_tpu_torch"):
+        tree = ast.parse(open(os.path.join(ROOT, pkg, rel)).read())
+        cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                   and n.name == "ContinuousBatcher")
+        trees[pkg] = next(n for n in cls.body
+                          if isinstance(n, ast.FunctionDef) and n.name == loop)
+    port, ref = trees["dpu_operator_tpu_torch"], trees["dpu_operator_tpu"]
+    last = port.body[-1]
+    assert ast.unparse(last) == "self._drain_stopped(prev)"
+    port.body = port.body[:-1]
+    for fn in (port, ref):
+        if isinstance(fn.body[0], ast.Expr) and isinstance(
+                fn.body[0].value, ast.Constant):
+            fn.body = fn.body[1:]
+    assert ast.dump(port) == ast.dump(ref)
