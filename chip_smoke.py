@@ -117,11 +117,15 @@ Phases, each of which raises on failure:
                route's on the same inputs and cotangent.
  11. tp-mlp  — the collective matmuls (all-gather matmul, matmul
                reduce-scatter). The bf16 kernels (TMA-fed wgmma) built
-               with no spills (ptxas). Small rings (n 1, 2, 3, 4, 5, 8 at
-               the reference tests' shapes, one shape off every tile edge,
-               f32 and bf16; in bf16 also a contraction a rank that is no
-               multiple of the K step and three or more products a CTA a
-               ring step) against the plain versions; n = 1 of the
+               with no spills (ptxas), nor the f32 ones and the
+               all-gather matmul's gathered form. Small rings (n 1, 2, 3,
+               4, 5, 8 at the reference tests' shapes, one shape off every
+               tile edge, f32 and bf16; in bf16 also a contraction a rank
+               that is no multiple of the K step and three or more
+               products a CTA a ring step) against the plain versions;
+               where the f32 all-gather matmul's shapes pick its gathered
+               form, the streamed form forced on the same inputs gives the
+               same bits; n = 1 of the
                reduce-scatter launches nothing; rows that are no whole
                16-byte units and ``overlap=False`` with the kernel raise.
                Then the tensor-parallel MLP pair of the served model
@@ -258,13 +262,17 @@ Phases, each of which raises on failure:
  18. fabric  — fabric-sharded serving on the row model at E = 1 (phase
                14's widths, depth 4, seed 0, 64 slots, tp = 8 ranks on
                the card): (a) ``make_mesh_stage_fn``, each stage's w1
-               product one launch of the all-gather matmul kernel (S a
-               step, the main path with counts at 0), every launch
-               within the bar of its plain version, tokens equal to
+               product one launch of the all-gather matmul kernel in the
+               gathered form its 64 rows pick (S a step, the main path
+               with counts at 0), every launch
+               within the bar of its plain version, the first launch's
+               inputs in both forms forced: y's equal bit for bit,
+               tokens equal to
                ``TpShardSlice`` at world 1's and states within the
                stated bar in the kernel, torch and overlap=False forms,
-               repeats bitwise, ms a step, the kernel at this shape
-               against plain, ``torch.matmul`` f32 and its bound; (b)
+               repeats bitwise, ms a step, the kernel at this shape in
+               both forms against plain, ``torch.matmul`` f32, the ring
+               all-gather of x alone and its bound; (b)
                ``FabricExecutor`` over ``SyntheticShardSet(world=8)``,
                sync, pipelined, with overlap and with the int8 codec, 64
                requests of 32 tokens: fp32 streams equal
@@ -332,7 +340,8 @@ peaks, the memory lane's under ``train_1f1b_memory_peak_gb`` and
 launches in one Ulysses call with its gradient, and
 ``row_dptp_launches``, phase 14's dp x tp kernel lane's; the all-gather
 matmul's adds ``mesh_stage_launches``, phase 18's launches in its
-mesh-stage steps, with its ``mesh_stage_`` times at that shape; the
+mesh-stage steps, with ``mesh_stage_form`` and its ``mesh_stage_`` times
+at that shape (``mesh_stage_streamed_`` the streamed form's); the
 paged-attention record's ``disagg_launches`` are phase 19 (a)'s and
 its ``bench_launches`` phase 21 (b)'s cuda arm's and (c)'s); the last
 line is
@@ -2432,8 +2441,10 @@ def cm_pair_compare(torch, burn, tag, got, x, w1, w2, h):
 
 def cm_case(torch, cm, burn, tag, x, w, n, reduce_scatter):
     """One launch of a collective-matmul kernel (none for the
-    reduce-scatter's ring of one) against its plain version. Returns
-    (output, max |err|, bar)."""
+    reduce-scatter's ring of one) against its plain version; where the
+    all-gather matmul's shapes pick its gathered form, one launch of the
+    streamed form too, on the same inputs, which must give the same bits.
+    Returns (output, max |err|, bar)."""
     kern = cm.mm_rs_cuda if reduce_scatter else cm.ag_matmul_cuda
     plain = cm.mm_rs_plain if reduce_scatter else cm.ag_matmul_plain
     before = kern.launches
@@ -2443,6 +2454,13 @@ def cm_case(torch, cm, burn, tag, x, w, n, reduce_scatter):
     check(kern.launches == before + want_launches,
           f"{tag}: {kern.launches - before} launches")
     err, bar = cm_compare(torch, burn, tag, got, plain(x, w, n))
+    if (not reduce_scatter
+            and cm.ag_form(n, x.shape[0] // n, x.dtype) == "gathered"):
+        streamed = kern(x, w, n, form="streamed")
+        check(same_bits(torch, got, streamed),
+              f"{tag}: the gathered form's y differs from the streamed "
+              f"form's")
+        bar += "; gathered form, == the streamed form bit for bit"
     return got, err, bar
 
 
@@ -2466,8 +2484,9 @@ def ptxas_entries(text):
 
 def check_wgmma_build(cuda_build, source):
     """The tile-product kernels of ``source`` as ptxas reported them in
-    this run: the collective matmuls' four (bf16 on wgmma, f32 on the
-    split-TF32 mma.sync form), or ``tile_mma``'s five, the tile kernel's
+    this run: the collective matmuls' five (bf16 on wgmma, f32 on the
+    split-TF32 mma.sync form, the all-gather matmul's gathered form on
+    its 64-row tile), or ``tile_mma``'s five, the tile kernel's
     four instances (two widths, with and without tanh) and the chain
     kernel; no spills. Returns a line for the log."""
     text = cuda_build.build_logs.get(source)
@@ -2475,11 +2494,14 @@ def check_wgmma_build(cuda_build, source):
         return (f"{source}: ptxas report not in this run (the library was "
                 f"built earlier in this checkout)")
     if source == "collective_matmul":
-        want = 4
+        want = 5
         kernels = {("ag_matmul" if "ag_matmul" in name else "mm_rs")
                    + (" bf16" if "bfloat16" in name else " f32"): regs
                    for name, regs in ptxas_entries(text).items()
                    if "ag_matmul_kernel" in name or "mm_rs_kernel" in name}
+        kernels.update({"ag_gathered f32": regs for name, regs
+                        in ptxas_entries(text).items()
+                        if "ag_gathered_kernel" in name})
     else:
         want = 5
         kernels = {}
@@ -2591,6 +2613,7 @@ def phase_tp_mlp(torch, card):
         return rs(torch.relu(ag(x, w1)), w2)
 
     cm.ag_matmul_cuda.launches = 0
+    cm.ag_matmul_cuda.gathered_launches = 0
     cm.mm_rs_cuda.launches = 0
     outs = {}
     t0 = time.monotonic()
@@ -2605,10 +2628,18 @@ def phase_tp_mlp(torch, card):
     wall = time.monotonic() - t0
     launches = {"ag_matmul": cm.ag_matmul_cuda.launches,
                 "mm_reduce_scatter": cm.mm_rs_cuda.launches}
+    # Blocks of 512 rows: the all-gather matmul's streamed form.
+    forms = {str(dtype)[6:]: cm.ag_form(n, TP_B // n, dtype)
+             for dtype in dtypes}
+    check(set(forms.values()) == {"streamed"}
+          and cm.ag_matmul_cuda.gathered_launches == 0,
+          f"tp-mlp: all-gather matmul forms {forms}, "
+          f"{cm.ag_matmul_cuda.gathered_launches} gathered launches")
     log(f"tp-mlp main path: {len(dtypes)} pair calls (f32, bf16) of "
         f"make_allgather_matmul -> relu -> make_matmul_reduce_scatter "
         f"({TP_MESH}, x [{TP_B}, {TP_D}], w1 [{TP_D}, {TP_H}], w2 [{TP_H}, "
-        f"{TP_D}]), launches {launches}: 2 a pair call, {wall:.3f} s wall "
+        f"{TP_D}]), launches {launches}: 2 a pair call; the all-gather "
+        f"matmul's form {forms} (0 gathered launches), {wall:.3f} s wall "
         f"(the first call builds nothing: phase 2 did) [{card}]")
 
     records = []
@@ -4459,15 +4490,20 @@ def fabric_tokens_check(tag, step, got, x_want, want):
 
 def fabric_mesh_lane(torch, card, params, record):
     """(a) ``make_mesh_stage_fn`` at full width: each stage's w1 product on
-    kernel 11. The main path (counts at 0): FAB_STEPS steps, S launches a
-    step; every launch within ``cm_compare``'s bar of ``ag_matmul_plain``
-    on its own inputs; tokens == ``TpShardSlice(params, 0, 1)``'s exactly
-    and states within FAB_RTOL / FAB_ATOL, as for the ``kernel="torch"``
-    and ``overlap=False`` forms; FAB_REPEATS repeats bitwise; ms a step by
-    events; kernel 11 at this shape against plain, ``torch.matmul`` f32 and
-    its bound. Adds ``mesh_stage_*`` to kernel 11's ``record``."""
+    kernel 11, in the gathered form that its 64 rows pick. The main path
+    (counts at 0): FAB_STEPS steps, S launches a step, all gathered;
+    every launch within ``cm_compare``'s bar of ``ag_matmul_plain`` on its
+    own inputs; the first launch's inputs once more in each form, forced:
+    both y's the main path's bit for bit, each within that bar; tokens ==
+    ``TpShardSlice(params, 0, 1)``'s exactly and states within FAB_RTOL /
+    FAB_ATOL, as for the ``kernel="torch"`` and ``overlap=False`` forms;
+    FAB_REPEATS repeats bitwise; ms a step by events; kernel 11 at this
+    shape in both forms against plain, ``torch.matmul`` f32, the ring
+    all-gather of x alone and its bound. Adds ``mesh_stage_*`` to kernel
+    11's ``record``."""
     from dpu_operator_tpu_torch.parallel import burn
     from dpu_operator_tpu_torch.parallel import collective_matmul as cm
+    from dpu_operator_tpu_torch.parallel import ring_probe as rp
     from dpu_operator_tpu_torch.serving import encode_prompt
     from dpu_operator_tpu_torch.serving.sharded import shard_math as sm
 
@@ -4495,6 +4531,7 @@ def fabric_mesh_lane(torch, card, params, record):
 
     # The main path, counts at 0.
     cm.ag_matmul_cuda.launches = 0
+    cm.ag_matmul_cuda.gathered_launches = 0
     t0 = time.monotonic()
     x, run = x0, []
     for _ in range(FAB_STEPS):
@@ -4502,16 +4539,40 @@ def fabric_mesh_lane(torch, card, params, record):
         run.append((x, tok))
     wall = time.monotonic() - t0
     launches = cm.ag_matmul_cuda.launches
+    gathered = cm.ag_matmul_cuda.gathered_launches
+    form = cm.ag_form(n, FAB_SLOTS // n, torch.float32)
     check(launches == FAB_STEPS * S and len(seen) == launches,
           f"{tag}: {launches} kernel-11 launches ({len(seen)} seen) for "
           f"{FAB_STEPS} steps (want {S} a step)")
+    check(form == "gathered" and gathered == launches,
+          f"{tag}: form {form}, {gathered} of {launches} launches gathered")
     log(f"{tag} main path: {FAB_STEPS} steps of make_mesh_stage_fn, "
-        f"{launches} all-gather matmul launches ({S} a step), {wall:.3f} s "
-        f"wall (first call) [{card}]")
+        f"{launches} all-gather matmul launches ({S} a step), {gathered} "
+        f"of them in the {form} form, {wall:.3f} s wall (first call) "
+        f"[{card}]")
     errs = []
     for i, (xa, w, y) in enumerate(seen):
         errs.append(cm_compare(torch, burn, f"{tag} launch {i}", y,
                                cm.ag_matmul_plain(xa, w, n))[0])
+    # The first launch's inputs in each form, forced: the same bits.
+    xa, w, y = seen[0]
+    want = cm.ag_matmul_plain(xa, w, n)
+    bars = {}
+    for which in cm.AG_FORMS:
+        got = cm.ag_matmul_cuda(xa, w, n, form=which)
+        torch.cuda.synchronize()
+        check(same_bits(torch, got, y),
+              f"{tag}: the {which} form's y differs from the main path's "
+              f"launch 0 bitwise")
+        errs.append(cm_compare(torch, burn, f"{tag} {which} form", got,
+                               want)[0])
+        bars[which] = errs[-1]
+    log(f"{tag}: launch 0's inputs in each form: gathered y == streamed y "
+        f"== the main path's, bit for bit; max |err| against "
+        f"ag_matmul_plain " + ", ".join(f"{k} {v:.3e}"
+                                        for k, v in bars.items())
+        + f" (bar {CM_F32_REL} of max |b|) [{card}]")
+    del got, want
     seen.clear()
     ref = sm.TpShardSlice(params, 0, 1, device="cuda")
     xr, want = x0, []
@@ -4541,7 +4602,11 @@ def fabric_mesh_lane(torch, card, params, record):
                   and tok.tolist() == run[k][1].tolist(),
                   f"{tag} repeat {i} step {k + 1}: differs from the first "
                   f"run's bits")
-    ms = {"kernel": time_ms(torch, lambda: step(x0), n=5, warm=1, batch=1)}
+    seen.clear()
+    # Timed on a step built without the recording wrapper, which keeps
+    # every output it sees alive.
+    timed = sm.make_mesh_stage_fn(mesh, params)
+    ms = {"kernel": time_ms(torch, lambda: timed(x0), n=5, warm=1, batch=1)}
     for label, fn in steps.items():
         ms[label] = time_ms(torch, lambda: fn(x0), n=5, warm=1, batch=1)
     ms["TpShardSlice world 1"] = time_ms(
@@ -4554,14 +4619,24 @@ def fabric_mesh_lane(torch, card, params, record):
         + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
         + f" (CUDA events, host round trips included) [{card}]")
 
-    # Kernel 11 at this shape: a rank's block is 8 rows of the 128-row tile.
+    # Kernel 11 at this shape: a rank's block is 8 rows; the gathered form
+    # multiplies all 64 on one 64-row tile, the streamed form each block on
+    # a 128-row tile.
     xd = torch.as_tensor(x0, device="cuda")
     w = params["w1"][0]
     k_ms = time_ms(torch, lambda: cm.ag_matmul_cuda(xd, w, n), n=10, warm=2,
                    batch=5)
     launch_ms, host_ms, how = device_ms(
-        torch, lambda: cm.ag_matmul_cuda(xd, w, n), "ag_matmul_kernel",
+        torch, lambda: cm.ag_matmul_cuda(xd, w, n), "ag_gathered_kernel",
         calls=10)
+    streamed_ms = time_ms(
+        torch, lambda: cm.ag_matmul_cuda(xd, w, n, form="streamed"), n=5,
+        warm=1, batch=2)
+    streamed_launch_ms, _, streamed_how = device_ms(
+        torch, lambda: cm.ag_matmul_cuda(xd, w, n, form="streamed"),
+        "ag_matmul_kernel", calls=5)
+    gather_ms = time_ms(torch, lambda: rp.ring_all_gather_cuda(xd, n),
+                        n=10, warm=2, batch=5)
     plain_ms = time_ms(torch, lambda: cm.ag_matmul_plain(xd, w, n), n=5,
                        warm=1, batch=2)
     library_ms = time_ms(torch, lambda: torch.matmul(xd, w), n=10, warm=2,
@@ -4573,20 +4648,28 @@ def fabric_mesh_lane(torch, card, params, record):
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     log(f"{tag} ag_matmul [{FAB_SLOTS}, {d}] @ [{d}, {h}] n={n} (blocks of "
-        f"{FAB_SLOTS // n} rows): kernel {k_ms:.4f} ms ({launch_ms:.4f} ms "
-        f"a launch on the card, {how}; {host_ms:.4f} ms of host time to "
-        f"queue a call), plain {plain_ms:.4f} ms, torch.matmul f32 "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops} "
-        f"flop x 3 split passes, {nbytes} B; "
+        f"{FAB_SLOTS // n} rows): {form} form (the path's) {k_ms:.4f} ms "
+        f"({launch_ms:.4f} ms a launch on the card, {how}; {host_ms:.4f} ms "
+        f"of host time to queue a call), streamed form {streamed_ms:.4f} ms "
+        f"({streamed_launch_ms:.4f} ms a launch, {streamed_how}), the ring "
+        f"all-gather of x alone (kernel 7) {gather_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.matmul f32 {library_ms:.4f} ms "
+        f"({k_ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{flops} flop x 3 split passes, {nbytes} B; "
         f"{max(flops / FP32_FLOP_PER_S * 1e3, t_bytes):.4f} ms on the f32 "
         f"FMA pipes) [{card}]")
-    record.update(mesh_stage_launches=launches,
+    record.update(mesh_stage_launches=launches, mesh_stage_form=form,
                   mesh_stage_max_abs_err=max(errs), mesh_stage_ms=k_ms,
+                  mesh_stage_launch_ms=launch_ms,
+                  mesh_stage_streamed_ms=streamed_ms,
+                  mesh_stage_streamed_launch_ms=streamed_launch_ms,
+                  mesh_stage_gather_ms=gather_ms,
                   mesh_stage_plain_ms=plain_ms, mesh_stage_bound_ms=bound_ms,
                   mesh_stage_bound_by=bound_by,
                   mesh_stage_library_ms=library_ms,
-                  mesh_stage_step_ms=ms["kernel"])
-    del xd, steps, step, ref
+                  mesh_stage_step_ms=ms["kernel"],
+                  mesh_stage_step_overlap_false_ms=ms["overlap=False"])
+    del xd, steps, step, timed, ref
 
 
 def fabric_watch(shards):

@@ -19,6 +19,12 @@
 // overwriting the slot meanwhile. The rank's CTAs deal the output tiles of
 // each block round robin. A ring of one multiplies its own block.
 //
+// The all-gather matmul has a second form for f32 x whose rows all fit
+// one 64-row tile, `ag_gathered_kernel`: the gather first, then one
+// product a tile over the gathered rows (its section, further down). The
+// wrapper picks the form from the shapes alone
+// (`parallel/collective_matmul.py` `ag_form`); both give the same bits.
+//
 // Matmul reduce-scatter. x [n * chunk, k] is cut by columns and w [k, f]
 // by rows, k / n each; rank j ends with y's rows j * chunk .. = the sum
 // over ranks r of x[j * chunk .., r * k / n ..] @ w[r * k / n .., :]:
@@ -303,6 +309,85 @@ int launch_ag(AgParams& p, cudaStream_t stream) {
       stream);
 }
 
+// -- all-gather matmul, gathered form -----------------------------------------
+//
+// For a gathered x that fits one tile's rows (the mesh-stage serving form:
+// x [64, 4096] on 8 ranks, blocks of 8 rows), the streamed form above
+// spends its ring steps on tiles that are mostly zero fill, and every
+// step reads the rank's whole column panel of w again. This form gathers
+// first and multiplies once: each rank completes its gathered copy of x
+// with `run_gather_relay` (the ring all-gather's relay from the output,
+// no slots, each row written once) into its own [n * chunk, k] of
+// scratch, then each CTA of the rank computes its output tiles of the
+// rank's columns over the whole gathered M on a 64-row tile, so each
+// column panel of w streams through shared memory once a call. K stays
+// whole in one CTA: every output element takes the streamed form's
+// passes, slices and additions in the same order, so y is the same bits.
+// A ring of one reads x in place: it is the gathered copy.
+//
+// The tile: 64 x 128 (two warp rows of 32, 112 CTAs at the mesh shape),
+// three cp.async stages 64 deep in K, a stage's four slices unrolled: the
+// fastest of the variants timed on an H100 (`scripts/
+// ag_gathered_variants.py`; 64 x 64 tiles, 32-deep stages and one slice
+// at a time were each slower, `PERF.md` §6). With one CTA an SM and one
+// tile each, the products are bound by how fast a warp issues its split
+// and its mma.sync, not by w's bytes.
+
+constexpr int kGatheredRows = 64;
+constexpr int kGatheredWidth = 128;
+constexpr int kGatheredStages = 3;
+constexpr int kGatheredDepth = 64;
+using GatheredSmem = tile::SmemTf32<kGatheredWidth, kGatheredRows,
+                                    kGatheredStages, kGatheredDepth>;
+using GatheredTiles = TileMap<kGatheredRows, kGatheredWidth>;
+
+struct AgGatheredParams {
+  Ring ring;
+  const float* x;  // [n * chunk, k]: rank r's shard at rows r * chunk
+  const float* w;  // [k, f]: rank r's columns r * f / n ..
+  float* y;        // [n * chunk, f]: rank r's columns r * f / n ..
+  char* gathered;  // [n][n * chunk, k]: rank r's gathered copy of x
+  int chunk, k, f;
+};
+
+__global__ void __launch_bounds__(ring::kThreads)
+    ag_gathered_kernel(const __grid_constant__ AgGatheredParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring& g = p.ring;
+  const int rank = blockIdx.x / g.ctas;
+  const int cta = blockIdx.x % g.ctas;
+  const int rows = g.n * p.chunk, fn = p.f / g.n;
+  const long long bb = static_cast<long long>(p.chunk) * p.k * sizeof(float);
+  const float* a = p.x;
+  if (g.n > 1) {
+    ring::Rank r = ring::make_rank(g, rank, cta, 1, g.right[rank],
+                                   g.left[rank], g.flags, p.gathered, bb);
+    r.my_slots = r.right_slots = nullptr;  // the relay has no slots
+    char* mine = p.gathered + rank * g.n * bb;
+    ring::run_gather_relay(r, reinterpret_cast<const char*>(p.x) + rank * bb,
+                           mine, p.gathered + g.right[rank] * g.n * bb, bb);
+    // The relay's last wait leaves every block from the left landed. The
+    // rank's own block is the stores of all its CTAs at step 0: the
+    // rank's last signal to the right (tag + n - 1, raised once every CTA
+    // of the rank has arrived after its last step) covers them.
+    ring::wait_flag(&r.right->recv, r.epoch * ring::kTagSteps + g.n - 1);
+    a = reinterpret_cast<const float*>(mine);
+  }
+  GatheredSmem& sm = *reinterpret_cast<GatheredSmem*>(smem);
+  const float* b = p.w + static_cast<long long>(rank) * fn;
+  const tile::StoreF32 out{p.y + static_cast<long long>(rank) * fn, p.f};
+  GatheredTiles{rows, fn, cta, g.ctas}.each_tile([&](int r0, int c0) {
+    tile::tile_product_tf32x3(sm, a, p.k, b, p.f, rows, fn, p.k, r0, c0, out);
+  });
+}
+
+int launch_ag_gathered(AgGatheredParams& p, cudaStream_t stream) {
+  return ring::launch_ring(
+      ag_gathered_kernel, p, p.ring.ctas, p.ring.n,
+      GatheredTiles::count(p.ring.n * p.chunk, p.f / p.ring.n),
+      sizeof(GatheredSmem), stream);
+}
+
 // -- matmul reduce-scatter -----------------------------------------------------
 
 struct RsParams {
@@ -416,6 +501,32 @@ extern "C" int ag_matmul_launch(const void* x, const void* w, void* y,
   p.f = f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype ? launch_ag<bf16>(p, st) : launch_ag<float>(p, st);
+}
+
+// The same function for f32 in the gathered form: the all-gather first,
+// then one product a tile over all n * chunk rows. gathered is scratch of
+// n * n * chunk * k floats, rank r's copy of x at r * n * chunk * k; a
+// ring of one reads x in place and may pass none. 1 <= n <= 8.
+extern "C" int ag_gathered_launch(const void* x, const void* w, void* y,
+                                  void* gathered, void* flags,
+                                  const long long* right,
+                                  const long long* left, int n, int chunk,
+                                  int k, int f, unsigned long long epoch,
+                                  void* stream) {
+  AgGatheredParams p;
+  if (!ring::make_ring(p.ring, flags, right, left, n, 1, epoch) ||
+      chunk < 1 || k < 1 || f < n || f % n ||
+      (n > 1 && gathered == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.x = static_cast<const float*>(x);
+  p.w = static_cast<const float*>(w);
+  p.y = static_cast<float*>(y);
+  p.gathered = static_cast<char*>(gathered);
+  p.chunk = chunk;
+  p.k = k;
+  p.f = f;
+  return launch_ag_gathered(p, static_cast<cudaStream_t>(stream));
 }
 
 // y [n * chunk, f], rank j's rows j * chunk .. = the sum over ranks r of

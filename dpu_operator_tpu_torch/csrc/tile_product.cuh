@@ -132,7 +132,11 @@ struct StoreF32 {
 //
 // Layout: a CTA tile of 128 x BN, eight warps of 32 columns each (64 x
 // 32 at BN = 128); K in stages of kTfBK = 32, landing in shared memory
-// as f32 by cp.async, kTfStages deep (one barrier a stage). A warp
+// as f32 by cp.async, kTfStages deep (one barrier a stage). A caller may
+// name fewer rows, other stages and deeper ones: at 64 x 128 (the
+// all-gather matmul's gathered form, whose whole gathered x is 64 rows)
+// the warps are 32 x 32, two m16 tiles each, no tensor-core work is spent
+// on rows past M, and a stage's slices are unrolled. A warp
 // splits each value as it loads it into a fragment: the planes of a
 // split stage would double every fragment load and add a pass between
 // two barriers, and shared memory, not the arithmetic, then sets the
@@ -201,11 +205,16 @@ constexpr int kTfBM = 128;
 constexpr int kTfBK = 32;     // K depth of one stage
 constexpr int kTfStages = 3;  // stages in flight
 
-// A stage as cp.async lands it, f32, 16-byte units swizzled (note above).
-template <int BN>
+// kStages stages of a BM x BN tile, BK of K each, as cp.async lands
+// them, f32, 16-byte units swizzled (note above). The tile's rows, its
+// stages and their depth are the caller's: 128 rows, three stages of 32,
+// unless it names others (the all-gather matmul's gathered form).
+template <int BN, int BM = kTfBM, int kStages = kTfStages, int BK = kTfBK>
 struct SmemTf32 {
-  float a[kTfStages][kTfBM][kTfBK];
-  float b[kTfStages][kTfBK][BN];
+  static_assert(BK % 16 == 0 && BK <= 64, "whole 16-deep slices, A's "
+                "swizzle within a row of at most 16 units");
+  float a[kStages][BM][BK];
+  float b[kStages][BK][BN];
 };
 
 // Where A's unit kq of row r and B's unit nq of row k lie in their rows.
@@ -218,20 +227,19 @@ __device__ __forceinline__ int b_unit(int k, int nq) {
 
 // Every thread: its 16-byte units of K stage k0 into stage s,
 // zero-filled outside M, N and K.
-template <int BN>
-__device__ __forceinline__ void load_stage_tf32(SmemTf32<BN>& sm, int s,
-                                                const float* A, long long lda,
-                                                const float* B, long long ldb,
-                                                int M, int N, int K, int row0,
-                                                int col0, int k0) {
-  for (int e = threadIdx.x; e < kTfBM * kTfBK / 4; e += kThreads) {
-    const int r = e / (kTfBK / 4), kq = e % (kTfBK / 4);
+template <int BN, int BM, int kStages, int BK>
+__device__ __forceinline__ void load_stage_tf32(
+    SmemTf32<BN, BM, kStages, BK>& sm, int s, const float* A, long long lda,
+    const float* B, long long ldb, int M, int N, int K, int row0, int col0,
+    int k0) {
+  for (int e = threadIdx.x; e < BM * BK / 4; e += kThreads) {
+    const int r = e / (BK / 4), kq = e % (BK / 4);
     const bool ok = row0 + r < M && k0 + 4 * kq < K;
     cp_async16_zfill(
         &sm.a[s][r][4 * a_unit(r, kq)],
         ok ? A + static_cast<long long>(row0 + r) * lda + k0 + 4 * kq : A, ok);
   }
-  for (int e = threadIdx.x; e < kTfBK * BN / 4; e += kThreads) {
+  for (int e = threadIdx.x; e < BK * BN / 4; e += kThreads) {
     const int k = e / (BN / 4), nq = e % (BN / 4);
     const bool ok = k0 + k < K && col0 + 4 * nq < N;
     cp_async16_zfill(
@@ -240,17 +248,20 @@ __device__ __forceinline__ void load_stage_tf32(SmemTf32<BN>& sm, int s,
   }
 }
 
-// out(C[row0:row0+kTfBM, col0:col0+BN] = A[row0.., :K] @ B[:K, col0..]) at
+// out(C[row0:row0+BM, col0:col0+BN] = A[row0.., :K] @ B[:K, col0..]) at
 // f32 accuracy for row-major f32 A [M, K] and B [K, N] with row strides
 // lda and ldb; the epilogue is called for the groups of 4 inside C. All
-// threads of the CTA call it.
-template <int BN, class Epilogue>
-__device__ void tile_product_tf32x3(SmemTf32<BN>& sm, const float* A,
-                                    long long lda, const float* B,
-                                    long long ldb, int M, int N, int K,
-                                    int row0, int col0, const Epilogue& out) {
+// threads of the CTA call it. An element's arithmetic does not depend on
+// BM, BN, the stages or where the element lies in its tile: the same
+// passes, slices and additions in the same order.
+template <int BN, int BM, int kStages, int BK, class Epilogue>
+__device__ void tile_product_tf32x3(SmemTf32<BN, BM, kStages, BK>& sm,
+                                    const float* A, long long lda,
+                                    const float* B, long long ldb, int M,
+                                    int N, int K, int row0, int col0,
+                                    const Epilogue& out) {
   constexpr int kWarpsN = BN / 32;
-  constexpr int WM = kTfBM / (kWarps / kWarpsN);
+  constexpr int WM = BM / (kWarps / kWarpsN);
   constexpr int MI = WM / 16;  // m16 tiles of a warp; four n8 tiles
   static_assert(kWarps % kWarpsN == 0 && WM % 16 == 0, "warp layout");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -265,26 +276,29 @@ __device__ void tile_product_tf32x3(SmemTf32<BN>& sm, const float* A,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-  const int nk = (K + kTfBK - 1) / kTfBK;
+  const int nk = (K + BK - 1) / BK;
 #pragma unroll
-  for (int s = 0; s < kTfStages - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < nk) {
-      load_stage_tf32(sm, s, A, lda, B, ldb, M, N, K, row0, col0, s * kTfBK);
+      load_stage_tf32(sm, s, A, lda, B, ldb, M, N, K, row0, col0, s * BK);
     }
     cp_async_commit();
   }
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kTfStages - 2>();  // stage kt has landed
+    cp_async_wait<kStages - 2>();  // stage kt has landed
     __syncthreads();  // ... for every thread; stage kt - 1 is read by all
-    const int next = kt + kTfStages - 1;
+    const int next = kt + kStages - 1;
     if (next < nk) {
-      load_stage_tf32(sm, next % kTfStages, A, lda, B, ldb, M, N, K, row0,
-                      col0, next * kTfBK);
+      load_stage_tf32(sm, next % kStages, A, lda, B, ldb, M, N, K, row0,
+                      col0, next * BK);
     }
     cp_async_commit();  // possibly empty: keeps the group count right
-    const int s = kt % kTfStages;
-#pragma unroll 1  // one slice's B fragments live at a time
-    for (int d = 0; d < kTfBK; d += 16) {
+    const int s = kt % kStages;
+    // The 128-row tile keeps one slice's B fragments live at a time (its
+    // running sums take 64 registers a thread); a smaller tile unrolls
+    // the stage's slices, more independent work between barriers.
+#pragma unroll(BM == kTfBM ? 1 : BK / 16)
+    for (int d = 0; d < BK; d += 16) {
       // B: rows d + 4t + i, columns wc + 8j + g, split; [j][i].
       uint32_t bh[4][4], bl[4][4];
 #pragma unroll

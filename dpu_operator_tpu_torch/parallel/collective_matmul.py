@@ -38,6 +38,18 @@ Each kernel has its plain versions and a wrapper:
     Given tensors on the CPU they run the plain version; on a CUDA tensor
     they launch the kernel or raise. ``.launches`` counts their launches.
 
+The all-gather matmul has two forms on the card, picked from the shapes
+alone by ``ag_form``: the **streamed** form above, whose ring steps each
+multiply one block as it passes, and, for f32 x whose rows all fit
+``GATHERED_ROWS``, the **gathered** form: the all-gather first (the
+ring all-gather's relay into each rank's copy of x), then one product
+a tile over all the gathered rows on a 64-row tile, so each rank reads
+its columns of w once a call, not once a ring step (the mesh-stage
+serving form's 8-row blocks). Both give the same bits: an element's
+split passes, slices and additions are the same.
+``ag_matmul_gathered_plain`` writes the gathered form out in plain
+torch; ``ag_matmul_plain`` stays the function's plain version.
+
 ``make_allgather_matmul`` and ``make_matmul_reduce_scatter`` are the
 entry points, on whole tensors. **The ranks of a ring share one card**,
 so the transfers the products hide are copies within its memory, not a
@@ -53,7 +65,7 @@ import torch
 
 from .ring_attention import split_matmul
 from .ring_probe import (_kernel_input, _launch, _on, _ring_setup,
-                         ring_reduce_scatter_plain)
+                         ring_all_gather_plain, ring_reduce_scatter_plain)
 from .tile_mma import (K_AXIS, PART_AXIS, TILE_AXIS, WG_BK, WG_BM, WG_PANEL,
                        TmaView)
 
@@ -63,6 +75,14 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K depth of the f32 kernels' fresh sums: each 16-deep slice's split
 #: passes are added to the running f32 sum once (``tile_product_tf32x3``).
 FOLD_K = 16
+
+#: Rows of the all-gather matmul's gathered form's tile
+#: (``kGatheredRows`` in ``csrc/collective_matmul.cu``): f32 x of at most
+#: this many rows takes that form.
+GATHERED_ROWS = 64
+
+#: The all-gather matmul's two forms on the card.
+AG_FORMS = ("streamed", "gathered")
 
 
 def tma_views(op: str, n: int, chunk: int, k: int, f: int,
@@ -185,6 +205,32 @@ def ag_matmul_plain(x: torch.Tensor, w: torch.Tensor, n: int
     return out
 
 
+def ag_form(n: int, chunk: int, dtype: torch.dtype) -> str:
+    """The all-gather matmul kernel's form for a ring of n ranks with
+    shards of ``chunk`` rows of ``dtype``: "gathered" where x is f32 and
+    its n * chunk rows fit the gathered form's tile (``GATHERED_ROWS``),
+    else "streamed". The shapes alone decide."""
+    if dtype == torch.float32 and n * chunk <= GATHERED_ROWS:
+        return "gathered"
+    return "streamed"
+
+
+def ag_matmul_gathered_plain(x: torch.Tensor, w: torch.Tensor, n: int
+                             ) -> torch.Tensor:
+    """The gathered form written out: each rank's copy of x built with
+    the relay's placement (``ring_all_gather_plain``), then that copy
+    times the rank's columns of w with the f32 kernels' split arithmetic
+    (``tf32x3_product``), rounded once to x's type; [B, F], rank r's
+    columns ``r * F/n ..``."""
+    _, fn = _ag_split(x, w, n)
+    gathered = ring_all_gather_plain(x, n)
+    out = x.new_empty((x.shape[0], w.shape[1]))
+    for r in range(n):
+        cols = slice(r * fn, (r + 1) * fn)
+        out[:, cols] = tf32x3_product(gathered[r], w[:, cols]).to(x.dtype)
+    return out
+
+
 def ag_matmul_naive(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The gather first, then the product: one f32 product of the
     gathered x [B, K] with w [K, F], one cast to x's type (every rank's
@@ -205,6 +251,10 @@ def _library():
                            + [ids, ids, ids] + [ctypes.c_int] * 5
                            + [ctypes.c_ulonglong, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        lib.ag_gathered_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ids, ids] + [ctypes.c_int] * 4
+            + [ctypes.c_ulonglong, ctypes.c_void_p])
+        lib.ag_gathered_launch.restype = ctypes.c_int
     return lib
 
 
@@ -231,31 +281,57 @@ def _kernel_operands(x: torch.Tensor, w: torch.Tensor, n: int, what: str,
     return x, w
 
 
-def ag_matmul_cuda(x: torch.Tensor, w: torch.Tensor, n: int) -> torch.Tensor:
+def ag_matmul_cuda(x: torch.Tensor, w: torch.Tensor, n: int, *,
+                   form: Optional[str] = None) -> torch.Tensor:
     """``ag_matmul_plain``'s function in one launch of the all-gather
-    matmul kernel, all n ranks on x's card; 1 <= n <= 8. Raises on
-    anything else and where the card refuses the launch."""
+    matmul kernel, all n ranks on x's card; 1 <= n <= 8. The kernel's
+    form is ``ag_form``'s pick from the shapes; ``form`` forces one of
+    ``AG_FORMS``, only to hold the two against each other (no path sets
+    it; "gathered" takes f32 only). Raises on anything else and where the
+    card refuses the launch: neither form stands in for the other."""
+    if form is not None and form not in AG_FORMS:
+        raise ValueError(f"ag_matmul_cuda: form is one of {AG_FORMS}, got "
+                         f"{form!r}")
+    if form == "gathered" and x.dtype != torch.float32:
+        raise ValueError(f"ag_matmul_cuda: the gathered form takes f32, got "
+                         f"{x.dtype}")
     if x.device.type == "cpu":
         return ag_matmul_plain(x, w, n)
     chunk, fn = _ag_split(x, w, n)
     k, f = x.shape[1], w.shape[1]
     x, w = _kernel_operands(x, w, n, "ag_matmul_cuda",
                             {"x": k, "a rank's columns of w and y": fn})
+    form = form or ag_form(n, chunk, x.dtype)
     y = torch.empty((x.shape[0], f), dtype=x.dtype, device=x.device)
-    slots = torch.empty(2 * n * chunk * k, dtype=x.dtype, device=x.device)
-    views = _views_arg(x, "ag", n, chunk, k, f)
     lib = _library()
-    _launch("ag_matmul", x, n,
-            lambda right, left, flags, epoch, stream: lib.ag_matmul_launch(
-                x.data_ptr(), w.data_ptr(), y.data_ptr(), slots.data_ptr(),
-                flags, right, left, views, n, chunk, k, f,
-                KERNEL_DTYPES[x.dtype], epoch, stream))
+    if form == "gathered":
+        gathered = (torch.empty(n * x.numel(), dtype=x.dtype,
+                                device=x.device) if n > 1 else None)
+        _launch("ag_gathered", x, n,
+                lambda right, left, flags, epoch, stream:
+                lib.ag_gathered_launch(
+                    x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                    None if gathered is None else gathered.data_ptr(), flags,
+                    right, left, n, chunk, k, f, epoch, stream))
+        ag_matmul_cuda.gathered_launches += 1
+    else:
+        slots = torch.empty(2 * n * chunk * k, dtype=x.dtype,
+                            device=x.device)
+        views = _views_arg(x, "ag", n, chunk, k, f)
+        _launch("ag_matmul", x, n,
+                lambda right, left, flags, epoch, stream:
+                lib.ag_matmul_launch(
+                    x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                    slots.data_ptr(), flags, right, left, views, n, chunk, k,
+                    f, KERNEL_DTYPES[x.dtype], epoch, stream))
     ag_matmul_cuda.launches += 1
     return y
 
 
-#: Kernel launches so far (CPU calls of the wrapper do not count).
+#: Kernel launches so far, both forms, and of the gathered form alone
+#: (CPU calls of the wrapper do not count).
 ag_matmul_cuda.launches = 0
+ag_matmul_cuda.gathered_launches = 0
 
 
 # -- matmul reduce-scatter ------------------------------------------------------

@@ -9,9 +9,11 @@ Each TREE is a checkout of the repository whose kernels have been built
 ``cuda_build.build``). Every library is dumped with ``cuobjdump -sass``,
 split by kernel, and each kernel's SASS is hashed, with the
 per-translation-unit tag of the anonymous namespace taken out of names
-and bodies and every run of blanks collapsed to one (the dump pads its
-columns by what else the library holds, so a kernel added beside
-another shifts the other's padding, not its instructions). Prints one
+and bodies, every run of blanks collapsed to one and blank lines
+dropped (the dump pads its columns by what else the library holds, and
+ends a kernel that another follows with a blank line, so a kernel added
+beside another shifts the other's padding, not its instructions).
+Prints one
 line a kernel: ``same``, ``DIFF``, or ``only-A`` / ``only-B``. A kernel
 whose SASS is the same in both trees runs the same instructions, so a
 time that moves between the two is noise. Needs
@@ -44,7 +46,8 @@ def kernels(tree: str) -> dict:
             name, body = part.split("\n", 1)
             body = "\n".join(" ".join(line.split())
                              for line in body.splitlines()
-                             if not line.strip().startswith("....")
+                             if line.strip()
+                             and not line.strip().startswith("....")
                              and "Fatbin" not in line
                              and "code for sm" not in line)
             out[(src, name.strip())] = hashlib.sha256(

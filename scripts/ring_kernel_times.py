@@ -26,7 +26,11 @@ traffic alone (the same [4096, 4096] output and 8 ranks with a
 contraction of 8 a rank, so that the products are negligible and the
 time is the partials' writes, copies and folds), and of the one-way ring
 all-gather of the all-gather matmul's own x (bf16, 4 MiB shards; the
-all-gather's own protocol, not the matmul's relay). Beside the burn
+all-gather's own protocol, not the matmul's relay); and of the
+all-gather matmul at the mesh-stage serving form's shape (x [64, 4096]
+@ w [4096, 14336] f32, 8 ranks: blocks of 8 rows), by events and a
+launch by the profiler, in whichever form the tree's wrapper picks
+(``ag_matmul_mesh_form``). Beside the burn
 chain: a launch's device time (``torch.profiler``), the host's time to
 queue a call, and the time of its function composed of 8 x
 (``torch.matmul`` + ``torch.tanh``), a yardstick of 16 library launches
@@ -216,6 +220,27 @@ def main() -> int:
                     torch, lambda: rp.ring_all_gather_cuda(x, n, False),
                     n=10, warm=2)
             del x, w1, w2, h, xs, ws
+            torch.cuda.empty_cache()
+        if hasattr(c, "FAB_MODEL"):
+            d, f = c.FAB_MODEL["d"], c.FAB_MODEL["h"]
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(40)
+            x = torch.randn((c.FAB_SLOTS, d), generator=gen, device="cuda")
+            w = torch.randn((d, f), generator=gen, device="cuda") / d ** 0.5
+            n = c.FAB_WORLD
+            out["ag_matmul_mesh_form"] = (
+                cm.ag_form(n, c.FAB_SLOTS // n, torch.float32)
+                if hasattr(cm, "ag_form") else "streamed")
+            out["ag_matmul_mesh_ms"] = c.time_ms(
+                torch, lambda: cm.ag_matmul_cuda(x, w, n), n=10, warm=2,
+                batch=5)
+            out["ag_matmul_mesh_launch_ms"], _, out[
+                "ag_matmul_mesh_launch_read"] = smoke.device_ms(
+                    torch, lambda: cm.ag_matmul_cuda(x, w, n), "ag_",
+                    calls=10)
+            out["ag_matmul_mesh_torch_matmul_ms"] = c.time_ms(
+                torch, lambda: torch.matmul(x, w), n=10, warm=2, batch=5)
+            del x, w
             torch.cuda.empty_cache()
     from dpu_operator_tpu_torch.parallel import paged_attn as pa
     for pool in ("int8", "fp32"):

@@ -29,6 +29,9 @@ Bars:
     TF32 pass must miss.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -358,6 +361,108 @@ def test_tf32x3_product_zero_fills_a_k_tail(k, single):
     assert torch.equal(got, cm.tf32x3_product(a_pad, b_pad, single))
 
 
+# -- the all-gather matmul's gathered form --------------------------------------
+#
+# For f32 x whose rows all fit one 64-row tile the kernel gathers first and
+# multiplies once (``ag_form``); ``ag_matmul_gathered_plain`` writes that
+# form out: the relay's placement, then ``tf32x3_product`` a rank.
+
+
+@pytest.mark.parametrize("n,chunk,dtype,want", [
+    (8, 8, torch.float32, "gathered"),     # the mesh stage: 64 rows
+    (1, 64, torch.float32, "gathered"),
+    (8, 512, torch.float32, "streamed"),   # the tensor-parallel MLP
+    (8, 9, torch.float32, "streamed"),     # 72 rows
+    (8, 8, torch.bfloat16, "streamed"),
+])
+def test_ag_form_is_chosen_by_shape(n, chunk, dtype, want):
+    assert cm.ag_form(n, chunk, dtype) == want
+
+
+def _small_block_inputs(n, chunk, seed, k=256):
+    """x [n * chunk, k] ~ N(0, 1) and w [k, 16n] ~ N(0, 1 / k): the
+    mesh stage's small blocks at a narrow width."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n * chunk, k).astype(np.float32),
+            (rng.randn(k, 16 * n) / np.sqrt(k)).astype(np.float32))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8])
+def test_gathered_plain_matches_reference_xla(chunk, overlap):
+    """At mesh (1, 1, 8) and blocks of 1-8 rows, the gathered form's
+    arithmetic against the reference's XLA all-gather matmul, overlapped
+    and naive: this file's f32 bar widened by the split's own error, as
+    ``test_tf32x3_product_matches_reference_xla`` states it."""
+    n = 8
+    x, w = _small_block_inputs(n, chunk, seed=120 + chunk)
+    got = cm.ag_matmul_gathered_plain(torch.from_numpy(x),
+                                      torch.from_numpy(w), n)
+    want = _ref_ag((1, 1, n), x, w, overlap)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    split = SPLIT_REL * (np.abs(x.astype(np.float64))
+                         @ np.abs(w.astype(np.float64)))
+    excess = np.abs(got.numpy() - want) - (RTOL * np.abs(want) + ATOL + split)
+    assert excess.max() <= 0, excess.max()
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8])
+def test_gathered_plain_holds_the_f32_bar_against_ag_matmul_plain(chunk):
+    """At the mesh stage's contraction (d 4096) and 8 ranks: within
+    ``chip_smoke.CM_F32_REL`` of max |C| of ``ag_matmul_plain``, the bar
+    the card holds every launch of either form to."""
+    n, k = 8, chip_smoke.FAB_MODEL["d"]
+    x, w = (torch.from_numpy(a) for a in _small_block_inputs(
+        n, chunk, seed=130 + chunk, k=k))
+    got = cm.ag_matmul_gathered_plain(x, w, n)
+    want = cm.ag_matmul_plain(x, w, n)
+    top = float(want.abs().max())
+    assert float((got - want).abs().max()) <= chip_smoke.CM_F32_REL * top
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+def test_gathered_plain_is_the_split_product_of_the_whole_x(n):
+    """Every rank's gathered copy is x itself, so each rank's columns are
+    ``tf32x3_product`` of all of x with them, bit for bit."""
+    x, w = (torch.from_numpy(a) for a in _small_block_inputs(
+        n, 4, seed=140 + n, k=48))
+    fn = w.shape[1] // n
+    got = cm.ag_matmul_gathered_plain(x, w, n)
+    for r in range(n):
+        cols = slice(r * fn, (r + 1) * fn)
+        assert torch.equal(got[:, cols], cm.tf32x3_product(x, w[:, cols]))
+
+
+@pytest.mark.parametrize("form,dtype,match", [
+    ("tiled", torch.float32, "form is one of"),
+    ("gathered", torch.bfloat16, "gathered form takes f32"),
+])
+def test_ag_matmul_cuda_refuses_a_form_it_has_not(form, dtype, match):
+    x, w = (torch.from_numpy(a).to(dtype) for a in _ag_inputs(4, seed=83))
+    with pytest.raises(ValueError, match=match):
+        cm.ag_matmul_cuda(x, w, 4, form=form)
+
+
+@pytest.mark.parametrize("form", cm.AG_FORMS)
+def test_ag_matmul_cuda_on_cpu_runs_the_plain_version_in_either_form(form):
+    x, w = (torch.from_numpy(a) for a in _small_block_inputs(8, 8, seed=84))
+    before = (cm.ag_matmul_cuda.launches, cm.ag_matmul_cuda.gathered_launches)
+    assert torch.equal(cm.ag_matmul_cuda(x, w, 8, form=form),
+                       cm.ag_matmul_plain(x, w, 8))
+    assert before == (cm.ag_matmul_cuda.launches,
+                      cm.ag_matmul_cuda.gathered_launches)
+
+
+def test_no_port_module_forces_an_ag_form():
+    """The form is the shapes' alone: no module of the port passes
+    ``form=`` (only ``chip_smoke.py`` and the timing script hold the two
+    forms against each other)."""
+    pkg = pathlib.Path(REPO, "dpu_operator_tpu_torch")
+    callers = [str(p) for p in sorted(pkg.rglob("*.py"))
+               if re.search(r"\bform\s*=\s*[\"']", p.read_text())]
+    assert callers == []
+
+
 # -- errors, devices, kernel selection ------------------------------------------
 
 
@@ -428,7 +533,9 @@ def test_plain_versions_match_pallas_kernels_in_interpret_mode(tmp_path):
     """The reference's two Pallas kernels, executed in interpret mode at
     the shapes of its own test on the widest ring, (1, 1, 8): the
     all-gather matmul, the matmul reduce-scatter, and the reduce-scatter
-    in bf16. (Its other meshes, (2, 1, 4) and (1, 4, 2), would double the
+    in bf16; and the all-gather matmul at the mesh stage's small blocks
+    (x [64, 32], 8 rows a rank) against the plain version and, within
+    the split's bar, the gathered form. (Its other meshes, (2, 1, 4) and (1, 4, 2), would double the
     subprocess's ~25 s; the in-process tests above cover them.)"""
     meshes = ((1, 1, 8),)
     rng = np.random.RandomState(90)
@@ -442,6 +549,10 @@ def test_plain_versions_match_pallas_kernels_in_interpret_mode(tmp_path):
         inputs[f"w2_{tag}"] = rng.randn(8 * n, 16).astype(np.float32)
     inputs["xb"] = rng.randn(16, 64).astype(np.float32)
     inputs["wb"] = rng.randn(64, 16).astype(np.float32)
+    # The mesh stage's small blocks: 8 rows a rank, all of x one 64-row
+    # tile, the gathered form's shapes.
+    inputs["xs"] = rng.randn(64, 32).astype(np.float32)
+    inputs["ws"] = rng.randn(32, 64).astype(np.float32)
     src = tmp_path / "in.npz"
     dst = tmp_path / "out.npz"
     np.savez(src, **inputs)
@@ -477,6 +588,10 @@ def test_plain_versions_match_pallas_kernels_in_interpret_mode(tmp_path):
         "        put(mesh, a['xb'], P(None, 'tp'), jnp.bfloat16),\n"
         "        put(mesh, a['wb'], P('tp', None), jnp.bfloat16)\n"
         "        ).astype(jnp.float32))\n"
+        "    fn = make_allgather_matmul(mesh, 'tp', use_pallas=True)\n"
+        "    out['ag_small'] = np.asarray(fn(\n"
+        "        put(mesh, a['xs'], P('tp', None)),\n"
+        "        put(mesh, a['ws'], P(None, 'tp'))))\n"
         "np.savez(%r, **out)\n" % (REPO, str(src), meshes, str(dst)))
     assert r.returncode == 0, r.stdout + r.stderr
     got = np.load(dst)
@@ -497,6 +612,17 @@ def test_plain_versions_match_pallas_kernels_in_interpret_mode(tmp_path):
     assert burn.bf16_ulps(rsb, want) <= 1.0
     np.testing.assert_allclose(rsb.float().numpy(), got["rs_bf16"],
                                rtol=1e-2, atol=1e-2)
+    xs, ws = inputs["xs"], inputs["ws"]
+    small = cm.ag_matmul_plain(torch.from_numpy(xs), torch.from_numpy(ws), 8)
+    np.testing.assert_allclose(small.numpy(), got["ag_small"], rtol=RTOL,
+                               atol=ATOL)
+    gathered = cm.ag_matmul_gathered_plain(torch.from_numpy(xs),
+                                           torch.from_numpy(ws), 8)
+    split = SPLIT_REL * (np.abs(xs.astype(np.float64))
+                         @ np.abs(ws.astype(np.float64)))
+    excess = np.abs(gathered.numpy() - got["ag_small"]) - (
+        RTOL * np.abs(got["ag_small"]) + ATOL + split)
+    assert excess.max() <= 0, excess.max()
 
 
 # -- the bf16 kernels' tensor-map views -----------------------------------------

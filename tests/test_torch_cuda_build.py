@@ -276,10 +276,12 @@ def test_wgmma_build_check_reads_the_chain_kernel(spill):
 
 
 def test_wgmma_build_check_reads_both_types_of_the_collective_matmuls():
-    """``chip_smoke.check_wgmma_build`` finds the collective matmuls' four
-    kernels (bf16 on wgmma, f32 on the split-TF32 form) in
-    ``collective_matmul``'s ptxas report, fails on a spill in an f32 one,
-    and on a missing instance."""
+    """``chip_smoke.check_wgmma_build`` finds the collective matmuls' five
+    kernels (bf16 on wgmma, f32 on the split-TF32 form, the all-gather
+    matmul's gathered form) in ``collective_matmul``'s ptxas report,
+    fails on a spill in an f32 one or the gathered one, and on a missing
+    instance (a report without the gathered form, as the parent tree's
+    build would give, too)."""
     import chip_smoke
 
     def entry(kernel, dtype, spill=0):
@@ -287,6 +289,9 @@ def test_wgmma_build_check_reads_both_types_of_the_collective_matmuls():
         params = "AgParams" if kernel == "ag_matmul" else "RsParams"
         name = (f"_ZN12_GLOBAL__N_1{len(kernel) + 7}{kernel}_kernelI{arg}"
                 f"EEvN12_GLOBAL__N_18{params}E")
+        if kernel == "ag_gathered":
+            name = ("_ZN12_GLOBAL__N_118ag_gathered_kernelENS_"
+                    "16AgGatheredParamsE")
         return (f"ptxas info    : Compiling entry function '{name}' for "
                 f"'sm_90a'\n"
                 f"    0 bytes stack frame, {spill} bytes spill stores, "
@@ -294,25 +299,28 @@ def test_wgmma_build_check_reads_both_types_of_the_collective_matmuls():
                 f"ptxas info    : Used 200 registers, used 1 barriers\n")
 
     instances = [(k, d) for k in ("ag_matmul", "mm_rs")
-                 for d in ("f32", "bf16")]
+                 for d in ("f32", "bf16")] + [("ag_gathered", "f32")]
 
     class Build:
         build_logs = {"collective_matmul": "".join(entry(*i)
                                                    for i in instances)}
 
     assert chip_smoke.check_wgmma_build(Build, "collective_matmul") == (
+        "ag_gathered f32 200 registers, 0 spills, "
         "ag_matmul bf16 200 registers, 0 spills, ag_matmul f32 200 "
         "registers, 0 spills, mm_rs bf16 200 registers, 0 spills, mm_rs "
         "f32 200 registers, 0 spills")
-    Build.build_logs = {"collective_matmul": "".join(
-        entry(*i, spill=16 if i == ("mm_rs", "f32") else 0)
-        for i in instances)}
-    with pytest.raises(AssertionError, match="mm_rs f32.*spill"):
-        chip_smoke.check_wgmma_build(Build, "collective_matmul")
-    Build.build_logs = {"collective_matmul": "".join(entry(*i)
-                                                     for i in instances[1:])}
-    with pytest.raises(AssertionError, match="ptxas reported"):
-        chip_smoke.check_wgmma_build(Build, "collective_matmul")
+    for spilt, match in ((("mm_rs", "f32"), "mm_rs f32.*spill"),
+                         (("ag_gathered", "f32"), "ag_gathered f32.*spill")):
+        Build.build_logs = {"collective_matmul": "".join(
+            entry(*i, spill=16 if i == spilt else 0) for i in instances)}
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_wgmma_build(Build, "collective_matmul")
+    for kept in (instances[1:], instances[:-1]):
+        Build.build_logs = {"collective_matmul": "".join(entry(*i)
+                                                         for i in kept)}
+        with pytest.raises(AssertionError, match="ptxas reported"):
+            chip_smoke.check_wgmma_build(Build, "collective_matmul")
 
 
 def test_ring_attn_build_check_reads_every_instance():
@@ -396,6 +404,29 @@ def test_all_gather_relays_from_the_output():
     assert "slots" not in inspect.getsource(ring_probe.ring_all_gather_cuda)
 
 
+def test_ag_gathered_gathers_with_the_relay_then_multiplies_whole_k():
+    """The all-gather matmul's gathered form: the ring all-gather's relay
+    into the rank's copy of x, the wait that covers the rank's own block,
+    then one split-TF32 product a tile over all of K (no split-K: an
+    element's arithmetic is the streamed form's) on a 64-row tile; the
+    128-row tile stays the default of every other f32 instance."""
+    csrc = cuda_build.CSRC_DIR
+    src = (csrc / "collective_matmul.cu").read_text()
+    kernel = _body(src, "    ag_gathered_kernel(")
+    relay = kernel.index("ring::run_gather_relay(")
+    wait = kernel.index("ring::wait_flag(&r.right->recv,")
+    product = kernel.index("tile::tile_product_tf32x3(sm, a, p.k, b, p.f, "
+                           "rows, fn, p.k, r0, c0, out);")
+    assert relay < wait < product
+    assert "run_ring_stream(" not in kernel
+    assert "constexpr int kGatheredRows = 64;" in src
+    assert "using Smem = tile::SmemTf32<BN>;" in src  # the 128-row tile
+    header = (csrc / "tile_product.cuh").read_text()
+    assert ("template <int BN, int BM = kTfBM, int kStages = kTfStages, "
+            "int BK = kTfBK>") in header
+    assert "constexpr int kTfBM = 128;" in header
+
+
 # Every C entry point of each source, and the wrappers bind each one.
 EXPORTS = {
     "paged_attn": {"paged_attn_chunk_blocks", "paged_attn_step_launch"},
@@ -404,7 +435,8 @@ EXPORTS = {
     "ring_collectives": {"ring_all_gather_launch",
                          "ring_reduce_scatter_launch"},
     "all_to_all": {"all_to_all_flag_words", "all_to_all_launch"},
-    "collective_matmul": {"ag_matmul_launch", "mm_rs_launch"},
+    "collective_matmul": {"ag_matmul_launch", "ag_gathered_launch",
+                          "mm_rs_launch"},
 }
 
 

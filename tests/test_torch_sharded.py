@@ -342,12 +342,13 @@ def test_tp_slice_multistage_matches_world1():
 # -- the mesh-stage form (TPU kernel 11's serving path) -------------------------
 
 
-@pytest.mark.parametrize("tp,slots,h", [(2, 4, 8), (8, 8, 16)])
+@pytest.mark.parametrize("tp,slots,h", [(2, 4, 8), (8, 8, 16), (8, 64, 16)])
 def test_mesh_stage_fn_matches_reference(tp, slots, h):
     """The port's ``make_mesh_stage_fn`` (plain all-gather matmul on the
     CPU, the rank-ordered sum closing w2) against the reference's jitted
     one over ``tp`` devices of the CPU mesh and against ``TpShardSlice``
-    at world 1, overlap on and off, three steps."""
+    at world 1, overlap on and off, three steps. (8, 64, 16) has the
+    full-width stage's blocks of 8 rows, the card's gathered form."""
     from dpu_operator_tpu.serving.sharded.shard_math import \
         make_mesh_stage_fn as ref_stage
 
