@@ -20,7 +20,10 @@ Always-on cheap is the design constraint, not a hope:
   * both the per-thread buffers and the central ring are BOUNDED, and
     every span that falls off either bound is COUNTED — the serving
     plane exports the total as ``serving_trace_dropped_total`` at
-    scrape time, so the bound is proven, never hidden.
+    scrape time, so the bound is proven, never hidden. Both keep their
+    NEWEST spans: a full buffer evicts its oldest, so a replica nobody
+    scraped for a while still holds its recent past for
+    ``/debug/traces`` and the flight recorder.
   * ``Tracer.enabled = False`` turns every record into a near-free
     no-op (one attribute read) — the knob bench_serving section 7 uses
     to price the traced-vs-untraced step rate (gated at <2%).
@@ -41,11 +44,14 @@ and recovery on one axis.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import threading
 import time
+from bisect import bisect_right
 from collections import deque
 from contextlib import contextmanager
+from operator import itemgetter
 from typing import Any, Dict, Iterator, List, Optional
 
 # itertools.count.__next__ is atomic under the GIL: unique int ids with
@@ -113,7 +119,8 @@ def is_noop(span: Optional[Span]) -> bool:
 class _ThreadBuf:
     """One thread's outbound span buffer. The owner appends (right);
     the drainer pops (left) — both deque ends are thread-safe, so the
-    hot path never takes a lock."""
+    hot path never takes a lock. At the owner's cap the owner evicts
+    the oldest span itself (popleft) before appending."""
 
     __slots__ = ("spans", "dropped", "thread")
 
@@ -136,6 +143,10 @@ class Tracer:
         self._ring: deque = deque()
         self._ring_dropped = 0
         self._buf_dropped_collected = 0
+        # Spans from callers that must never take a lock (record_loose)
+        # on a thread with no buffer yet; drained with the buffers.
+        self._loose: deque = deque()
+        self._loose_dropped = 0
         # Recent scheduler decisions (admit/shed/requeue/seize/restart/
         # breaker) — the flight recorder snapshots these next to the
         # span ring. deque(maxlen) appends are thread-safe.
@@ -161,10 +172,16 @@ class Tracer:
 
     def _record(self, item) -> None:
         buf = self._buf()
-        if len(buf.spans) >= self.per_thread_cap:
+        spans = buf.spans
+        if len(spans) >= self.per_thread_cap:
+            # Keep the newest: evict the oldest, counted. A drain racing
+            # this may have emptied the buffer already.
+            try:
+                spans.popleft()
+            except IndexError:
+                pass
             buf.dropped += 1
-            return
-        buf.spans.append(item)
+        spans.append(item)
 
     def start(self, name: str, request_id: Optional[str] = None,
               parent_id: Optional[int] = None,
@@ -241,6 +258,35 @@ class Tracer:
         self._record((name, sid, parent_id, request_id, "span",
                       t0, t1, attrs))
         return sid
+
+    def record_loose(self, name: str, t0: float, t1: float,
+                     attrs: Optional[dict] = None) -> None:
+        """record_span for a caller that runs inside whatever its thread
+        was doing and so must never take a lock (the GC hook: a
+        collection can start while this thread holds the tracer's own
+        lock). A thread with no buffer yet appends to a shared bounded
+        buffer instead of registering one."""
+        if not self.enabled:
+            return
+        item = (name, next(_ids), None, None, "span", t0, t1, attrs)
+        if getattr(self._local, "buf", None) is not None:
+            self._record(item)
+            return
+        if len(self._loose) >= self.per_thread_cap:
+            try:
+                self._loose.popleft()
+            except IndexError:
+                pass
+            self._loose_dropped += 1
+        self._loose.append(item)
+
+    def _take_loose(self) -> list:
+        out = []
+        while True:
+            try:
+                out.append(self._loose.popleft())
+            except IndexError:
+                return out
 
     def reserve_id(self) -> int:
         """Allocate a span id with nothing recorded yet — the
@@ -325,6 +371,12 @@ class Tracer:
                     # collected total before letting it go.
                     self._buf_dropped_collected += buf.dropped
             self._bufs = live
+            for name, sid, parent, rid, kind, t0, t1, attrs in \
+                    self._take_loose():
+                span = Span(name, sid, parent, rid, t0, kind=kind,
+                            attrs=attrs)
+                span.t1 = t1
+                self._ring.append(span)
             while len(self._ring) > self.capacity:
                 self._ring.popleft()
                 self._ring_dropped += 1
@@ -381,6 +433,7 @@ class Tracer:
                 else:
                     self._buf_dropped_collected += buf.dropped
             self._bufs = live
+            out.extend(self._take_loose())
             while True:
                 try:
                     sp = self._ring.popleft()
@@ -402,6 +455,7 @@ class Tracer:
         self.drain()
         with self._lock:
             return (self._ring_dropped + self._buf_dropped_collected
+                    + self._loose_dropped
                     + sum(b.dropped for b in self._bufs))
 
     def decisions_snapshot(self) -> List[dict]:
@@ -550,6 +604,92 @@ def scoped(tracer: Optional[Tracer] = None) -> Iterator[Tracer]:
         yield t
     finally:
         set_tracer(prev)
+
+
+class GcPauses:
+    """The interpreter's cyclic-GC pauses on the monotonic clock. While
+    installed, every collection records a ``host.gc`` span (attributes:
+    generation, collected, uncollectable) into each installing tracer
+    and adds its pause to ``total_s``, a process-wide cumulative
+    counter, kept beside each pause's end for the last ``KEEP`` pauses:
+    ``between(a, b)`` is the pause time that ended in (a, b]. Installs
+    are counted: the ``gc.callbacks`` hook stays while any holder (a
+    running ServingServer) wants it. Collections never overlap (the
+    interpreter runs one at a time), so the hook needs no lock of its
+    own."""
+
+    KEEP = 4096
+
+    def __init__(self):
+        self.total_s = 0.0
+        # [(end, total_s after it, pause)], replaced whole when trimmed
+        # so a reader never sees the list shift under it.
+        self._ends: list = []
+        self._t0: Optional[float] = None
+        # Replaced whole under the lock, never mutated: the hook may
+        # iterate it on any thread.
+        self._tracers: tuple = ()
+        self._lock = threading.Lock()
+
+    @property
+    def installed(self) -> bool:
+        return bool(self._tracers)
+
+    def install(self, tracer: Tracer) -> None:
+        with self._lock:
+            if not self._tracers:
+                gc.callbacks.append(self._hook)
+            self._tracers = self._tracers + (tracer,)
+
+    def remove(self, tracer: Tracer) -> None:
+        with self._lock:
+            if tracer not in self._tracers:
+                return
+            rest = list(self._tracers)
+            rest.remove(tracer)
+            self._tracers = tuple(rest)
+            if not rest:
+                try:
+                    gc.callbacks.remove(self._hook)
+                except ValueError:
+                    pass
+                self._t0 = None
+
+    def _hook(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.monotonic()
+            return
+        t0 = self._t0
+        if t0 is None:
+            return
+        self._t0 = None
+        t1 = time.monotonic()
+        self.total_s += t1 - t0
+        ends = self._ends
+        ends.append((t1, self.total_s, t1 - t0))
+        if len(ends) > 2 * self.KEEP:
+            self._ends = ends[self.KEEP:]
+        attrs = {"generation": info.get("generation"),
+                 "collected": info.get("collected"),
+                 "uncollectable": info.get("uncollectable")}
+        for tr in self._tracers:
+            tr.record_loose("host.gc", t0, t1, attrs=attrs)
+
+    def between(self, t_from: float, t_to: float) -> float:
+        """The pause time (s) of the collections that ended after
+        ``t_from`` and at or before ``t_to``."""
+        ends = self._ends
+        i = bisect_right(ends, t_from, key=_FIRST)
+        j = bisect_right(ends, t_to, key=_FIRST)
+        if j <= i:
+            return 0.0
+        return ends[j - 1][1] - ends[i][1] + ends[i][2]
+
+
+_FIRST = itemgetter(0)
+
+#: The process's one GC pause clock (``gc.callbacks`` is process-wide).
+gc_pauses = GcPauses()
 
 
 def event(name: str, request_id: Optional[str] = None,

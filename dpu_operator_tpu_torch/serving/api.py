@@ -171,6 +171,13 @@ class GenerateRequest:
     # instead of re-decoding the prompt.
     prompt_tokens: Optional[List[int]] = None
     kv_lease: Optional[object] = field(default=None, repr=False)
+    # The step log of the replica whose slot the request was last
+    # placed in (duck-typed serving/stepclock.StepLog, bound at
+    # admission), and the sums of its earlier slot tenancies, folded in
+    # as it was placed again: timings_ms reads the request's step sums
+    # from them.
+    step_log: Optional[object] = field(default=None, repr=False)
+    step_acc: Optional[tuple] = field(default=None, repr=False)
     _done: threading.Event = field(default_factory=threading.Event,
                                    repr=False)
 
@@ -198,7 +205,10 @@ class GenerateRequest:
         return self._done.is_set()
 
     def timings_ms(self) -> dict:
-        """queue/decode/total decomposition for the response body."""
+        """queue/decode/total decomposition for the response body, and
+        the batcher's sums over the request's steps: ``steps``,
+        ``submit_ms``, ``device_ms``, ``gap_ms``, ``starved_steps`` and
+        ``gc_ms`` where measured (see serving/stepclock.py)."""
         end = self.finished_at or time.monotonic()
         admitted = self.admitted_at
         queue_ms = ((admitted - self.arrival) if admitted is not None
@@ -213,4 +223,6 @@ class GenerateRequest:
         if self.first_token_at is not None:
             out["ttft_ms"] = round(
                 (self.first_token_at - self.arrival) * 1000.0, 3)
+        if self.step_log is not None:
+            out.update(self.step_log.sums(self))
         return out

@@ -59,6 +59,7 @@ from .. import faults
 from ..obs import trace as obs_trace
 from .api import (DEADLINE_QUEUED_ERROR, RETRIES_EXHAUSTED_ERROR,
                   GenerateRequest)
+from .stepclock import StepClock
 
 log = logging.getLogger(__name__)
 
@@ -66,14 +67,39 @@ Update = Tuple[int, np.ndarray]  # (slot index, row[d]) applied at submit
 
 
 class _Pending:
-    """Handle for a step in flight on a synthetic executor's worker."""
+    """Handle for a step in flight on a synthetic executor's worker, and
+    that step's StepClock fields as the worker measured them: its own
+    interval (``t0``, ``t1``), the idle time since its previous step
+    (``gap_s``), whether that step had already ended when this one was
+    submitted (``starved``), and the submitter's marks where the
+    executor sets them (``t_start``, ``t_waited``)."""
 
-    __slots__ = ("event", "tokens", "error")
+    __slots__ = ("event", "tokens", "error", "t0", "t1", "gap_s",
+                 "starved", "t_start", "t_waited")
 
     def __init__(self):
         self.event = threading.Event()
         self.tokens: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
+        self.t0 = self.t1 = self.gap_s = 0.0
+        self.starved = True
+        self.t_start = self.t_waited = None
+
+    def clock(self) -> StepClock:
+        return StepClock(self.t0, self.t1, self.gap_s, self.starved,
+                         self.t_start, None, self.t_waited)
+
+
+def _run_timed(pending: _Pending, fn, payload, prev_t1) -> float:
+    """Run one synthetic step into ``pending`` with its interval on the
+    monotonic clock; returns the step's end."""
+    t0 = time.monotonic()
+    try:
+        pending.tokens = fn(payload)
+    finally:
+        pending.t0, pending.t1 = t0, time.monotonic()
+        pending.gap_s = t0 - prev_t1 if prev_t1 is not None else 0.0
+    return pending.t1
 
 
 class _GuardedWorker:
@@ -92,6 +118,8 @@ class _GuardedWorker:
         self._reset_fn = reset_fn      # () -> None
         self._work: Optional[_queue.Queue] = None
         self._thread: Optional[threading.Thread] = None
+        self._last: Optional[_Pending] = None   # the last step submitted
+        self._prev_t1: Optional[float] = None   # the worker's last end
 
     @property
     def started(self) -> bool:
@@ -116,7 +144,8 @@ class _GuardedWorker:
                     self._reset_fn()
                 else:
                     _, payload, pending = item
-                    pending.tokens = self._step_fn(payload)
+                    self._prev_t1 = _run_timed(pending, self._step_fn,
+                                               payload, self._prev_t1)
             except BaseException as e:  # surfaced by collect()/reset()
                 if pending is not None:
                     pending.error = e
@@ -132,6 +161,8 @@ class _GuardedWorker:
         self._ensure()
         pending = _Pending()
         self._work.put(("step", payload, pending))
+        last, self._last = self._last, pending
+        pending.starved = last is None or last.event.is_set()
         return pending
 
     def reset(self) -> None:
@@ -218,6 +249,13 @@ class Executor:
         int32 per-slot argmax token ids."""
         return handle
 
+    def step_clock(self, handle) -> Optional[StepClock]:
+        """The collected step's device interval on the host's monotonic
+        clock (serving/stepclock.py), or None without a device clock.
+        Called once per collected step, in submission order; ``handle``
+        None means the last ``step()`` of the synchronous seam."""
+        return None
+
     def close(self) -> None:
         pass
 
@@ -261,6 +299,7 @@ class LocalExecutor(Executor):
         from ..parallel.train_step import init_params, shard_params
         from .infer import (TokenHandle, make_decode_step, make_infer_step,
                             serving_mesh)
+        from .stepclock import CudaStepClock
 
         if mode not in ("pipelined", "sync"):
             raise ValueError(f"mode must be pipelined|sync, got {mode!r}")
@@ -269,6 +308,7 @@ class LocalExecutor(Executor):
         self.mesh = mesh if mesh is not None else serving_mesh()
         cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(device=self.device) if cuda else None
+        self._clock = CudaStepClock() if cuda and self.pipelined else None
         if cuda:
             # Weights handed in were written on the caller's stream.
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -330,6 +370,8 @@ class LocalExecutor(Executor):
         if self.pipelined:
             with self._on_stream():
                 self._xdev = self._decode.init_state()
+            if self._clock is not None:
+                self._clock.reset()
         else:
             super().reset()
 
@@ -340,15 +382,24 @@ class LocalExecutor(Executor):
         # Both the state and the tokens stay in flight: the step and the
         # copy of its ids to pinned host memory are queued, not waited.
         with self._on_stream():
-            self._xdev, tokens = self._decode(self._xdev, updates,
-                                              step=step,
-                                              request_ids=request_ids)
-            return self._handle(tokens)
+            st = (self._clock.start(self._stream)
+                  if self._clock is not None else None)
+            staged = self._decode.stage(updates, step=step,
+                                        request_ids=request_ids)
+            if st is not None:
+                st.t_up = time.monotonic()
+            self._xdev, tokens = self._decode.apply(self._xdev, staged)
+            return self._handle(tokens, self._clock, st)
 
     def collect(self, handle) -> np.ndarray:
         if not self.pipelined:
             return handle
         return handle.wait()
+
+    def step_clock(self, handle) -> Optional[StepClock]:
+        if handle is None or self._clock is None:
+            return None
+        return self._clock.clock(handle.step)
 
 
 class SyntheticExecutor(Executor):
@@ -379,6 +430,7 @@ class SyntheticExecutor(Executor):
         self._w = np.random.RandomState(seed).randn(d, d).astype(
             np.float32) / np.sqrt(d)
         self.steps = 0
+        self._sync_clock: Optional[StepClock] = None  # the last step()
         # The base eager adapter IS one step of the contract (apply
         # updates, step, batched argmax); the worker only moves it off
         # the submitter's thread.
@@ -391,12 +443,17 @@ class SyntheticExecutor(Executor):
         self._resident = np.zeros((self.slots, self.d), np.float32)
 
     def step(self, x: np.ndarray) -> np.ndarray:
+        t0 = time.monotonic()
         if self.fault_site is not None:
             faults.fire(f"{self.fault_site}.step")
         if self.step_time_s:
             time.sleep(self.step_time_s)
         self.steps += 1
-        return np.tanh(x @ self._w)
+        y = np.tanh(x @ self._w)
+        last = self._sync_clock
+        self._sync_clock = StepClock(
+            t0, time.monotonic(), t0 - last.t1 if last else 0.0, True)
+        return y
 
     # -- pipelined: the worker thread is the "device" -------------------------
 
@@ -423,6 +480,11 @@ class SyntheticExecutor(Executor):
         if handle.error is not None:
             raise handle.error
         return handle.tokens
+
+    def step_clock(self, handle) -> Optional[StepClock]:
+        if isinstance(handle, _Pending):
+            return handle.clock()
+        return self._sync_clock
 
     def close(self) -> None:
         self._worker.close()

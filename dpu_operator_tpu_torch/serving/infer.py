@@ -211,9 +211,15 @@ class DecodeStep:
         race admissions close to the slot limit, and an overflow error
         that names neither the step nor the requests being admitted is
         undebuggable from a flight snapshot."""
+        return self.apply(x, self.stage(updates, step=step,
+                                        request_ids=request_ids))
+
+    def stage(self, updates=(), step=None, request_ids=None):
+        """The host-to-device half of a call: the step's updates as
+        device tensors (``_stage``), or None without updates."""
         self._calls += 1
         if not updates:
-            return self._fwd(x)
+            return None
         if len(updates) > self.slots:
             step_no = self._calls if step is None else step
             rids = (", ".join(str(r) for r in request_ids)
@@ -222,7 +228,14 @@ class DecodeStep:
                 f"{len(updates)} updates for {self.slots} slots at "
                 f"decode step {step_no} (admitting request_ids: "
                 f"{rids}) — at most one update per slot per step")
-        idx, val = self._stage(updates)
+        return self._stage(updates)
+
+    def apply(self, x: torch.Tensor, staged):
+        """The launch half: scatter ``stage``'s updates into ``x`` and
+        run the step."""
+        if staged is None:
+            return self._fwd(x)
+        idx, val = staged
         # Row `slots` is the sink the padding entries land in.
         ext = torch.cat([x, x.new_zeros((1, self.d))])
         ext.index_copy_(0, idx, val)
@@ -235,19 +248,32 @@ class TokenHandle:
     memory from the caching host allocator, and ``done`` the CUDA event
     recorded after it, hence after the step's end (None on the CPU, where
     the copy ran before the handle was made). ``wait`` blocks on that
-    copy alone, never on steps queued after it."""
+    copy alone, never on steps queued after it.
 
-    __slots__ = ("host", "done")
+    With a ``clock`` (serving/stepclock.py) and the ``step`` its
+    ``start`` opened, ``done`` is that step's timing-enabled event from
+    the clock's pool."""
 
-    def __init__(self, tokens: torch.Tensor):
+    __slots__ = ("host", "done", "clock", "step")
+
+    def __init__(self, tokens: torch.Tensor, clock=None, step=None):
         self.host = tokens.to("cpu", non_blocking=True)
         self.done = None
+        self.clock = clock if tokens.is_cuda else None
+        self.step = step
         if tokens.is_cuda:
-            self.done = torch.cuda.Event()
-            self.done.record(torch.cuda.current_stream(tokens.device))
+            stream = torch.cuda.current_stream(tokens.device)
+            if self.clock is not None:
+                self.done = self.clock.done(step, stream)
+                self.clock.submitted(step)
+            else:
+                self.done = torch.cuda.Event()
+                self.done.record(stream)
 
     def wait(self) -> np.ndarray:
-        if self.done is not None:
+        if self.clock is not None:
+            self.clock.wait(self.step)
+        elif self.done is not None:
             self.done.synchronize()
         return self.host.numpy()
 

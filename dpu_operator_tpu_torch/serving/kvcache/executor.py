@@ -55,12 +55,13 @@ import numpy as np
 import torch
 
 from ... import faults
-from ..executor import Executor, _GuardedWorker
+from ..executor import Executor, _GuardedWorker, _Pending, _run_timed
 # NO_TOKEN re-exported here for back-compat: the sentinel and the
 # emit-masking idiom live in serving/spec.py (a cleanup) so the
 # one-token and speculative collect paths share one definition.
 from ..spec import (NO_TOKEN, SpecConfig, accept_tree, clamp_spec_k,
                     propose_full, synthetic_next_token)
+from ..stepclock import CudaStepClock, StepClock
 from .allocator import (_ROOT as _TREE_ROOT, KVBlockAllocator,
                         KVCacheOOM, KVLease, PrefixTree)
 from .tiering import HostKVTier, ParkedKV, verify_block_tokens
@@ -907,6 +908,11 @@ class KVExecutorBase(Executor):
             raw = self._dispatch(plan)
             return _KVHandle(plan, raw)
 
+    def step_clock(self, handle) -> Optional[StepClock]:
+        if handle.plan.stale:
+            return None
+        return self._raw_clock(handle.raw)
+
     def _plan_step(self) -> _StepPlan:
         S, C, B = self.slots, self.prefill_chunk, self.max_blocks_per_req
         host_tok = np.zeros((S, C), np.int32)
@@ -1343,6 +1349,11 @@ class KVExecutorBase(Executor):
     def _materialize(self, raw) -> np.ndarray:
         raise NotImplementedError
 
+    def _raw_clock(self, raw) -> Optional[StepClock]:
+        """The StepClock of a collected step's ``raw``; None without a
+        device clock."""
+        return None
+
     # step() has no meaning on the token plane.
     def step(self, x):  # pragma: no cover - contract guard
         raise NotImplementedError(
@@ -1423,6 +1434,8 @@ class PagedKVExecutor(KVExecutorBase):
         # allocation all queue on it, in dispatch order.
         self._stream = (torch.cuda.Stream(device=self.device)
                         if self.device.type == "cuda" else None)
+        self._clock = (CudaStepClock() if self._stream is not None
+                       else None)
         self._seed = int(seed)  # weight identity, in _spec_fields
         with self._on_stream():
             self._paged = PagedDecodeStep(
@@ -1463,6 +1476,8 @@ class PagedKVExecutor(KVExecutorBase):
         # surviving pages; only the token recurrence restarts.
         with self._on_stream():
             self._prev = self._paged.init_prev()
+        if self._clock is not None:
+            self._clock.reset()
 
     def _spec_fields(self) -> dict:
         p = self._paged
@@ -1526,16 +1541,21 @@ class PagedKVExecutor(KVExecutorBase):
         self._scatter_blocks([block], planes)
 
     def _dispatch(self, plan: _StepPlan):
-        """Queue one step; returns (out, event) without waiting for the
+        """Queue one step; returns (out, step) without waiting for the
         device. ``out`` is the [slots] token recurrence, or the [slots,
-        chunk] per-position tokens of a speculative step."""
+        chunk] per-position tokens of a speculative step; ``step`` the
+        step's events from the step clock (None on the CPU)."""
         def dev(a):
             return torch.from_numpy(a).to(self.device, non_blocking=True)
 
         with self._on_stream():
+            st = (self._clock.start(self._stream)
+                  if self._clock is not None else None)
             args = (self._kpool, self._kscale, self._vpool, self._vscale,
                     self._prev, dev(plan.host_tok), dev(plan.use_host),
                     dev(plan.ctx), dev(plan.n_new), dev(plan.tables))
+            if st is not None:
+                st.t_up = time.monotonic()
             if self.spec is not None and plan.roff is not None:
                 (self._kpool, self._kscale, self._vpool, self._vscale,
                  out) = self._paged.tree_step(
@@ -1557,19 +1577,22 @@ class PagedKVExecutor(KVExecutorBase):
                 # ACCEPTED token, so _prev stays the zeroed init.
                 self._prev = self._paged.take_prev(
                     out, dev(plan.n_app), self._prev)
-            done = None
-            if self._stream is not None:
-                done = torch.cuda.Event()
-                done.record(self._stream)
-        return out, done
+            if st is not None:
+                self._clock.done(st, self._stream)
+                self._clock.submitted(st)
+        return out, st
 
     def _materialize(self, raw) -> np.ndarray:
         """The one place a step's tokens reach the host: wait for the
         step's event, then copy the ids."""
-        out, done = raw
-        if done is not None:
-            done.synchronize()
+        out, st = raw
+        if st is not None:
+            self._clock.wait(st)
         return out.cpu().numpy()
+
+    def _raw_clock(self, raw) -> Optional[StepClock]:
+        st = raw[1]
+        return self._clock.clock(st) if st is not None else None
 
 
 class SyntheticKVExecutor(KVExecutorBase):
@@ -1617,6 +1640,7 @@ class SyntheticKVExecutor(KVExecutorBase):
         self.seed = int(seed)
         self.fault_site = fault_site
         self._dev_prev = np.zeros((self.slots,), np.int32)
+        self._prev_t1: Optional[float] = None  # the inline steps' last end
         self._worker = _GuardedWorker(
             "synthetic-kv-step", step_fn=self._device_step,
             reset_fn=self._zero_dev_prev)
@@ -1703,17 +1727,28 @@ class SyntheticKVExecutor(KVExecutorBase):
         self._worker.reset()
 
     def _dispatch(self, plan: _StepPlan):
+        t_start = time.monotonic()  # planned: the dispatch begins
         if not self.pipelined:
-            return self._device_step(plan)
-        return self._worker.submit(plan)
+            # Inline on the submitting thread: each step has ended
+            # before the next is submitted, so every step is starved.
+            pending = _Pending()
+            self._prev_t1 = _run_timed(pending, self._device_step, plan,
+                                       self._prev_t1)
+        else:
+            pending = self._worker.submit(plan)
+        pending.t_start = t_start
+        return pending
 
     def _materialize(self, raw) -> np.ndarray:
-        if not self.pipelined:
-            return raw
-        raw.event.wait()
-        if raw.error is not None:
-            raise raw.error
+        if self.pipelined:
+            raw.event.wait()
+            if raw.error is not None:
+                raise raw.error
+        raw.t_waited = time.monotonic()
         return raw.tokens
+
+    def _raw_clock(self, raw) -> Optional[StepClock]:
+        return raw.clock()
 
     # -- cross-replica hand-off (the jax-free double) --------------------------
 

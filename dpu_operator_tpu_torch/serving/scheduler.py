@@ -38,8 +38,36 @@ did NOT hide); `serving_host_gap_seconds` is host bookkeeping between
 observing one step's completion and dispatching the next — the window
 the device sits idle in the sync loop, and the budget that must stay
 under device step time for full overlap in the pipelined loop.
-`serving_step_seconds` keeps its original series as the blocked-time
-back-compat alias.
+
+The step's timeline, always on (the tracer's spans on time.monotonic;
+``_submit_step``, ``_collect_step`` and ``_sync_step``):
+
+  * ``step.host`` — the host between observing one step's completion
+    and dispatching the next; ``executor.submit`` — the dispatch. On
+    every ``CPU_EVERY``-th step both carry ``cpu_ms``, the batcher
+    thread's CPU time over the span: wall time less ``cpu_ms`` is time
+    the thread waited for the interpreter's lock or slept blocked.
+  * ``step.device`` — the step's interval on the device where the
+    executor has a device clock (``step_clock``, serving/stepclock.py),
+    with ``gap_ms`` (idle since the previous step's end) and
+    ``starved`` (that end came before this step's submit returned);
+    without one, the step as the host saw it, from its submit's start
+    to its collect's end. Its ``request_ids`` are the occupants still in
+    their slots when it is collected: a pipelined loop's step over a
+    slot whose request left at the retire before runs it for nobody.
+    ``executor.collect`` is the host's wait.
+  * The parts, from the step clock's host marks: ``submit.plan`` (the
+    KV planner), ``submit.upload`` (host-to-device copies) and
+    ``submit.launch`` (the model's launches and event records) under
+    ``executor.submit``; ``collect.wait`` and ``collect.copy`` under
+    ``executor.collect``.
+
+Each replica's ``StepLog`` (serving/stepclock.py) takes every collected
+step; a response's ``timings`` read from it the request's ``steps``,
+``submit_ms``, ``device_ms``, ``gap_ms`` and ``starved_steps``, and
+``gc_ms`` from obs.trace.gc_pauses (installed by the server). Gaps and
+starved steps count only while the loop was not drained, the rule the
+host gap follows.
 
 Failure policy is two-mode. Standalone batchers keep the legacy shape
 (an executor failure 500s the current occupants and the loop keeps
@@ -57,6 +85,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from operator import is_
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -66,6 +95,7 @@ from ..obs import trace as obs_trace
 from .api import KV_OOM_ERROR, GenerateRequest
 from .kvcache.allocator import KVCacheOOM
 from .spec import token_run
+from .stepclock import StepLog
 
 log = logging.getLogger(__name__)
 
@@ -74,6 +104,26 @@ log = logging.getLogger(__name__)
 _STEP_BUCKETS = (0.0002, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
                  0.05, 0.1, 0.25, 1.0)
 _OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
+# The thread CPU clock is a system call (tens of µs a read inside a
+# loaded loop on a virtual host): cpu_ms is read on every CPU_EVERY-th
+# step's spans.
+CPU_EVERY = 64
+
+
+class _Submitted:
+    """What the step timeline keeps of one submitted step until its
+    collect, as the in-flight tuple's last item: its occupants' ids
+    (traced only), its submit's start and end, whether the loop had not
+    drained before it, and its ``executor.submit`` span."""
+
+    __slots__ = ("rids", "ts0", "ts1", "counted", "sid")
+
+    def __init__(self, rids, ts0, ts1, counted, sid):
+        self.rids = rids
+        self.ts0 = ts0
+        self.ts1 = ts1
+        self.counted = counted
+        self.sid = sid
 
 
 class ContinuousBatcher:
@@ -145,6 +195,12 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
+        # The step timeline: every collected step, the executor's device
+        # clock, and the thread's CPU clock where the next step.host
+        # reads cpu_ms.
+        self._log = StepLog(submits=self.kv_mode or self.pipelined)
+        self._clock_of = getattr(executor, "step_clock", None)
+        self._cpu_mark: Optional[float] = None
 
     # -- lifecycle ------------------------------------------------------------
 
@@ -215,8 +271,6 @@ class ContinuousBatcher:
                       help="wall time blocked on the device per step "
                            "(device time not hidden by host work)",
                       buckets=_STEP_BUCKETS)
-        self._observe("serving_step_seconds", blocked_s,
-                      help="model step wall time")
         self._observe("serving_batch_occupancy",
                       n_active / self.executor.slots,
                       help="occupied fraction of batch slots",
@@ -227,6 +281,171 @@ class ContinuousBatcher:
                       help="host bookkeeping between observing a step's "
                            "completion and dispatching the next",
                       buckets=_STEP_BUCKETS)
+
+    # -- the step's timeline --------------------------------------------------
+
+    def _submit_step(self, snapshot, t_gap_start, mode: str, submit,
+                     attrs: dict) -> tuple:
+        """Dispatch one step under the watchdog clock, with the host gap
+        before it (``step.host``) and ``executor.submit``. ``submit(rids)``
+        dispatches, given the occupants' ids (traced only); ``attrs`` join
+        the submit span's. Returns the in-flight tuple: (handle, slot
+        snapshot, step no, _Submitted). Dispatch runs OUTSIDE the settle
+        lock (see the loops)."""
+        traced = self.tracer.enabled
+        # The rids list is computed ONCE per submitted step and shared
+        # by every span that names the step's occupants — the tracing
+        # budget is a handful of µs/step and list comprehensions over
+        # the slots are the first thing to amortize.
+        rids = ([r.request_id for r in snapshot if r is not None]
+                if traced else None)
+        ts0 = time.monotonic()
+        counted = t_gap_start is not None
+        cpu0 = (time.thread_time()
+                if traced and (self.steps + 1) % CPU_EVERY == 0 else None)
+        if counted:
+            self._observe_gap(ts0 - t_gap_start)
+            if traced:
+                a = {"replica": self.replica, "step": self.steps + 1,
+                     "mode": mode, "request_ids": rids}
+                if cpu0 is not None and self._cpu_mark is not None:
+                    a["cpu_ms"] = (cpu0 - self._cpu_mark) * 1e3
+                self.tracer.record_span("step.host", t_gap_start, ts0,
+                                        attrs=a)
+        self.blocked_since = ts0
+        handle = submit(rids)
+        self.blocked_since = None
+        ts1 = time.monotonic()
+        self.steps += 1
+        sid = None
+        if traced:
+            a = {"replica": self.replica, "step": self.steps, "mode": mode,
+                 **attrs, "request_ids": rids}
+            if cpu0 is not None:
+                a["cpu_ms"] = (time.thread_time() - cpu0) * 1e3
+            sid = self.tracer.record_span("executor.submit", ts0, ts1,
+                                          attrs=a)
+        return (handle, snapshot, self.steps,
+                _Submitted(rids, ts0, ts1, counted, sid))
+
+    def _collect_step(self, submitted, mode: str):
+        """Collect one in-flight step under the watchdog clock, add it to
+        the step log and record its spans. collect() is the one place a
+        wedged device parks this thread forever, so it runs OUTSIDE the
+        settle lock with blocked_since published — the supervisor's
+        watchdog can both see the wedge and seize around it. Returns
+        (tokens, the host's clock after the collect)."""
+        handle, snap, step_no, sub = submitted
+        tc = time.monotonic()
+        self.blocked_since = tc
+        tokens = self.executor.collect(handle)
+        self.blocked_since = None
+        t_done = time.monotonic()
+        traced = self.tracer.enabled and sub.rids is not None
+        self._cpu_mark = (time.thread_time() if traced and (
+            self.steps + 1) % CPU_EVERY == 0 else None)
+        n_active = sum(1 for r in snap if r is not None)
+        self._observe_step(t_done - tc, n_active)
+        clk = (self._clock_of(handle) if self._clock_of is not None
+               else None)
+        self._log.add(sub.ts0, t_done, clk, sub.counted, sub.ts1 - sub.ts0)
+        if traced:
+            self._step_spans(step_no, mode, n_active, snap, sub, clk, tc,
+                             t_done)
+        return tokens, t_done
+
+    def _step_spans(self, step_no, mode, n_active, snap, sub, clk, tc,
+                    t_done) -> None:
+        """A collected step's ``step.device`` and ``executor.collect``
+        under it, and the parts of its submit and collect where the step
+        clock marks them."""
+        rids = sub.rids
+        slots = self._slots
+        if self.pipelined and not all(map(is_, snap, slots)):
+            # Occupants whose request left at the retire before this
+            # step's collect: the step ran their slot for nobody.
+            rids = [r.request_id for r, s in zip(snap, slots)
+                    if r is not None and r is s]
+        tr = self.tracer
+        attrs = {"replica": self.replica, "step": step_no, "mode": mode,
+                 "n_active": n_active, "request_ids": rids}
+        if clk is not None:
+            d0, d1 = clk.t0, clk.t1
+            attrs["gap_ms"] = clk.gap_s * 1e3
+            attrs["starved"] = clk.starved
+            attrs["drained"] = not sub.counted
+        else:
+            d0, d1 = sub.ts0, t_done
+        dev = tr.record_span("step.device", d0, d1, attrs=attrs)
+        col = tr.record_span("executor.collect", tc, t_done, parent_id=dev,
+                             attrs={"replica": self.replica,
+                                    "step": step_no, "request_ids": rids})
+        if clk is None:
+            return
+        part = {"replica": self.replica, "step": step_no}
+        a = sub.ts0
+        if self.kv_mode and clk.t_start is not None:
+            tr.record_span("submit.plan", a, clk.t_start,
+                           parent_id=sub.sid, attrs=part)
+            a = clk.t_start
+        if clk.t_upload is not None:
+            tr.record_span("submit.upload", a, clk.t_upload,
+                           parent_id=sub.sid, attrs=part)
+            a = clk.t_upload
+        if a != sub.ts0:
+            tr.record_span("submit.launch", a, sub.ts1, parent_id=sub.sid,
+                           attrs=part)
+        if clk.t_waited is not None:
+            tr.record_span("collect.wait", tc, clk.t_waited, parent_id=col,
+                           attrs=part)
+            tr.record_span("collect.copy", clk.t_waited, t_done,
+                           parent_id=col, attrs=part)
+
+    def _sync_step(self, t_gap_start, n_active: int):
+        """One step of the synchronous row loop under the watchdog clock,
+        with its spans and its entry in the step log. Returns the step's
+        rows and the host's clock after it (the gap clock's start)."""
+        # One clock (time.monotonic) for metrics AND spans so the step
+        # segments share the axis every other span — and the fault
+        # plan's fired_at — lives on.
+        traced = self.tracer.enabled
+        rids = ([r.request_id for r in self._slots
+                 if r is not None] if traced else None)
+        t0 = time.monotonic()
+        counted = t_gap_start is not None
+        if counted:
+            self._observe_gap(t0 - t_gap_start)
+            if traced:
+                a = {"replica": self.replica, "step": self.steps + 1,
+                     "mode": "sync", "request_ids": rids}
+                if self._cpu_mark is not None:
+                    a["cpu_ms"] = (time.thread_time()
+                                   - self._cpu_mark) * 1e3
+                self.tracer.record_span("step.host", t_gap_start, t0,
+                                        attrs=a)
+        self.blocked_since = t0
+        y = np.asarray(self.executor.step(self._x), np.float32)
+        self.blocked_since = None
+        t1 = time.monotonic()
+        self._cpu_mark = (time.thread_time() if traced and (
+            self.steps + 2) % CPU_EVERY == 0 else None)
+        self.steps += 1
+        self._observe_step(t1 - t0, n_active)
+        clk = (self._clock_of(None) if self._clock_of is not None
+               else None)
+        self._log.add(t0, t1, clk, counted, 0.0)
+        if traced:
+            attrs = {"replica": self.replica, "step": self.steps,
+                     "mode": "sync", "n_active": n_active,
+                     "request_ids": rids}
+            d0, d1 = t0, t1
+            if clk is not None:
+                d0, d1 = clk.t0, clk.t1
+                attrs["gap_ms"] = clk.gap_s * 1e3
+                attrs["starved"] = clk.starved
+                attrs["drained"] = not counted
+            self.tracer.record_span("step.device", d0, d1, attrs=attrs)
+        return y, t1
 
     # -- admission ------------------------------------------------------------
 
@@ -264,6 +483,7 @@ class ContinuousBatcher:
                         raise ValueError(
                             f"prompt_vec shape {vec.shape} != "
                             f"({self.executor.d},)")
+                self._log.admit(req)
                 req.admitted_at = time.monotonic()
                 self._slots[i] = req
                 placed.append((i, req, vec))
@@ -471,36 +691,7 @@ class ContinuousBatcher:
                 if n_active == 0:
                     t_gap_start = None
                     continue
-                # One clock (time.monotonic) for metrics AND spans so
-                # the step segments share the axis every other span —
-                # and the fault plan's fired_at — lives on.
-                traced = self.tracer.enabled
-                rids = ([r.request_id for r in self._slots
-                         if r is not None] if traced else None)
-                t0 = time.monotonic()
-                if t_gap_start is not None:
-                    self._observe_gap(t0 - t_gap_start)
-                    if traced:
-                        self.tracer.record_span(
-                            "step.host", t_gap_start, t0,
-                            attrs={"replica": self.replica,
-                                   "step": self.steps + 1,
-                                   "mode": "sync",
-                                   "request_ids": rids})
-                self.blocked_since = t0
-                y = np.asarray(self.executor.step(self._x), np.float32)
-                self.blocked_since = None
-                t1 = time.monotonic()
-                t_gap_start = t1
-                self.steps += 1
-                self._observe_step(t1 - t0, n_active)
-                if traced:
-                    self.tracer.record_span(
-                        "step.device", t0, t1,
-                        attrs={"replica": self.replica,
-                               "step": self.steps, "mode": "sync",
-                               "n_active": n_active,
-                               "request_ids": rids})
+                y, t_gap_start = self._sync_step(t_gap_start, n_active)
                 with self._settle_lock:
                     if self._abandoned:
                         return
@@ -578,11 +769,7 @@ class ContinuousBatcher:
         self.blocked_since = None
         self._dirty.clear()
         self._prezeroed.clear()
-        # (handle, slot snapshot, step no, occupant rids) in flight.
-        # The rids list is computed ONCE per submitted step and shared
-        # by every span that names the step's occupants — the tracing
-        # budget is a handful of µs/step and list comprehensions over
-        # the slots are the first thing to amortize.
+        # (handle, slot snapshot, step no, _Submitted) in flight.
         prev = None
         t_gap_start = None
         while not self._stop.is_set():
@@ -629,47 +816,26 @@ class ContinuousBatcher:
                     # watchdog. A seize landing between the lock and
                     # this dispatch only wastes one step: the retire
                     # path re-checks _abandoned before settling.
-                    traced = self.tracer.enabled
-                    cur_rids = ([r.request_id for r in snapshot
-                                 if r is not None] if traced else None)
-                    ts0 = time.monotonic()
-                    if t_gap_start is not None:
-                        self._observe_gap(ts0 - t_gap_start)
-                        if traced:
-                            self.tracer.record_span(
-                                "step.host", t_gap_start, ts0,
-                                attrs={"replica": self.replica,
-                                       "step": self.steps + 1,
-                                       "mode": "pipelined",
-                                       "request_ids": cur_rids})
-                    self.blocked_since = ts0
                     # step/request_ids are diagnostic context: an
                     # update-overflow ValueError out of the device
                     # step must name the step and the admitting
                     # requests (the seize path can race admissions
-                    # close to the slot limit).
-                    # occupants is trace-only context: a sharded
-                    # executor stamps it on its shard.step span so
-                    # the worker-side subtree links into every
-                    # occupant's /debug/traces tree.
-                    handle = ex.submit(updates, step=self.steps + 1,
-                                       request_ids=admit_rids or None,
-                                       occupants=cur_rids)
-                    self.blocked_since = None
-                    self.steps += 1
-                    if traced:
-                        # `admits_landing` marks the pipelined hand-off:
-                        # these rows were freed at step k-1's retire
-                        # and land in step k+1's scatter — one step
-                        # later than the sync loop, by construction.
-                        self.tracer.record_span(
-                            "executor.submit", ts0, time.monotonic(),
-                            attrs={"replica": self.replica,
-                                   "step": self.steps,
-                                   "n_updates": len(updates),
-                                   "admits_landing": admit_rids or None,
-                                   "request_ids": cur_rids})
-                    submitted = (handle, snapshot, self.steps, cur_rids)
+                    # close to the slot limit). occupants is trace-only
+                    # context: a sharded executor stamps it on its
+                    # shard.step span so the worker-side subtree links
+                    # into every occupant's /debug/traces tree.
+                    # `admits_landing` marks the pipelined hand-off:
+                    # these rows were freed at step k-1's retire and
+                    # land in step k+1's scatter — one step later than
+                    # the sync loop, by construction.
+                    submitted = self._submit_step(
+                        snapshot, t_gap_start, "pipelined",
+                        lambda rids: ex.submit(
+                            updates, step=self.steps + 1,
+                            request_ids=admit_rids or None,
+                            occupants=rids),
+                        {"n_updates": len(updates),
+                         "admits_landing": admit_rids or None})
                 # Step k runs on the device while the host settles step
                 # k-1: collect its token ids and do retire bookkeeping.
                 # collect() is the one place a wedged device parks this
@@ -678,27 +844,7 @@ class ContinuousBatcher:
                 # watchdog can both see the wedge and seize around it.
                 if prev is not None:
                     h_prev, snap_prev, step_prev, prev_rids = prev
-                    tc = time.monotonic()
-                    self.blocked_since = tc
-                    tokens = ex.collect(h_prev)
-                    self.blocked_since = None
-                    t_done = time.monotonic()
-                    n_prev = sum(1 for r in snap_prev if r is not None)
-                    self._observe_step(t_done - tc, n_prev)
-                    if self.tracer.enabled and prev_rids is not None:
-                        dev = self.tracer.record_span(
-                            "step.device", tc, t_done,
-                            attrs={"replica": self.replica,
-                                   "step": step_prev,
-                                   "mode": "pipelined",
-                                   "n_active": n_prev,
-                                   "request_ids": prev_rids})
-                        self.tracer.record_span(
-                            "executor.collect", tc, t_done,
-                            parent_id=dev,
-                            attrs={"replica": self.replica,
-                                   "step": step_prev,
-                                   "request_ids": prev_rids})
+                    tokens, t_done = self._collect_step(prev, "pipelined")
                     with self._settle_lock:
                         if self._abandoned:
                             return
@@ -857,24 +1003,7 @@ class ContinuousBatcher:
         supervisor seize landed — the loop must exit without touching
         anything further."""
         handle, snap, step_no, rids = submitted
-        ex = self.executor
-        tc = time.monotonic()
-        self.blocked_since = tc
-        tokens = ex.collect(handle)
-        self.blocked_since = None
-        t_done = time.monotonic()
-        n_active = sum(1 for r in snap if r is not None)
-        self._observe_step(t_done - tc, n_active)
-        if self.tracer.enabled and rids is not None:
-            dev = self.tracer.record_span(
-                "step.device", tc, t_done,
-                attrs={"replica": self.replica, "step": step_no,
-                       "mode": "kv", "n_active": n_active,
-                       "request_ids": rids})
-            self.tracer.record_span(
-                "executor.collect", tc, t_done, parent_id=dev,
-                attrs={"replica": self.replica, "step": step_no,
-                       "request_ids": rids})
+        tokens, t_done = self._collect_step(submitted, "kv")
         with self._settle_lock:
             if self._abandoned:
                 return None
@@ -912,7 +1041,7 @@ class ContinuousBatcher:
         self.blocked_since = time.monotonic()
         ex.reset()
         self.blocked_since = None
-        prev = None  # (handle, slot snapshot, step no, occupant rids)
+        prev = None  # (handle, slot snapshot, step no, _Submitted)
         t_gap_start = None
         while not self._stop.is_set():
             try:
@@ -930,33 +1059,12 @@ class ContinuousBatcher:
                                 else None)
                     gen = ex.kv_gen()
                 if snapshot is not None:
-                    traced = self.tracer.enabled
-                    cur_rids = ([r.request_id for r in snapshot
-                                 if r is not None] if traced else None)
-                    ts0 = time.monotonic()
-                    if t_gap_start is not None:
-                        self._observe_gap(ts0 - t_gap_start)
-                        if traced:
-                            self.tracer.record_span(
-                                "step.host", t_gap_start, ts0,
-                                attrs={"replica": self.replica,
-                                       "step": self.steps + 1,
-                                       "mode": "kv",
-                                       "request_ids": cur_rids})
-                    self.blocked_since = ts0
-                    handle = ex.submit((), step=self.steps + 1,
-                                       request_ids=admit_rids or None,
-                                       gen=gen)
-                    self.blocked_since = None
-                    self.steps += 1
-                    if traced:
-                        self.tracer.record_span(
-                            "executor.submit", ts0, time.monotonic(),
-                            attrs={"replica": self.replica,
-                                   "step": self.steps, "mode": "kv",
-                                   "admits_landing": admit_rids or None,
-                                   "request_ids": cur_rids})
-                    submitted = (handle, snapshot, self.steps, cur_rids)
+                    submitted = self._submit_step(
+                        snapshot, t_gap_start, "kv",
+                        lambda rids: ex.submit(
+                            (), step=self.steps + 1,
+                            request_ids=admit_rids or None, gen=gen),
+                        {"admits_landing": admit_rids or None})
                 if not self.pipelined:
                     # Sync shape: settle THIS step before the next
                     # dispatch; nothing ever carries across iterations.

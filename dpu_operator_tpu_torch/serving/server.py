@@ -7,7 +7,8 @@ serving-specific contract on top:
   POST /v1/generate   {"prompt": str | "prompt_vec": [d floats],
                        "max_tokens": int, "deadline_ms": int}
       200 {"id", "tokens", "truncated", "timings": {queue_ms,
-           decode_ms, total_ms}}
+           decode_ms, total_ms, and the batcher's step sums: steps,
+           submit_ms, device_ms, gap_ms, starved_steps, gc_ms}}
       400 malformed body / wrong prompt_vec width
       503 + Retry-After on queue-full, drain, or deadline shed — the
           backpressure answer: overload is REJECTED at the door so
@@ -351,6 +352,8 @@ class ServingServer:
         return self._draining.is_set()
 
     def start(self) -> "ServingServer":
+        # Cyclic-GC pauses: host.gc spans and the per-request gc_ms.
+        obs_trace.gc_pauses.install(self.tracer)
         self.pool.start()
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True, name="serving")
@@ -377,6 +380,7 @@ class ServingServer:
         self.queue.fail_all("server stopped")
         if self._thread:
             self._thread.join(timeout=5)
+        obs_trace.gc_pauses.remove(self.tracer)
 
     # -- drain ----------------------------------------------------------------
 

@@ -11,6 +11,7 @@ by the ``dpu_operator_tpu.`` prefix, since the port's own name,
 """
 
 import ast
+import functools
 import json
 import os
 import subprocess
@@ -86,7 +87,11 @@ COPIES = {
     "faults.py": (),
     "obs/flight.py": (),
     "obs/logging.py": (),
-    "obs/trace.py": (),
+    "obs/trace.py": ("Tracer.__init__", "Tracer._record",
+                     "Tracer.record_loose", "Tracer._take_loose",
+                     "Tracer.drain", "Tracer.drain_take_wire",
+                     "Tracer.dropped_total", "GcPauses", "_FIRST",
+                     "gc_pauses"),
     "obs/xproc.py": (),
     "parallel/fabric_collectives.py": (),
     "parallel/fabric_worker.py": ("_GLOO_TIMEOUT", "_init_gloo",
@@ -111,7 +116,7 @@ COPIES = {
                                       "_full_attention", "_ulysses_body",
                                       "make_ulysses_attention",
                                       "dense_attention_reference"),
-    "serving/api.py": (),
+    "serving/api.py": ("GenerateRequest", "GenerateRequest.timings_ms"),
     "serving/autoscale.py": (),
     "serving/bench_serving.py": ("paged_attn_equiv_lane", "paged_attn_bench",
                                  "sharded_kv_scaling", "decode_loop_rates",
@@ -120,9 +125,20 @@ COPIES = {
     "serving/disagg/pool.py": (),
     "serving/disagg/spec.py": (),
     "serving/disagg/stream.py": (),
-    "serving/executor.py": ("LocalExecutor",),
+    "serving/executor.py": ("LocalExecutor", "_Pending", "_run_timed",
+                            "_GuardedWorker.__init__", "_GuardedWorker._run",
+                            "_GuardedWorker.submit", "Executor.step_clock",
+                            "SyntheticExecutor.__init__",
+                            "SyntheticExecutor.step",
+                            "SyntheticExecutor.step_clock"),
     "serving/kvcache/allocator.py": (),
-    "serving/kvcache/executor.py": ("PagedKVExecutor",),
+    "serving/kvcache/executor.py": ("PagedKVExecutor",
+                                    "KVExecutorBase.step_clock",
+                                    "KVExecutorBase._raw_clock",
+                                    "SyntheticKVExecutor.__init__",
+                                    "SyntheticKVExecutor._dispatch",
+                                    "SyntheticKVExecutor._materialize",
+                                    "SyntheticKVExecutor._raw_clock"),
     "serving/kvcache/sharded.py": ("_on_stream", "_dev", "_after",
                                    "_new_stream", "_write_pages",
                                    "_RankState.__init__",
@@ -138,10 +154,24 @@ COPIES = {
     "serving/queue.py": (),
     "serving/router/gossip.py": (),
     "serving/router/router.py": (),
-    "serving/scheduler.py": ("ContinuousBatcher._run_pipelined",
-                             "ContinuousBatcher._run_kv",
-                             "ContinuousBatcher._drain_stopped"),
-    "serving/server.py": ("ServingServer.__init__",),
+    # The batcher's definitions the step timeline rewrites are checked
+    # against the reference's below (test_batcher_*), all but the
+    # timeline's own helpers.
+    "serving/scheduler.py": ("CPU_EVERY", "_Submitted",
+                             "ContinuousBatcher.__init__",
+                             "ContinuousBatcher._observe_step",
+                             "ContinuousBatcher._submit_step",
+                             "ContinuousBatcher._collect_step",
+                             "ContinuousBatcher._step_spans",
+                             "ContinuousBatcher._sync_step",
+                             "ContinuousBatcher._pop_admissions",
+                             "ContinuousBatcher._run_sync",
+                             "ContinuousBatcher._run_pipelined",
+                             "ContinuousBatcher._drain_stopped",
+                             "ContinuousBatcher._collect_retire_kv",
+                             "ContinuousBatcher._run_kv"),
+    "serving/server.py": ("ServingServer.__init__", "ServingServer.start",
+                          "ServingServer.stop"),
     "serving/sharded/executor.py": (),
     "serving/sharded/procset.py": ("ShardProcessSet.__init__",
                                    "ShardProcessSet._spawn"),
@@ -203,26 +233,147 @@ def test_copied_module_keeps_the_reference_code(rel):
         assert port[name] == ref[name], f"{rel}: {name} differs"
 
 
-@pytest.mark.parametrize("loop", ["_run_pipelined", "_run_kv"])
-def test_batcher_loop_is_the_reference_s_but_its_drain(loop):
-    """The port's two pipelined batcher loops are rewritten only by their
-    last statement, ``self._drain_stopped(prev)`` (the step left in
-    flight by a stop is collected): without it each is the reference's
-    loop, statement for statement."""
+# The step timeline's helpers: each stands in a batcher definition for a
+# run of the reference's statements that drives the executor.
+_HELPERS = {"_submit_step", "_collect_step", "_sync_step"}
+_DRIVES = {"submit", "collect", "step"}
+# The timeline's own state: a statement on it alone is added to the
+# reference's.
+_TIMELINE = {"_log", "_clock_of", "_cpu_mark"}
+
+
+def _attrs(node):
+    return {n.attr for n in ast.walk(node) if isinstance(n, ast.Attribute)}
+
+
+def _drives_executor(stmts):
+    return any(isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute)
+               and n.func.attr in _DRIVES
+               and ast.unparse(n.func.value) in ("ex", "self.executor")
+               for s in stmts for n in ast.walk(s))
+
+
+@functools.lru_cache(maxsize=None)
+def _port_series():
+    """Every string constant in the port's batcher: the series it
+    observes among them."""
+    tree = ast.parse(open(os.path.join(
+        ROOT, "dpu_operator_tpu_torch", "serving/scheduler.py")).read())
+    return {n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+
+
+def _observed(stmt):
+    """(series, value expression) of a ``self._observe`` statement."""
+    if (isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call)
+            and isinstance(stmt.value.func, ast.Attribute)
+            and stmt.value.func.attr == "_observe"
+            and len(stmt.value.args) >= 2
+            and isinstance(stmt.value.args[0], ast.Constant)):
+        return stmt.value.args[0].value, ast.dump(stmt.value.args[1])
+    return None
+
+
+def _dropped(stmt, siblings):
+    """A second observation of a value that a kept series already records,
+    under a series the port's batcher no longer has at all (the
+    reference's blocked-time alias)."""
+    got = _observed(stmt)
+    if got is None or got[0] in _port_series():
+        return False
+    return any(o is not None and o[1] == got[1] and o[0] in _port_series()
+               for o in map(_observed, siblings))
+
+
+def _same_stmts(port, ref, block=None):
+    """``port`` is ``ref`` statement for statement, but that a statement
+    calling one of the timeline's helpers stands for a run of ``ref``'s
+    that drives the executor, a statement on the timeline's own state
+    is added, and the alias is dropped. ``block``: all of ``ref``'s
+    block, where ``ref`` is its tail."""
+    block = ref if block is None else block
+    if ref and _dropped(ref[0], block) and _same_stmts(port, ref[1:],
+                                                       block):
+        return True
+    if not port:
+        return not ref
+    head, rest = port[0], port[1:]
+    if isinstance(head, (ast.Assign, ast.AnnAssign, ast.Expr)):
+        names = _attrs(head)
+        if names & _HELPERS:
+            return any(_drives_executor(ref[:k])
+                       and _same_stmts(rest, ref[k:], block)
+                       for k in range(1, len(ref) + 1))
+        if names & _TIMELINE:
+            return _same_stmts(rest, ref, block)
+    return (bool(ref) and _same_node(head, ref[0])
+            and _same_stmts(rest, ref[1:], block))
+
+
+def _same_node(p, r):
+    if type(p) is not type(r):
+        return False
+    for field in p._fields:
+        a, b = getattr(p, field), getattr(r, field)
+        if isinstance(a, list) and all(isinstance(x, ast.stmt)
+                                       for x in a + b) and (a or b):
+            if not _same_stmts(a, b):
+                return False
+        elif isinstance(a, list):
+            if len(a) != len(b) or not all(
+                    _same_node(x, y) if isinstance(x, ast.AST) else x == y
+                    for x, y in zip(a, b)):
+                return False
+        elif isinstance(a, ast.AST):
+            if not isinstance(b, ast.AST) or not _same_node(a, b):
+                return False
+        elif a != b:
+            return False
+    return True
+
+
+def _batcher_defs(name):
     rel = "serving/scheduler.py"
-    trees = {}
-    for pkg in ("dpu_operator_tpu", "dpu_operator_tpu_torch"):
+    out = []
+    for pkg in ("dpu_operator_tpu_torch", "dpu_operator_tpu"):
         tree = ast.parse(open(os.path.join(ROOT, pkg, rel)).read())
         cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
                    and n.name == "ContinuousBatcher")
-        trees[pkg] = next(n for n in cls.body
-                          if isinstance(n, ast.FunctionDef) and n.name == loop)
-    port, ref = trees["dpu_operator_tpu_torch"], trees["dpu_operator_tpu"]
-    last = port.body[-1]
-    assert ast.unparse(last) == "self._drain_stopped(prev)"
-    port.body = port.body[:-1]
-    for fn in (port, ref):
+        fn = next(n for n in cls.body
+                  if isinstance(n, ast.FunctionDef) and n.name == name)
         if isinstance(fn.body[0], ast.Expr) and isinstance(
                 fn.body[0].value, ast.Constant):
             fn.body = fn.body[1:]
-    assert ast.dump(port) == ast.dump(ref)
+        out.append(fn)
+    return out
+
+
+@pytest.mark.parametrize("loop", ["_run_pipelined", "_run_kv", "_run_sync",
+                                  "_collect_retire_kv"])
+def test_batcher_loop_is_the_reference_s_but_its_drain(loop):
+    """The port's batcher loops are the reference's, statement for
+    statement, but that they submit and collect each step through the
+    step timeline's helpers (``_submit_step`` and ``_collect_step``, or
+    ``_sync_step`` for the synchronous row loop), each in place of the
+    reference's run of statements that drives the executor, and that the
+    two pipelined loops end in ``self._drain_stopped(prev)`` (the step
+    left in flight by a stop is collected)."""
+    port, ref = _batcher_defs(loop)
+    if loop in ("_run_pipelined", "_run_kv"):
+        assert ast.unparse(port.body[-1]) == "self._drain_stopped(prev)"
+        port.body = port.body[:-1]
+    assert _attrs(port) & _HELPERS
+    assert _same_stmts(port.body, ref.body)
+
+
+@pytest.mark.parametrize("name", ["__init__", "_pop_admissions",
+                                  "_observe_step"])
+def test_batcher_definition_is_the_reference_s_but_the_timeline(name):
+    """The rest of the batcher the step timeline touches is the
+    reference's, statement for statement, but for statements on the
+    timeline's own state (its step log, the executor's step clock, the
+    thread's CPU clock mark) and the reference's observation of a series
+    the port no longer has (the blocked-time alias)."""
+    port, ref = _batcher_defs(name)
+    assert _same_stmts(port.body, ref.body)
+    assert ast.dump(port.args) == ast.dump(ref.args)
